@@ -1,0 +1,428 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`salsa_tpu_torch`) once through its serving path
+on one NVIDIA GPU and check every kernel on the way.
+
+    python3 chip_smoke.py
+
+Phases, each printing what it found; any failure raises and exits non-zero:
+  0. require CUDA; print the card (nvidia-smi) and switch TF32 off;
+  1. build the CUDA kernels (K1 spatial stage, K2 noise-floor tracker) with nvcc;
+  2. K1 and K2 against their plain PyTorch versions at the serving shapes, a
+     ragged shape and all-zero input;
+  3. CUDA SALSA extraction against the committed reference golden;
+  4. the full-width SALSA-FOA CRNN (configs/seld.yml) answering three requests
+     through SeldInferencePipeline, with launch counts, batch-vs-solo and
+     GPU-vs-CPU checks and DCASE CSVs written and read back;
+  5. times (CUDA-synchronized medians) of a request and of each kernel against
+     its plain version.
+The second-to-last line is a JSON summary of the kernels; the last line is
+{"ok": true, "device": {...}}. Weights are random, from a fixed seed.
+"""
+from __future__ import annotations
+
+import copy
+import csv
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from salsa_tpu_torch import configs
+from salsa_tpu_torch.dsp.stft import stft_planes
+from salsa_tpu_torch.features.registry import make_extractor
+from salsa_tpu_torch.features.salsa import (
+    SalsaParams,
+    band_planes,
+    noise_floor_mask,
+    noise_floor_mask_plain,
+)
+from salsa_tpu_torch.features.salsa_spatial import salsa_spatial, salsa_spatial_plain
+from salsa_tpu_torch.kernels.build import build_library, load_library
+from salsa_tpu_torch.models.seld import build_model, init_random_
+from salsa_tpu_torch.pipeline import SeldInferencePipeline
+from salsa_tpu_torch.submission import write_classwise_csv
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(REPO, "tests", "golden", "reference_features.npz")
+SEED = 20261016
+D = configs.DATA
+FS, N_FFT, HOP = D["fs"], D["n_fft"], D["hop_len"]
+N_CLASSES = D["n_classes"]
+INTERP = 16 * D["label_rate"] / (FS / HOP)  # encoder rate -> label rate: 2.0
+FOA = SalsaParams(fs=FS, n_fft=N_FFT, hop_length=HOP, fmax_doa=9000.0, audio_format="foa")
+MIC = SalsaParams(fs=FS, n_fft=N_FFT, hop_length=HOP, fmax_doa=4000.0, audio_format="mic")
+CARD = ""  # nvidia-smi name and power limit, set in phase 0
+
+
+def log(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def foa_clips(rng: np.random.Generator, n_clips: int, seconds: float) -> np.ndarray:
+    """(n_clips, 4, n) float32: diffuse noise plus one directional source per clip
+    (broadband noise burst and a tone, first-order ambisonic gains)."""
+    n = int(round(seconds * FS))
+    t = np.arange(n) / FS
+    out = 0.02 * rng.standard_normal((n_clips, 4, n))
+    for b in range(n_clips):
+        azi, ele = rng.uniform(-np.pi, np.pi), rng.uniform(-0.6, 0.6)
+        gains = np.array([1.0, np.sin(azi) * np.cos(ele), np.sin(ele), np.cos(azi) * np.cos(ele)])
+        on = (t % 10.0) < rng.uniform(3.0, 7.0)
+        src = (0.2 * rng.standard_normal(n) + np.sin(2 * np.pi * rng.uniform(300, 3000) * t)) * on
+        out[b] += gains[:, None] * src[None]
+    return out.astype(np.float32)
+
+
+def stft_band(waves: torch.Tensor, p: SalsaParams):
+    """STFT -> wrap-padded DOA-band planes (B, 4, bins, T + 2h), as extract_salsa."""
+    return band_planes(*stft_planes(waves, n_fft=p.n_fft, hop_length=p.hop_length), p)
+
+
+def spatial_kw(p: SalsaParams) -> dict:
+    return dict(n_hop=p.n_hopframes, audio_format=p.audio_format,
+                condition_number=p.condition_number, lower_bin=p.lower_bin, fs=p.fs,
+                n_fft=p.n_fft)
+
+
+def compare_spatial(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """K1's bound (tests/test_salsa_pallas.py): validity masks disagree on < 0.5%
+    of cells; features within atol/rtol 5e-3 where both are valid. Returns the max
+    abs error over those cells."""
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{what}: shape {got.shape} vs {want.shape} or non-finite")
+    m_got, m_want = np.any(got != 0, axis=1), np.any(want != 0, axis=1)
+    disagree = float(np.mean(m_got != m_want))
+    both = m_got & m_want
+    g, w = np.moveaxis(got, 1, -1)[both], np.moveaxis(want, 1, -1)[both]
+    err = float(np.abs(g - w).max()) if both.any() else 0.0
+    log("2", f"{what}: valid {m_want.mean():.4%}, mask disagreement {disagree:.4%}, "
+             f"max abs err {err:.3e} on {int(both.sum())} cells")
+    if disagree >= 0.005:
+        raise AssertionError(f"{what}: validity masks disagree on {disagree:.3%}")
+    np.testing.assert_allclose(g, w, atol=5e-3, rtol=5e-3, err_msg=what)
+    return err
+
+
+def cuda_ms(fn, repeats: int = 7, warmup: int = 2) -> float:
+    """Median CUDA-event time of fn() in ms, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+
+def phase0() -> str:
+    global CARD
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script "
+                         "needs an NVIDIA GPU and prints no result without one")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()
+    CARD = smi[0].strip()
+    print(CARD, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("0", f"torch {torch.__version__} cuda {torch.version.cuda} device "
+             f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}; "
+             f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+             f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    return CARD
+
+
+def phase1() -> None:
+    path, seconds = build_library()
+    load_library()
+    log("1", f"built {os.path.relpath(path, REPO)} in {seconds:.1f} s (0.0 = reused)")
+    log_file = path.with_suffix(".log")
+    if log_file.exists():
+        for line in log_file.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log("1", f"ptxas: {line.strip()}")
+
+
+def phase2(dev) -> dict:
+    rng = np.random.default_rng(SEED)
+    waves = torch.from_numpy(foa_clips(rng, 4, 60.0)).to(dev)
+    errs = {}
+    # K1 at the main-path shapes: FOA (4, 4, 191, 4807), MIC (4, 4, 84, 4807)
+    for p in (FOA, MIC):
+        xr, xi = stft_band(waves, p)
+        n_t = xr.shape[-1] - 2 * p.n_hopframes
+        mask, _ = noise_floor_mask(xr[:, 0].contiguous(), xi[:, 0].contiguous(),
+                                   n_hop=p.n_hopframes, n_frames=n_t)
+        got = salsa_spatial(xr, xi, mask, **spatial_kw(p))
+        torch.cuda.synchronize()
+        want = salsa_spatial_plain(xr, xi, mask, **spatial_kw(p))
+        errs[p.audio_format] = compare_spatial(got, want, f"K1 {p.audio_format} "
+                                                          f"{tuple(xr.shape)}")
+    # ragged shape and all-zero input
+    xr = torch.from_numpy(rng.standard_normal((3, 4, 11, 333 + 6)).astype(np.float32)).to(dev)
+    xr += xr[:, :1].clone()  # correlated channels: a coherent share of cells
+    xi = torch.from_numpy(rng.standard_normal((3, 4, 11, 339)).astype(np.float32)).to(dev)
+    xi += xi[:, :1].clone()
+    m = torch.from_numpy(rng.random((3, 11, 333)) < 0.7).to(dev)
+    compare_spatial(salsa_spatial(xr, xi, m, **spatial_kw(FOA)),
+                    salsa_spatial_plain(xr, xi, m, **spatial_kw(FOA)), "K1 ragged (3,4,11,339)")
+    z = torch.zeros(2, 4, 7, 106, device=dev)
+    for p in (FOA, MIC):
+        out = salsa_spatial(z, z, torch.ones(2, 7, 100, dtype=torch.bool, device=dev),
+                            **spatial_kw(p))
+        if not (torch.isfinite(out).all() and not out.any()):
+            raise AssertionError(f"K1 {p.audio_format} all-zero input: output not all 0")
+    log("2", "K1 all-zero input (FOA, MIC): output all 0 and finite")
+
+    # K2 vs the plain tracker (run on CPU copies: the kernel is bit-exact IEEE)
+    xr, xi = stft_band(waves, FOA)
+    xr0, xi0 = xr[:, 0].contiguous(), xi[:, 0].contiguous()
+    n_t = xr0.shape[-1] - 6
+    mask, (floor, cd) = noise_floor_mask(xr0, xi0, n_hop=3, n_frames=n_t)
+    p_mask, (p_floor, p_cd) = noise_floor_mask_plain(xr0.cpu(), xi0.cpu(), n_hop=3,
+                                                     n_frames=n_t)
+    k2_err = float((floor.cpu() - p_floor).abs().max())
+    if not (torch.equal(mask.cpu(), p_mask) and torch.equal(floor.cpu(), p_floor)
+            and torch.equal(cd.cpu(), p_cd)):
+        raise AssertionError(f"K2 {tuple(xr0.shape)}: not bit-equal to the plain tracker "
+                             f"(mask mismatches {int((mask.cpu() != p_mask).sum())}, "
+                             f"floor max diff {k2_err:.3e})")
+    # resume mid-clip from the plain tracker's state
+    cut = n_t // 2
+    _, st = noise_floor_mask_plain(xr0[..., :cut + 6].cpu(), xi0[..., :cut + 6].cpu(),
+                                   n_hop=3, n_frames=cut)
+    r_mask, (r_floor, r_cd) = noise_floor_mask(
+        xr0[..., cut:].contiguous(), xi0[..., cut:].contiguous(), n_hop=3,
+        n_frames=n_t - cut, state0=(st[0].to(dev), st[1].to(dev)))
+    if not (torch.equal(r_mask.cpu(), p_mask[..., cut:]) and torch.equal(r_floor.cpu(), p_floor)
+            and torch.equal(r_cd.cpu(), p_cd)):
+        raise AssertionError("K2 resumed from a mid-clip state differs from the plain tracker")
+    log("2", f"K2 {tuple(xr0.shape)}: mask ({p_mask.float().mean():.3%} set), floor and "
+             f"countdown bit-equal to the plain tracker, also resumed at frame {cut}")
+    errs["k2"] = k2_err
+    return errs
+
+
+def phase3(dev) -> None:
+    golden = np.load(GOLDEN)
+    audio = torch.from_numpy(golden["audio"])[None].to(dev)
+    for fmt in ("foa", "mic"):
+        ex = make_extractor("salsa", fmt, fs=int(golden["fs"]), n_fft=int(golden["n_fft"]),
+                            hop_length=int(golden["hop"]))
+        got = ex(audio)[0].cpu().numpy()
+        want = golden[f"salsa_{fmt}"]
+        if got.shape != want.shape:
+            raise AssertionError(f"golden {fmt}: shape {got.shape} vs {want.shape}")
+        # tests/test_golden_features.py:57-64
+        np.testing.assert_allclose(got[:4], want[:4], atol=2e-2, rtol=1e-3)
+        ref_mask, got_mask = np.any(want[4:] != 0, axis=0), np.any(got[4:] != 0, axis=0)
+        disagree = float(np.mean(ref_mask != got_mask))
+        if disagree >= 0.01:
+            raise AssertionError(f"golden {fmt}: masks disagree on {disagree:.3%}")
+        both = ref_mask & got_mask
+        np.testing.assert_allclose(got[4:][:, both], want[4:][:, both], atol=5e-3, rtol=1e-2)
+        log("3", f"golden salsa_{fmt} {got.shape}: spec max err "
+                 f"{np.abs(got[:4] - want[:4]).max():.3e} dB, mask disagreement "
+                 f"{disagree:.4%}, spatial max err "
+                 f"{np.abs(got[4:][:, both] - want[4:][:, both]).max():.3e}")
+
+
+def build_pipeline(dev):
+    model = init_random_(build_model(**configs.SELD_FOA), torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 1)
+    scaler = (rng.normal(-5.0, 1.0, (4, 1, 200)).astype(np.float32),
+              rng.uniform(5.0, 8.0, (4, 1, 200)).astype(np.float32))
+    ex = make_extractor("salsa", D["audio_format"], fs=FS, n_fft=N_FFT, hop_length=HOP)
+    return SeldInferencePipeline(ex, model, None, scaler, INTERP, N_CLASSES,
+                                 D["output_format"], device=dev)
+
+
+def check_outputs(ev, doa, n_clips, n_labels, what):
+    if ev.shape != (n_clips, n_labels, N_CLASSES) or doa.shape != (n_clips, n_labels,
+                                                                    3 * N_CLASSES):
+        raise AssertionError(f"{what}: shapes {ev.shape} {doa.shape}")
+    if not (np.isfinite(ev).all() and np.isfinite(doa).all()):
+        raise AssertionError(f"{what}: non-finite outputs")
+    if ev.min() < 0 or ev.max() > 1 or np.abs(doa).max() > 1:
+        raise AssertionError(f"{what}: event_prob outside [0,1] or doa outside [-1,1]")
+
+
+def phase4(dev, pipe, requests) -> dict:
+    salsa_spatial.launches = 0
+    noise_floor_mask.launches = 0
+    outs = [pipe(w) for w in requests]
+    torch.cuda.synchronize()
+    launches = {"salsa_spatial": salsa_spatial.launches,
+                "noise_floor": noise_floor_mask.launches}
+    log("4", f"served {len(requests)} requests {[w.shape for w in requests]}; launches "
+             f"{launches}")
+    if launches != {"salsa_spatial": len(requests), "noise_floor": len(requests)}:
+        raise AssertionError(f"expected one K1 and one K2 launch per request, got {launches}")
+
+    for w, (ev, doa) in zip(requests, outs):
+        n_labels = int(round(((1 + w.shape[-1] // HOP) // 16) * INTERP))
+        check_outputs(ev, doa, w.shape[0], n_labels, f"request {w.shape}")
+        for b in range(w.shape[0]):
+            ev1, doa1 = pipe(w[b:b + 1])
+            d = max(np.abs(ev1[0] - ev[b]).max(), np.abs(doa1[0] - doa[b]).max())
+            if d > 1e-4:
+                raise AssertionError(f"request {w.shape} clip {b}: solo run differs by {d:.3e}")
+        log("4", f"request {w.shape}: outputs {ev.shape} {doa.shape} in range and finite; "
+                 f"event_prob mean {ev.mean():.4f}, >=0.3 share {(ev >= 0.3).mean():.4f}; "
+                 f"each clip equals its solo run within 1e-4")
+
+    # one 60 s clip through the same port on the CPU (plain versions)
+    clip = requests[0][:1]
+    cpu_pipe = SeldInferencePipeline(pipe.extractor, copy.deepcopy(pipe.model).cpu(), None,
+                                     (pipe.mean.cpu().numpy(), pipe.std.cpu().numpy()),
+                                     INTERP, N_CLASSES, D["output_format"], device="cpu")
+    t0 = time.perf_counter()
+    ev_c, doa_c = cpu_pipe(clip)
+    cpu_s = time.perf_counter() - t0
+    ev_g, doa_g = outs[0][0][:1], outs[0][1][:1]
+    f_g = pipe.extractor(torch.from_numpy(clip).to(dev)).cpu()
+    f_c = pipe.extractor(torch.from_numpy(clip))
+    mask_dis = float(((f_g[:, 4:] != 0).any(1) != (f_c[:, 4:] != 0).any(1)).float().mean())
+    for name, g, c in (("event_prob", ev_g, ev_c), ("doa", doa_g, doa_c)):
+        err = np.abs(g - c)
+        share = float(np.mean(err <= 2e-3))
+        log("4", f"GPU vs CPU {name}: max abs err {err.max():.3e}, share within 2e-3 "
+                 f"{share:.5f} (spatial mask disagreement {mask_dis:.4%}; CPU took "
+                 f"{cpu_s:.1f} s)")
+        if share < 0.999 or err.max() > 2e-2:
+            raise AssertionError(f"GPU vs CPU {name}: share {share}, max {err.max()}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ev, doa = outs[0]
+        n_rows = 0
+        for b in range(ev.shape[0]):
+            path = os.path.join(tmp, f"clip{b}.csv")
+            write_classwise_csv(path, ev[b], doa[b], N_CLASSES, max_frames=ev.shape[1])
+            with open(path) as f:
+                rows = list(csv.reader(f))
+            expect = int((ev[b] >= 0.3).sum())
+            if len(rows) != expect or any(
+                    len(r) != 5 or not 0 <= int(r[0]) < ev.shape[1]
+                    or not 0 <= int(r[1]) < N_CLASSES or not -180 <= int(r[3]) < 180
+                    or not -90 <= int(r[4]) <= 90 for r in rows):
+                raise AssertionError(f"clip{b}.csv: {len(rows)} rows, expected {expect}")
+            n_rows += len(rows)
+        log("4", f"wrote and read back {ev.shape[0]} DCASE CSVs, {n_rows} event rows")
+    return launches
+
+
+def phase5(dev, pipe, request) -> dict:
+    secs = request.shape[0] * request.shape[-1] / FS
+
+    def host_ms(fn, repeats=7):
+        fn()
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    req_ms = host_ms(lambda: pipe(request))
+    log("5", f"request {request.shape} (4 x 60 s): {req_ms:.2f} ms median of 7, "
+             f"{secs / (req_ms / 1e3):.1f}x realtime [{CARD}]")
+    waves = torch.from_numpy(request).to(dev)
+    with torch.inference_mode():
+        feats = pipe._normalize(pipe.extractor(waves))
+        ext_ms = cuda_ms(lambda: pipe.extractor(waves))
+        model_ms = cuda_ms(lambda: pipe.model(feats))
+    log("5", f"  of which SALSA extraction {ext_ms:.2f} ms, CRNN {model_ms:.2f} ms "
+             f"(CUDA events, median of 7) [{CARD}]")
+
+    xr, xi = stft_band(waves, FOA)
+    n_t = xr.shape[-1] - 6
+    xr0, xi0 = xr[:, 0].contiguous(), xi[:, 0].contiguous()
+    mask, _ = noise_floor_mask(xr0, xi0, n_hop=3, n_frames=n_t)
+    kw = spatial_kw(FOA)
+    times = {
+        "k1": cuda_ms(lambda: salsa_spatial(xr, xi, mask, **kw)),
+        "k1_plain": cuda_ms(lambda: salsa_spatial_plain(xr, xi, mask, **kw)),
+        "k2": cuda_ms(lambda: noise_floor_mask(xr0, xi0, n_hop=3, n_frames=n_t)),
+        "k2_plain": cuda_ms(lambda: noise_floor_mask_plain(xr0, xi0, n_hop=3, n_frames=n_t),
+                            repeats=5, warmup=1),
+    }
+    log("5", f"K1 salsa_spatial {tuple(xr.shape)}: kernel {times['k1']:.3f} ms, plain "
+             f"{times['k1_plain']:.3f} ms [{CARD}]")
+    log("5", f"K2 noise_floor {tuple(xr0.shape)}: kernel {times['k2']:.3f} ms, plain "
+             f"{times['k2_plain']:.3f} ms [{CARD}]")
+
+    # where a request's device time goes: kernel and copy activities only (op-level
+    # rows repeat the time of the kernels they launch)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe(request)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and dev_us(e) > 0 and not e.key.startswith("Activity Buffer")]
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    if events:
+        log("5", f"profile of one request: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms "
+                 f"wall ({1 - busy_ms / wall_ms:.1%} idle, profiler on) [{CARD}]")
+        for e in sorted(events, key=dev_us, reverse=True)[:12]:
+            log("5", f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    else:
+        log("5", "profile of one request: no device time recorded (not measured)")
+    return times
+
+
+def main() -> None:
+    card = phase0()
+    dev = torch.device("cuda", 0)
+    phase1()
+    errs = phase2(dev)
+    phase3(dev)
+    rng = np.random.default_rng(SEED + 2)
+    requests = [foa_clips(rng, 4, 60.0), foa_clips(rng, 2, 60.0), foa_clips(rng, 1, 20.7)]
+    pipe = build_pipeline(dev)
+    launches = phase4(dev, pipe, requests)
+    times = phase5(dev, pipe, requests[0])
+    kernels = [
+        {"name": "salsa_spatial", "route": "cuda",
+         "source": "salsa_tpu_torch/csrc/salsa_spatial.cu",
+         "replaces": "salsa_tpu/features/salsa_pallas.py:138",
+         "launches": launches["salsa_spatial"], "max_abs_err": errs["foa"],
+         "ms": times["k1"], "plain_ms": times["k1_plain"]},
+        {"name": "noise_floor", "route": "cuda",
+         "source": "salsa_tpu_torch/csrc/noise_floor.cu",
+         "replaces": "salsa_tpu/features/salsa.py:82",
+         "launches": launches["noise_floor"], "max_abs_err": errs["k2"],
+         "ms": times["k2"], "plain_ms": times["k2_plain"]},
+    ]
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
+    sys.exit(0)

@@ -1,0 +1,242 @@
+"""SALSA feature (counterpart of `salsa_tpu.features.salsa`): multichannel
+log-linear spectrogram + normalized principal eigenvector of the local spatial
+covariance at each time-frequency bin of the DOA band.
+
+The noise-floor tracker is K2 (`csrc/noise_floor.cu`, one thread per (clip, bin)
+looping over frames) and the spatial stage is K1 (`features/salsa_spatial.py`).
+On CPU tensors both run their plain PyTorch versions. Layouts follow `salsa_tpu`
+with its `vmap` written out as a leading batch dimension: waves (B, 4, n_samples),
+band planes (B, C, bins, T + 2h), features (B, 7, T, F).
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from salsa_tpu_torch.dsp.filterbank import high_freq_compression_matrix
+from salsa_tpu_torch.dsp.stft import power_to_db, stft_planes
+from salsa_tpu_torch.features.salsa_spatial import salsa_spatial
+from salsa_tpu_torch.kernels.build import check_launch, load_library
+
+# tracker constants (reference salsa_feature_extraction.py:28-93): alpha 0.02,
+# slow factor 0.1, 3-frame countdown; float32 as the kernel receives them
+N_SIG_FRAMES = 3
+_ALPHA = 0.02
+FLOOR_UP = np.float32(1.0 + _ALPHA).item()
+FLOOR_UP_SLOW = np.float32(1.0 + 0.1 * _ALPHA).item()
+FLOOR_DOWN = np.float32(1.0 - _ALPHA).item()
+FLOOR_MIN = 1e-6
+
+
+@dataclass(frozen=True)
+class SalsaParams:
+    fs: int = 24000
+    n_fft: int = 512
+    hop_length: int = 300
+    win_length: int | None = None
+    fmin_doa: float = 50.0
+    fmax_doa: float = 9000.0  # 9000 for FOA, 4000 for MIC
+    audio_format: str = "foa"  # 'foa' | 'mic'
+    condition_number: float = 5.0
+    n_hopframes: int = 3
+    compress_high_freq: bool = True
+
+    @property
+    def lower_bin(self) -> int:
+        return max(1, int(np.floor(self.fmin_doa * self.n_fft / self.fs)))
+
+    @property
+    def upper_bin(self) -> int:
+        fmax_doa = min(self.fmax_doa, self.fs // 2)
+        return int(np.floor(fmax_doa * self.n_fft / self.fs))
+
+    @property
+    def freq_dim(self) -> int:
+        if self.compress_high_freq:
+            return {512: 200, 256: 100}[self.n_fft]
+        return self.n_fft // 2
+
+
+# ---------------------------------------------------------------------------
+# Noise-floor tracker: plain versions
+# ---------------------------------------------------------------------------
+
+def tracking_magspec_planes(xr0: torch.Tensor, xi0: torch.Tensor, n_hopframes: int,
+                            n_frames: int) -> torch.Tensor:
+    """3-frame RMS magnitude of channel 0 from re/im planes (..., bins, T + 2h):
+    sqrt((|x[t]|^2 + |x[t-1]|^2 + |x[t-2]|^2) / 3), summed in that order."""
+    acc = None
+    for i in range(3):
+        sl = slice(n_hopframes - i, n_hopframes - i + n_frames)
+        p = xr0[..., sl] * xr0[..., sl] + xi0[..., sl] * xi0[..., sl]
+        acc = p if acc is None else acc + p
+    return torch.sqrt(acc / 3.0)
+
+
+def tracker_init_state(magspec: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Clip-start tracker state for magspec (..., bins, T): floor = 0.5 * mean of the
+    first 5 frames (summed in frame order, as K2 does), countdown = 3."""
+    if magspec.shape[-1] < 5:
+        raise ValueError(f"the tracker's initial floor needs >= 5 frames, got "
+                         f"{magspec.shape[-1]}")
+    s = magspec[..., 0]
+    for t in range(1, 5):
+        s = s + magspec[..., t]
+    floor0 = s / 5.0 * 0.5
+    countdown0 = torch.full(magspec.shape[:-1], N_SIG_FRAMES, dtype=torch.int32,
+                            device=magspec.device)
+    return floor0, countdown0
+
+
+def noise_floor_scan(magspec: torch.Tensor, state0: tuple[torch.Tensor, torch.Tensor],
+                     snr_ratio: float = 1.5):
+    """Up/down noise-floor tracker from an explicit entering state.
+
+    magspec: (..., bins, T) tracking magnitudes; state0 = (floor f32, countdown
+    int32), each (..., bins). Returns (final_state, mask) with mask (..., bins, T)
+    bool. A Python loop over frames, vectorized over the leading dims.
+    """
+    floor, countdown = state0
+    up = torch.tensor(FLOOR_UP, dtype=torch.float32, device=magspec.device)
+    up_slow = torch.tensor(FLOOR_UP_SLOW, dtype=torch.float32, device=magspec.device)
+    down = torch.tensor(FLOOR_DOWN, dtype=torch.float32, device=magspec.device)
+    frames = magspec.movedim(-1, 0).contiguous()
+    sig = []
+    for xf in frames:
+        above = xf > floor
+        countdown = torch.where(above, countdown - 1, N_SIG_FRAMES).to(torch.int32)
+        factor = torch.where(above, torch.where(countdown < 0, up_slow, up), down)
+        floor = torch.clamp(floor * factor, min=FLOOR_MIN)
+        sig.append(xf > snr_ratio * floor)
+    return (floor, countdown), torch.stack(sig, dim=-1)
+
+
+def noise_floor_mask_plain(xr0, xi0, *, n_hop, n_frames, snr_ratio=1.5, state0=None):
+    """Plain version of K2: tracking magnitude -> (initial state) -> tracker."""
+    mag = tracking_magspec_planes(xr0, xi0, n_hop, n_frames)
+    if state0 is None:
+        state0 = tracker_init_state(mag)
+    final, mask = noise_floor_scan(mag, state0, snr_ratio)
+    return mask, final
+
+
+# ---------------------------------------------------------------------------
+# K2 wrapper
+# ---------------------------------------------------------------------------
+
+def noise_floor_mask(xr0: torch.Tensor, xi0: torch.Tensor, *, n_hop: int, n_frames: int,
+                     snr_ratio: float = 1.5, state0=None):
+    """Noise-tracker mask from channel-0 planes xr0/xi0 (B, bins, n_frames + 2*n_hop).
+
+    Returns (mask (B, bins, n_frames) bool, (floor f32, countdown int32) (B, bins)),
+    the state after the last frame. state0 resumes from a given entering state;
+    None starts the clip (floor from the first 5 frames, countdown 3). CUDA tensors
+    launch `csrc/noise_floor.cu` once for the batch; CPU tensors run
+    `noise_floor_mask_plain`. Anything else raises.
+    """
+    if xr0.dim() != 3 or xr0.shape != xi0.shape:
+        raise ValueError(f"xr0/xi0 must be matching (B, bins, T+2h) planes, got "
+                         f"{tuple(xr0.shape)} and {tuple(xi0.shape)}")
+    B, n_bins, n_padded = xr0.shape
+    if n_hop < 2 or n_padded != n_frames + 2 * n_hop:
+        raise ValueError(f"planes of {n_padded} frames do not hold n_frames={n_frames} "
+                         f"with n_hop={n_hop} (>= 2) context frames per side")
+    if state0 is None and n_frames < 5:
+        raise ValueError(f"the tracker's initial floor needs >= 5 frames, got {n_frames}")
+    if xr0.dtype != torch.float32 or xi0.dtype != torch.float32 or xr0.device != xi0.device:
+        raise TypeError("xr0/xi0 must be float32 tensors on one device")
+    if state0 is not None:
+        floor0, countdown0 = state0
+        if (floor0.shape != (B, n_bins) or countdown0.shape != (B, n_bins)
+                or floor0.dtype != torch.float32 or countdown0.dtype != torch.int32
+                or floor0.device != xr0.device or countdown0.device != xr0.device):
+            raise ValueError("state0 must be (floor f32, countdown int32), each "
+                             f"{(B, n_bins)} on {xr0.device}")
+    if xr0.device.type == "cpu":
+        return noise_floor_mask_plain(xr0, xi0, n_hop=n_hop, n_frames=n_frames,
+                                      snr_ratio=snr_ratio, state0=state0)
+    if xr0.device.type != "cuda":
+        raise ValueError(f"noise_floor_mask runs on cuda or cpu tensors, not {xr0.device}")
+    if not (xr0.is_contiguous() and xi0.is_contiguous()
+            and (state0 is None or all(s.is_contiguous() for s in state0))):
+        raise ValueError("noise_floor_mask needs contiguous planes and state")
+    lib = load_library()
+    dev = xr0.device
+    mask = torch.empty((B, n_bins, n_frames), dtype=torch.bool, device=dev)
+    floor = torch.empty((B, n_bins), dtype=torch.float32, device=dev)
+    countdown = torch.empty((B, n_bins), dtype=torch.int32, device=dev)
+    f0, c0 = (None, None) if state0 is None else (state0[0].data_ptr(), state0[1].data_ptr())
+    with torch.cuda.device(dev):
+        err = lib.noise_floor_launch(
+            xr0.data_ptr(), xi0.data_ptr(), f0, c0, mask.data_ptr(), floor.data_ptr(),
+            countdown.data_ptr(), B * n_bins, n_frames, n_hop, float(snr_ratio),
+            FLOOR_UP, FLOOR_UP_SLOW, FLOOR_DOWN, torch.cuda.current_stream().cuda_stream)
+    check_launch("noise_floor_mask", err)
+    noise_floor_mask.launches += 1
+    return mask, (floor, countdown)
+
+
+noise_floor_mask.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Full SALSA feature
+# ---------------------------------------------------------------------------
+
+def eig_features_from_planes(xr: torch.Tensor, xi: torch.Tensor, sig_mask: torch.Tensor,
+                             params: SalsaParams) -> torch.Tensor:
+    """Masked principal-eigenvector features, (B, 3, bins, T), from (B, 4, bins,
+    T + 2h) re/im planes carrying their covariance context. Always the K1 path:
+    non-4-channel input raises rather than changing algorithm."""
+    p = params
+    return salsa_spatial(
+        xr, xi, sig_mask, n_hop=p.n_hopframes, audio_format=p.audio_format,
+        condition_number=p.condition_number, lower_bin=p.lower_bin, fs=p.fs, n_fft=p.n_fft)
+
+
+def band_planes(re: torch.Tensor, im: torch.Tensor, params: SalsaParams):
+    """STFT planes (B, C, T, bins) -> the DOA band as contiguous (B, C, bins_band,
+    T + 2h) planes, wrap-padded by h frames per side: the covariance context wraps
+    from the clip's end and start."""
+    p, h = params, params.n_hopframes
+
+    def band(x):
+        x = x[..., p.lower_bin:p.upper_bin].transpose(-1, -2)
+        return torch.cat([x[..., -h:], x, x[..., :h]], dim=-1).contiguous()
+
+    return band(re), band(im)
+
+
+@functools.lru_cache(maxsize=8)
+def _compression_matrix(n_fft: int, compress: bool, device: torch.device) -> torch.Tensor:
+    """`high_freq_compression_matrix` as a float32 tensor on `device`, made once per
+    (n_fft, compress, device)."""
+    return torch.from_numpy(high_freq_compression_matrix(n_fft, compress)).to(device)
+
+
+def extract_salsa(waves: torch.Tensor, params: SalsaParams) -> torch.Tensor:
+    """(B, 4, n_samples) -> (B, 7, n_frames, freq_dim) SALSA feature.
+
+    Channels 0-3: log-linear compressed spectrograms; channels 4-6: normalized
+    principal eigenvectors (zero-padded above upper_bin).
+    """
+    p = params
+    if waves.dim() != 3:
+        raise ValueError(f"waves must be (B, n_channels, n_samples), got {tuple(waves.shape)}")
+    re, im = stft_planes(waves, n_fft=p.n_fft, hop_length=p.hop_length,
+                         win_length=p.win_length)  # (B, 4, T, bins) each
+    W = _compression_matrix(p.n_fft, p.compress_high_freq, waves.device)
+    power = re * re + im * im
+    log_spec = power_to_db(power @ W.T)
+
+    n_t = re.shape[-2]
+    xr_pad, xi_pad = band_planes(re, im, p)
+    sig_mask, _ = noise_floor_mask(xr_pad[:, 0].contiguous(), xi_pad[:, 0].contiguous(),
+                                   n_hop=p.n_hopframes, n_frames=n_t)
+    eig = eig_features_from_planes(xr_pad, xi_pad, sig_mask, p).transpose(-1, -2)
+    eig_full = F.pad(eig, (0, p.freq_dim - (p.upper_bin - p.lower_bin)))
+    return torch.cat([log_spec, eig_full], dim=1)

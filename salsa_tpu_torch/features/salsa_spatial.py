@@ -1,0 +1,236 @@
+"""K1: the fused SALSA spatial stage (counterpart of
+`salsa_tpu.features.salsa_pallas`).
+
+`salsa_spatial` launches the CUDA kernel `csrc/salsa_spatial.cu` on CUDA tensors
+and runs `salsa_spatial_plain`, the same arithmetic in vectorized PyTorch, on CPU
+tensors. Per (clip, bin, frame): 7-frame covariance -> R/tr(R) squared 3 times ->
+principal eigenvector and the top two eigenvalues -> coherence test AND tracker
+mask -> FOA direction or MIC phase features, zero where invalid.
+
+The mirror follows the kernel (3 squarings, as `salsa_pallas.N_SQUARINGS`), not
+`salsa_tpu.features.salsa.principal_eigs_power`, which squares 4 times at the
+default 20 power iterations. MIC features use atan2 where the Pallas kernel uses a
+polynomial (<= 1e-5 rad apart).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from salsa_tpu_torch.kernels.build import check_launch, load_library
+
+C = 4
+N_SQUARINGS = 3
+SPEED_OF_SOUND = 343.0
+
+# jax.random.normal(PRNGKey(20211021), (2, 2, 4)) as salsa_pallas._start_vectors
+# returns it, frozen as float32 literals (also in csrc/salsa_spatial.cu)
+START_S0 = np.array([0.72769094 + 0.32384574j, -0.9307311 - 2.380504j,
+                     1.1572573 - 1.076081j, 0.88554 + 0.3645283j], dtype=np.complex64)
+START_S1 = np.array([-2.3784811 + 0.20879258j, -1.759696 + 1.0385665j,
+                     0.7045168 + 0.97886115j, 0.38834825 + 0.60916615j], dtype=np.complex64)
+
+
+def mic_delta(fs: int, n_fft: int) -> float:
+    """Phase-to-DOA scale: 2*pi*fs / (n_fft * c)."""
+    return 2.0 * np.pi * fs / (n_fft * SPEED_OF_SOUND)
+
+
+class _Cplx:
+    """(re, im) tensor pair with complex arithmetic, in the kernel's term order."""
+
+    __slots__ = ("re", "im")
+
+    def __init__(self, re, im):
+        self.re = re
+        self.im = im
+
+    def __add__(self, o):
+        return _Cplx(self.re + o.re, self.im + o.im)
+
+    def __sub__(self, o):
+        return _Cplx(self.re - o.re, self.im - o.im)
+
+    def __mul__(self, o):
+        return _Cplx(self.re * o.re - self.im * o.im, self.re * o.im + self.im * o.re)
+
+    def conj(self):
+        return _Cplx(self.re, -self.im)
+
+    def scale(self, s):
+        return _Cplx(self.re * s, self.im * s)
+
+
+def _herm(H, i, j):
+    """H holds the upper triangle (i <= j) of a Hermitian matrix."""
+    return H[(i, j)] if i <= j else H[(j, i)].conj()
+
+
+def _matvec(H, v):
+    out = []
+    for i in range(C):
+        acc = _herm(H, i, 0) * v[0]
+        for j in range(1, C):
+            acc = acc + _herm(H, i, j) * v[j]
+        out.append(acc)
+    return out
+
+
+def _trace(H):
+    t = H[(0, 0)].re
+    for i in range(1, C):
+        t = t + H[(i, i)].re
+    return t
+
+
+def _square_renorm(H):
+    out = {}
+    for i in range(C):
+        for j in range(i, C):
+            acc = _herm(H, i, 0) * _herm(H, 0, j)
+            for k in range(1, C):
+                acc = acc + _herm(H, i, k) * _herm(H, k, j)
+            out[(i, j)] = acc
+    inv = 1.0 / (_trace(out) + 1e-30)
+    return {ij: out[ij].scale(inv) for ij in out}
+
+
+def _dot_terms(terms):
+    acc = terms[0]
+    for t in terms[1:]:
+        acc = acc + t
+    return acc
+
+
+def _normalize(v):
+    nrm2 = _dot_terms([v[c].re * v[c].re + v[c].im * v[c].im for c in range(C)])
+    inv = torch.rsqrt(nrm2 + 1e-30)
+    return [vc.scale(inv) for vc in v]
+
+
+def _rayleigh(H, v):
+    hv = _matvec(H, v)
+    return _dot_terms([v[c].re * hv[c].re + v[c].im * hv[c].im for c in range(C)])
+
+
+def _orth(u, v):
+    dr = _dot_terms([v[c].re * u[c].re + v[c].im * u[c].im for c in range(C)])
+    di = _dot_terms([v[c].re * u[c].im - v[c].im * u[c].re for c in range(C)])
+    return [u[c] - _Cplx(dr * v[c].re - di * v[c].im, dr * v[c].im + di * v[c].re)
+            for c in range(C)]
+
+
+def _const_vec(s, like):
+    return [_Cplx(torch.full_like(like, float(s[c].real)),
+                  torch.full_like(like, float(s[c].imag))) for c in range(C)]
+
+
+def salsa_spatial_plain(xr, xi, sig_mask, *, n_hop, audio_format, condition_number,
+                        lower_bin, fs, n_fft):
+    """Plain PyTorch version of the K1 kernel; same signature and arithmetic order.
+
+    xr, xi: (B, 4, n_bins, n_frames + 2*n_hop) float32 STFT planes carrying n_hop
+    context frames per side; sig_mask: (B, n_bins, n_frames) bool.
+    Returns (B, 3, n_bins, n_frames) float32, zero where invalid.
+    """
+    n_frames = xr.shape[-1] - 2 * n_hop
+    win = 2 * n_hop + 1
+    x = [[_Cplx(xr[:, c, :, k:k + n_frames], xi[:, c, :, k:k + n_frames])
+          for c in range(C)] for k in range(win)]
+
+    inv_win = np.float32(1.0 / win).item()
+    R = {}
+    for i in range(C):
+        for j in range(i, C):
+            acc = x[0][i] * x[0][j].conj()
+            for k in range(1, win):
+                acc = acc + x[k][i] * x[k][j].conj()
+            R[(i, j)] = acc.scale(inv_win)
+
+    inv_tr = 1.0 / (_trace(R) + 1e-30)
+    Rn = {ij: R[ij].scale(inv_tr) for ij in R}
+    P = Rn
+    for _ in range(N_SQUARINGS):
+        P = _square_renorm(P)
+
+    like = R[(0, 0)].re
+    v = _normalize(_matvec(P, _const_vec(START_S0, like)))
+    v = _normalize(_matvec(P, v))
+    lam0 = _rayleigh(R, v)
+
+    u = _orth(_const_vec(START_S1, like), v)
+    for _ in range(3):
+        u = _normalize(_orth(_matvec(Rn, u), v))
+    lam1 = _rayleigh(R, u)
+
+    valid = sig_mask & (lam0 > lam1 * condition_number)
+
+    if audio_format == "foa":
+        inv_v0 = 1.0 / (v[0].re * v[0].re + v[0].im * v[0].im + 1e-30)
+        comps = [(v[c].re * v[0].re + v[c].im * v[0].im) * inv_v0 for c in range(1, C)]
+        nrm = torch.rsqrt(_dot_terms([r * r for r in comps]) + 1e-30)
+        feats = [r * nrm for r in comps]
+    else:
+        abs_bin = torch.arange(lower_bin, lower_bin + xr.shape[2], dtype=torch.float32,
+                               device=xr.device)[:, None]
+        inv_bin = 1.0 / (np.float32(mic_delta(fs, n_fft)).item() * abs_bin)
+        feats = []
+        for c in range(1, C):
+            pr = v[c].re * v[0].re + v[c].im * v[0].im
+            pi = v[c].im * v[0].re - v[c].re * v[0].im
+            feats.append(torch.atan2(pi, pr) * inv_bin)
+
+    out = torch.stack(feats, dim=1)
+    return torch.where(valid[:, None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def _check_inputs(xr, xi, sig_mask, n_hop, audio_format):
+    if audio_format not in ("foa", "mic"):
+        raise ValueError(f"unknown audio format '{audio_format}'")
+    if xr.dim() != 4 or xr.shape != xi.shape:
+        raise ValueError(f"xr/xi must be matching (B, C, bins, T+2h) planes, got "
+                         f"{tuple(xr.shape)} and {tuple(xi.shape)}")
+    if xr.shape[1] != C:
+        raise NotImplementedError(
+            f"the spatial kernel takes {C} channels, got {xr.shape[1]} (other channel "
+            "counts: ROADMAP queue 1, slice 5)")
+    B, _, n_bins, n_padded = xr.shape
+    n_frames = n_padded - 2 * n_hop
+    if B < 1 or n_bins < 1 or n_frames < 1:
+        raise ValueError(f"empty spatial input {tuple(xr.shape)} with n_hop={n_hop}")
+    if sig_mask.shape != (B, n_bins, n_frames):
+        raise ValueError(f"sig_mask must be {(B, n_bins, n_frames)}, got {tuple(sig_mask.shape)}")
+    if xr.dtype != torch.float32 or xi.dtype != torch.float32 or sig_mask.dtype != torch.bool:
+        raise TypeError("xr/xi must be float32 and sig_mask bool")
+    if not (xr.device == xi.device == sig_mask.device):
+        raise ValueError("xr, xi and sig_mask must be on one device")
+    return B, n_bins, n_frames
+
+
+def salsa_spatial(xr, xi, sig_mask, *, n_hop, audio_format, condition_number, lower_bin,
+                  fs, n_fft):
+    """K1 wrapper. CUDA tensors launch `csrc/salsa_spatial.cu` (one launch for the
+    whole batch); CPU tensors run `salsa_spatial_plain`. Shapes as the plain
+    version; any other device, dtype, shape or layout raises."""
+    B, n_bins, n_frames = _check_inputs(xr, xi, sig_mask, n_hop, audio_format)
+    kw = dict(n_hop=n_hop, audio_format=audio_format, condition_number=condition_number,
+              lower_bin=lower_bin, fs=fs, n_fft=n_fft)
+    if xr.device.type == "cpu":
+        return salsa_spatial_plain(xr, xi, sig_mask, **kw)
+    if xr.device.type != "cuda":
+        raise ValueError(f"salsa_spatial runs on cuda or cpu tensors, not {xr.device}")
+    if not (xr.is_contiguous() and xi.is_contiguous() and sig_mask.is_contiguous()):
+        raise ValueError("salsa_spatial needs contiguous xr, xi and sig_mask")
+    lib = load_library()
+    out = torch.empty((B, C - 1, n_bins, n_frames), dtype=torch.float32, device=xr.device)
+    with torch.cuda.device(xr.device):
+        err = lib.salsa_spatial_launch(
+            xr.data_ptr(), xi.data_ptr(), sig_mask.data_ptr(), out.data_ptr(), B, n_bins,
+            n_frames, n_hop, int(audio_format == "mic"), float(condition_number),
+            lower_bin, float(mic_delta(fs, n_fft)), torch.cuda.current_stream().cuda_stream)
+    check_launch("salsa_spatial", err)
+    salsa_spatial.launches += 1
+    return out
+
+
+salsa_spatial.launches = 0

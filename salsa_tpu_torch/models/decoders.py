@@ -1,0 +1,60 @@
+"""SELD decoder (counterpart of `salsa_tpu.models.decoders` and `models/rnn.py`):
+frequency pooling -> 2-layer GRU/BiGRU (dropout 0.3 between layers) -> SED head
+FC->relu->FC and three DOA heads with tanh, concatenated (x | y | z) per class;
+0.2 dropout before each head layer. Dropout acts only in training mode.
+`output_format` is accepted for config compatibility; the pipeline applies it.
+
+The recurrence is `nn.GRU`, whose gate order (r, z, n) and candidate
+n = tanh(W_in x + b_in + r * (W_hn h + b_hn)) are the flax GRU's. Module names
+are the reference's torch names (`gru`, `event_fc_1`, ...).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+class SeldDecoder(nn.Module):
+    def __init__(self, n_output_channels: int = 512, n_classes: int = 12,
+                 output_format: str = "reg_xyz", decoder_type: str = "bigru",
+                 decoder_size: int = 256, freq_pool: str = "avg",
+                 compute_dtype: str | None = None):
+        super().__init__()
+        if decoder_type not in ("gru", "bigru"):
+            raise NotImplementedError(
+                f"decoder_type '{decoder_type}' is not ported yet (lstm, bilstm and "
+                "transformer: ROADMAP queue 1, slice 2)")
+        if freq_pool not in ("avg", "max", "avg_max"):
+            raise ValueError(f"unknown freq pool '{freq_pool}'")
+        if compute_dtype is not None:
+            raise NotImplementedError(
+                "compute_dtype (bf16 autocast) is not ported yet: ROADMAP queue 1, slice 4")
+        self.freq_pool = freq_pool
+        bidirectional = decoder_type == "bigru"
+        self.gru = nn.GRU(n_output_channels, decoder_size, num_layers=2, batch_first=True,
+                          bidirectional=bidirectional, dropout=0.3)
+        fc = decoder_size * (2 if bidirectional else 1)
+        self.head_dropout = nn.Dropout(0.2)
+        for name in ("event", "x", "y", "z"):
+            setattr(self, f"{name}_fc_1", nn.Linear(fc, fc // 2))
+            setattr(self, f"{name}_fc_2", nn.Linear(fc // 2, n_classes))
+
+    def _head(self, h: torch.Tensor, name: str) -> torch.Tensor:
+        h = torch.relu(getattr(self, f"{name}_fc_1")(self.head_dropout(h)))
+        return getattr(self, f"{name}_fc_2")(self.head_dropout(h))
+
+    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        """x: (B, C, T', F') encoder output -> framewise outputs at T'."""
+        if self.freq_pool == "avg":
+            x = x.mean(dim=3)
+        elif self.freq_pool == "max":
+            x = x.amax(dim=3)
+        else:
+            x = x.mean(dim=3) + x.amax(dim=3)
+        x, _ = self.gru(x.transpose(1, 2))  # (B, T', C) -> (B, T', fc)
+        event_logit = self._head(x, "event")
+        doa = torch.cat([torch.tanh(self._head(x, axis)) for axis in ("x", "y", "z")], dim=-1)
+        return {"event_frame_logit": event_logit, "doa_frame_output": doa}
+
+
+DECODERS = {"SeldDecoder": SeldDecoder}

@@ -1,0 +1,80 @@
+"""End-to-end SELD serving (counterpart of `salsa_tpu.pipeline`): raw multichannel
+waves -> SALSA features (K2 tracker + K1 spatial kernel on CUDA) -> scaler ->
+CRNN -> index-repeat to label rate -> event probabilities + DOA xyz, all on one
+device, numpy in and out."""
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from salsa_tpu_torch.features.registry import FeatureExtractor
+from salsa_tpu_torch.models.seld import interpolate_index_repeat
+
+
+class SeldInferencePipeline:
+    """waveform (n_ch, n_samples) or batch (B, n_ch, n_samples) -> predictions.
+
+    Args:
+        extractor: a FeatureExtractor from `make_extractor`.
+        model: a SeldNet.
+        state_dict: weights for `model`: a torch state_dict (loaded strictly), flax
+            variables {'params', 'batch_stats'} (through `interop`), or None to
+            serve the model's current weights.
+        scaler: (mean, std) arrays of shape (n_scaler_chan, 1, F); only the leading
+            n_scaler_chan feature channels are normalized (SALSA convention).
+        interp_ratio: encoder-rate -> label-rate index-repeat factor.
+        device: where features and model run, e.g. torch.device("cuda", 0).
+    """
+
+    def __init__(self, extractor: FeatureExtractor, model: nn.Module,
+                 state_dict: Mapping | None, scaler, interp_ratio: float, n_classes: int,
+                 output_format: str = "reg_xyz", device: torch.device | str = "cpu"):
+        if output_format not in ("reg_xyz", "accdoa"):
+            raise ValueError(f"unknown output format '{output_format}'")
+        self.device = torch.device(device)
+        if state_dict is not None and "params" in state_dict:
+            from salsa_tpu_torch.interop import load_flax_variables
+
+            load_flax_variables(model, state_dict["params"], state_dict["batch_stats"])
+        elif state_dict is not None:
+            model.load_state_dict(state_dict, strict=True)
+        self.extractor = extractor
+        self.model = model.to(self.device).eval()
+        mean, std = scaler
+        self.mean = torch.as_tensor(np.asarray(mean, np.float32), device=self.device)
+        self.std = torch.as_tensor(np.asarray(std, np.float32), device=self.device)
+        self.interp_ratio = float(interp_ratio)
+        self.n_classes = n_classes
+        self.output_format = output_format
+
+    def _normalize(self, feat: torch.Tensor) -> torch.Tensor:
+        n_sc = self.mean.shape[0]
+        head = (feat[:, :n_sc] - self.mean) / self.std
+        return torch.cat([head, feat[:, n_sc:]], dim=1)
+
+    @torch.inference_mode()
+    def forward(self, waves: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(B, n_ch, n_samples) tensor on `device` -> (event_prob, doa) tensors."""
+        out = self.model(self._normalize(self.extractor(waves)))
+        event_logit = interpolate_index_repeat(out["event_frame_logit"], self.interp_ratio)
+        doa = interpolate_index_repeat(out["doa_frame_output"], self.interp_ratio)
+        if self.output_format == "accdoa":
+            n = self.n_classes
+            x, y, z = doa[..., :n], doa[..., n:2 * n], doa[..., 2 * n:]
+            return torch.sqrt(x**2 + y**2 + z**2), doa
+        return torch.sigmoid(event_logit), doa
+
+    def __call__(self, waves) -> tuple[np.ndarray, np.ndarray]:
+        """Returns (event_prob, doa_xyz) at label rate, as numpy arrays."""
+        waves = np.asarray(waves, dtype=np.float32)
+        squeeze = waves.ndim == 2
+        if squeeze:
+            waves = waves[None]
+        event_prob, doa = self.forward(torch.from_numpy(waves).to(self.device))
+        event_prob, doa = event_prob.cpu().numpy(), doa.cpu().numpy()
+        if squeeze:
+            event_prob, doa = event_prob[0], doa[0]
+        return event_prob, doa

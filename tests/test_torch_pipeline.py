@@ -1,0 +1,183 @@
+"""The port's serving slice against salsa_tpu's: waves -> SALSA-FOA -> scaler ->
+CRNN -> label-rate (event_prob, doa), the CSV writer, batching, and a check that
+the port imports nothing of jax, flax, yaml, h5py or salsa_tpu."""
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from salsa_tpu.features.registry import make_extractor as j_make_extractor  # noqa: E402
+from salsa_tpu.models.seld import build_model as j_build_model  # noqa: E402
+from salsa_tpu.pipeline import SeldInferencePipeline as JPipeline  # noqa: E402
+from salsa_tpu.train.submission import write_classwise_csv as j_write_csv  # noqa: E402
+from salsa_tpu_torch.features.registry import make_extractor  # noqa: E402
+from salsa_tpu_torch.models.seld import build_model  # noqa: E402
+from salsa_tpu_torch.pipeline import SeldInferencePipeline  # noqa: E402
+from salsa_tpu_torch.submission import write_classwise_csv  # noqa: E402
+from tests.test_torch_models import flax_init  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FS, N_FFT, HOP = 24000, 512, 300
+N_CLASSES = 3
+ENC = {"name": "PannResNet22", "n_input_channels": 7}
+DEC = {"name": "SeldDecoder", "decoder_type": "gru", "decoder_size": 32, "freq_pool": "avg"}
+INTERP = 16 * 10 / (FS / HOP)  # encoder rate -> 10 Hz label rate: 2
+
+
+def foa_clips(rng, n_clips, seconds):
+    """Noise plus a directional tone per clip, so the spatial mask is non-empty."""
+    n = int(seconds * FS)
+    t = np.arange(n) / FS
+    out = 0.05 * rng.standard_normal((n_clips, 4, n))
+    for b in range(n_clips):
+        azi, ele = rng.uniform(-np.pi, np.pi), rng.uniform(-0.5, 0.5)
+        gains = np.array([1.0, np.sin(azi) * np.cos(ele), np.sin(ele), np.cos(azi) * np.cos(ele)])
+        f0 = rng.uniform(300, 3000)
+        burst = (t > seconds * 0.2) & (t < seconds * 0.8)
+        out[b] += gains[:, None] * (np.sin(2 * np.pi * f0 * t) * burst)[None]
+    return out.astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def slice_setup():
+    rng = np.random.default_rng(20261016)
+    waves = foa_clips(rng, 2, 1.6)
+    n_frames = 1 + waves.shape[-1] // HOP
+    j_model = j_build_model(encoder=ENC, decoder=DEC, n_classes=N_CLASSES)
+    params, stats = flax_init(rng, j_model, np.zeros((1, 7, n_frames, 200), np.float32), seed=7)
+    scaler = (rng.normal(-5.0, 1.0, (4, 1, 200)).astype(np.float32),
+              rng.uniform(5.0, 8.0, (4, 1, 200)).astype(np.float32))
+    j_pipe = JPipeline(j_make_extractor("salsa", "foa", eig_method="pallas", jit=False),
+                       j_model, {"params": params, "batch_stats": stats}, scaler, INTERP,
+                       N_CLASSES)
+    t_pipe = SeldInferencePipeline(make_extractor("salsa", "foa"),
+                                   build_model(encoder=ENC, decoder=DEC, n_classes=N_CLASSES),
+                                   {"params": params, "batch_stats": stats}, scaler, INTERP,
+                                   N_CLASSES, device="cpu")
+    return waves, j_pipe, t_pipe
+
+
+def test_slice_matches_jax_pipeline(slice_setup):
+    waves, j_pipe, t_pipe = slice_setup
+    ev_j, doa_j = j_pipe(waves)
+    ev_t, doa_t = t_pipe(waves)
+    assert ev_t.shape == ev_j.shape == (2, 16, N_CLASSES)
+    assert doa_t.shape == doa_j.shape == (2, 16, 3 * N_CLASSES)
+    assert ev_j.std() > 0.01 and doa_j.std() > 0.01  # the comparison is not vacuous
+    for got, want in ((ev_t, ev_j), (doa_t, doa_j)):
+        err = np.abs(got - want)
+        # spatial cells whose coherence test flips move a few outputs a little;
+        # the bulk must agree tightly (measured max on this input: see CHANGES.md)
+        assert np.mean(err <= 2e-3) >= 0.999, np.sort(err.ravel())[-10:]
+        assert err.max() <= 2e-2, err.max()
+    assert np.all((ev_t >= 0) & (ev_t <= 1)) and np.all(np.abs(doa_t) <= 1)
+
+
+def test_batch_equals_solo_runs(slice_setup):
+    waves, _, t_pipe = slice_setup
+    ev, doa = t_pipe(waves)
+    for b in range(len(waves)):
+        ev1, doa1 = t_pipe(waves[b])  # (n_ch, n_samples) input is squeezed back
+        np.testing.assert_allclose(ev1, ev[b], atol=1e-5, rtol=0)
+        np.testing.assert_allclose(doa1, doa[b], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("version", ["2021", "2020"])
+def test_classwise_csv_byte_identical(rng, tmp_path, version):
+    n_frames, n = 600, 12
+    ev = rng.uniform(0, 1, (n_frames, n)).astype(np.float32)
+    doa = rng.uniform(-1, 1, (n_frames, 3 * n)).astype(np.float32)
+    doa[5, 0], doa[5, n], doa[5, 2 * n] = -1.0, 0.0, 0.0  # azimuth exactly 180 -> -180
+    ev[5, 0] = 0.9
+    a, b = tmp_path / "port.csv", tmp_path / "jax.csv"
+    write_classwise_csv(str(a), ev, doa, n, sed_threshold=0.3, version=version)
+    j_write_csv(str(b), ev, doa, n, sed_threshold=0.3, version=version)
+    assert a.read_bytes() == b.read_bytes() and len(a.read_bytes()) > 1000
+
+
+def test_pipeline_loads_torch_state_dict(slice_setup):
+    """A torch state_dict (strict) serves the same as the flax variables it came from."""
+    waves, _, t_pipe = slice_setup
+    sd = {k: v.clone() for k, v in t_pipe.model.state_dict().items()}
+    pipe = SeldInferencePipeline(t_pipe.extractor,
+                                 build_model(encoder=ENC, decoder=DEC, n_classes=N_CLASSES),
+                                 sd, (t_pipe.mean.numpy(), t_pipe.std.numpy()), INTERP,
+                                 N_CLASSES)
+    for got, want in zip(pipe(waves), t_pipe(waves)):
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(RuntimeError):
+        SeldInferencePipeline(t_pipe.extractor, build_model(encoder=ENC, decoder=DEC),
+                              sd, (t_pipe.mean.numpy(), t_pipe.std.numpy()), INTERP, 12)
+
+
+def test_pipeline_accdoa_output(slice_setup):
+    waves, _, t_pipe = slice_setup
+    acc = SeldInferencePipeline(t_pipe.extractor, t_pipe.model, None,
+                                (t_pipe.mean.numpy(), t_pipe.std.numpy()), INTERP, N_CLASSES,
+                                output_format="accdoa")
+    ev, doa = acc(waves)
+    n = N_CLASSES
+    want = np.sqrt(doa[..., :n] ** 2 + doa[..., n:2 * n] ** 2 + doa[..., 2 * n:] ** 2)
+    np.testing.assert_allclose(ev, want, rtol=1e-6)
+
+
+HYGIENE = textwrap.dedent("""
+    import importlib.abc
+    import sys
+
+    BLOCKED = ("jax", "flax", "yaml", "h5py", "salsa_tpu")
+
+    def blocked(name):
+        top = name.split(".")[0]
+        return top in BLOCKED
+
+    for mod in [m for m in sys.modules if blocked(m)]:
+        del sys.modules[mod]
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if blocked(name):
+                raise ModuleNotFoundError(f"blocked on the GPU host: {name}", name=name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+
+    import numpy as np
+    import torch
+    import salsa_tpu_torch.features.registry as registry
+    import salsa_tpu_torch.models.seld as seld
+    import salsa_tpu_torch.pipeline as pipeline
+    from salsa_tpu_torch import configs
+    from salsa_tpu_torch.submission import write_classwise_csv
+
+    model = seld.init_random_(
+        seld.build_model(encoder=configs.MODEL["encoder"],
+                         decoder={"decoder_type": "bigru", "decoder_size": 8}, n_classes=2),
+        torch.Generator().manual_seed(0))
+    pipe = pipeline.SeldInferencePipeline(
+        registry.make_extractor("salsa", "foa"), model, None,
+        (np.zeros((4, 1, 200), np.float32), np.ones((4, 1, 200), np.float32)),
+        2.0, 2, device="cpu")
+    ev, doa = pipe(np.random.default_rng(0).standard_normal((4, 9600)).astype(np.float32))
+    assert ev.shape == (4, 2) and doa.shape == (4, 6), (ev.shape, doa.shape)
+    assert np.isfinite(ev).all() and np.isfinite(doa).all()
+    leaked = sorted(m for m in sys.modules if blocked(m))
+    assert not leaked, leaked
+    print("HYGIENE_OK")
+""")
+
+
+def test_port_imports_nothing_of_jax_or_salsa_tpu():
+    """Simulates the GPU host, which has no jax/flax/yaml/h5py: a fresh process
+    refuses those imports (and salsa_tpu, but not salsa_tpu_torch) and still
+    builds and runs the serving path on CPU."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", HYGIENE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "HYGIENE_OK" in proc.stdout

@@ -1,0 +1,232 @@
+"""salsa_tpu_torch.features (tracker K2, spatial stage K1, extract_salsa) against
+salsa_tpu.features on the same seeded inputs. The port runs its plain versions
+here; where the JAX side reaches the Pallas kernel it runs in interpret mode, as
+tests/test_salsa_pallas.py runs it."""
+import os
+import re
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+
+torch = pytest.importorskip("torch")
+
+from salsa_tpu.features import salsa as jsalsa  # noqa: E402
+from salsa_tpu.features.registry import make_extractor as j_make_extractor  # noqa: E402
+from salsa_tpu.features.salsa_pallas import (  # noqa: E402
+    _start_vectors,
+    salsa_spatial_pallas_planes,
+)
+from salsa_tpu_torch.features import salsa as tsalsa  # noqa: E402
+from salsa_tpu_torch.features import salsa_spatial as tspatial  # noqa: E402
+from salsa_tpu_torch.features.registry import make_extractor  # noqa: E402
+from tests.test_salsa_pallas import make_band  # noqa: E402
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "reference_features.npz")
+H = 3
+
+
+def _planes(X, h=H):
+    """(bins, frames, 4) complex band -> wrap-padded (4, bins, frames + 2h) planes."""
+    Xpad = np.concatenate([X[:, -h:], X, X[:, :h]], axis=1)
+    xr = np.ascontiguousarray(np.transpose(Xpad.real, (2, 0, 1))).astype(np.float32)
+    xi = np.ascontiguousarray(np.transpose(Xpad.imag, (2, 0, 1))).astype(np.float32)
+    return xr, xi
+
+
+def test_start_vectors_equal_jax_draw():
+    s0, s1 = _start_vectors()
+    np.testing.assert_array_equal(tspatial.START_S0, s0)
+    np.testing.assert_array_equal(tspatial.START_S1, s1)
+    # the CUDA source carries the same float32 literals
+    src = open(os.path.join(os.path.dirname(tspatial.__file__), "..", "csrc",
+                            "salsa_spatial.cu")).read()
+
+    def literals(name):
+        body = re.search(rf"{name}\[C\] = \{{([^}}]*)\}}", src).group(1)
+        return np.array([float(v.strip().rstrip("f")) for v in body.split(",")], np.float32)
+
+    np.testing.assert_array_equal(literals("kS0Re"), s0.real)
+    np.testing.assert_array_equal(literals("kS0Im"), s0.imag)
+    np.testing.assert_array_equal(literals("kS1Re"), s1.real)
+    np.testing.assert_array_equal(literals("kS1Im"), s1.imag)
+
+
+def _band_mag(rng, n_bins=16, n_frames=700):
+    X = make_band(rng, n_bins=n_bins, n_frames=n_frames)
+    xr, xi = _planes(X)
+    mag = np.array(jsalsa.tracking_magspec_planes(jnp.asarray(xr[0]), jnp.asarray(xi[0]),
+                                                    H, n_frames))
+    return xr, xi, mag
+
+
+def test_tracking_magnitude_matches_jax(rng):
+    xr, xi, want = _band_mag(rng)
+    got = tsalsa.tracking_magspec_planes(torch.from_numpy(xr[0]), torch.from_numpy(xi[0]),
+                                         H, want.shape[1]).numpy()
+    # |z|^2 via re*re + im*im here, abs(complex)**2 in JAX: ulp-level differences
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+
+
+def test_tracker_init_state_matches_jax(rng):
+    _, _, mag = _band_mag(rng)
+    f_j, c_j = jsalsa.tracker_init_state(jnp.asarray(mag))
+    f_t, c_t = tsalsa.tracker_init_state(torch.from_numpy(mag))
+    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
+    assert c_t.dtype == torch.int32
+
+
+@pytest.mark.parametrize("resume_at", [0, 311])
+def test_tracker_scan_bit_equal_to_jax(rng, resume_at):
+    """Same magspec array and same entering state -> identical masks and final
+    states; resume_at > 0 restarts mid-clip from the JAX pre-state there."""
+    _, _, mag = _band_mag(rng)
+    state0 = jsalsa.tracker_init_state(jnp.asarray(mag))
+    if resume_at:
+        _, _, pre = jsalsa.noise_floor_scan(jnp.asarray(mag), state0, collect_states=True)
+        state0 = (pre[0][resume_at], pre[1][resume_at])
+    seg = mag[:, resume_at:]
+    (f_j, c_j), m_j = jsalsa.noise_floor_scan(jnp.asarray(seg), state0)
+    st = (torch.from_numpy(np.array(state0[0])), torch.from_numpy(np.array(state0[1])))
+    (f_t, c_t), m_t = tsalsa.noise_floor_scan(torch.from_numpy(seg), st)
+    np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
+    np.testing.assert_array_equal(f_t.numpy(), np.asarray(f_j))
+    np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
+    assert m_t.numpy().any() and not m_t.numpy().all()
+
+
+def test_noise_floor_mask_wrapper_batches_and_resumes(rng):
+    """The K2 wrapper on CPU tensors: a batch equals its rows run alone, and two
+    halves chained through the returned state equal the whole clip."""
+    n_frames = 333
+    planes = [_planes(make_band(rng, n_bins=11, n_frames=n_frames)) for _ in range(2)]
+    xr0 = torch.from_numpy(np.stack([p[0][0] for p in planes]))
+    xi0 = torch.from_numpy(np.stack([p[1][0] for p in planes]))
+    mask, (floor, cd) = tsalsa.noise_floor_mask(xr0, xi0, n_hop=H, n_frames=n_frames)
+    assert mask.shape == (2, 11, n_frames) and mask.dtype == torch.bool
+    for b in range(2):
+        m1, (f1, c1) = tsalsa.noise_floor_mask(xr0[b:b + 1], xi0[b:b + 1], n_hop=H,
+                                               n_frames=n_frames)
+        assert torch.equal(m1[0], mask[b]) and torch.equal(f1[0], floor[b])
+    cut = 200
+    m_a, st = tsalsa.noise_floor_mask(xr0[..., :cut + 2 * H], xi0[..., :cut + 2 * H],
+                                      n_hop=H, n_frames=cut)
+    # the second half's context starts h frames before its first frame
+    m_b, (f_b, c_b) = tsalsa.noise_floor_mask(
+        xr0[..., cut:].contiguous(), xi0[..., cut:].contiguous(), n_hop=H,
+        n_frames=n_frames - cut, state0=st)
+    assert torch.equal(torch.cat([m_a, m_b], dim=-1), mask)
+    assert torch.equal(f_b, floor) and torch.equal(c_b, cd)
+
+
+def test_noise_floor_mask_rejects_bad_input():
+    x = torch.zeros(1, 4, 20)
+    with pytest.raises(ValueError):
+        tsalsa.noise_floor_mask(x, x, n_hop=3, n_frames=15)  # 20 != 15 + 6
+    with pytest.raises(ValueError):
+        tsalsa.noise_floor_mask(x[..., :10], x[..., :10], n_hop=3, n_frames=4)  # < 5 frames
+    with pytest.raises(TypeError):
+        tsalsa.noise_floor_mask(x.double(), x.double(), n_hop=3, n_frames=14)
+    with pytest.raises(ValueError):
+        tsalsa.noise_floor_mask(x.to("meta"), x.to("meta"), n_hop=3, n_frames=14)
+
+
+def _compare_spatial(got, want, max_disagree=0.005):
+    """test_salsa_pallas.py's bound: validity masks agree on > 99.5% of cells, and
+    features agree to atol/rtol 5e-3 where both are valid."""
+    assert got.shape == want.shape
+    m_got, m_want = np.any(got != 0, axis=0), np.any(want != 0, axis=0)
+    disagree = np.mean(m_got != m_want)
+    assert disagree < max_disagree, f"validity masks disagree on {disagree:.2%}"
+    both = m_got & m_want
+    assert both.mean() > 0.05
+    np.testing.assert_allclose(got[:, both], want[:, both], atol=5e-3, rtol=5e-3)
+
+
+@pytest.mark.parametrize("audio_format,n_bins,n_frames", [
+    ("foa", 16, 700), ("mic", 16, 700), ("foa", 11, 333), ("mic", 11, 333)])
+def test_spatial_plain_matches_pallas(rng, audio_format, n_bins, n_frames):
+    X = make_band(rng, n_bins=n_bins, n_frames=n_frames)
+    xr, xi = _planes(X)
+    mag = jsalsa.tracking_magspec_planes(jnp.asarray(xr[0]), jnp.asarray(xi[0]), H, n_frames)
+    mask = jsalsa.noise_floor_mask(mag)
+    kw = dict(n_hop=H, audio_format=audio_format, condition_number=5.0, lower_bin=1,
+              fs=8000, n_fft=256)
+    want = np.asarray(salsa_spatial_pallas_planes(jnp.asarray(xr), jnp.asarray(xi), mask,
+                                                  interpret=True, **kw))
+    t_mask = torch.from_numpy(np.asarray(mask))[None]
+    got = tspatial.salsa_spatial(torch.from_numpy(xr)[None], torch.from_numpy(xi)[None],
+                                 t_mask, **kw)
+    assert got.shape == (1, 3, n_bins, n_frames) and got.dtype == torch.float32
+    got = got[0].numpy()
+    assert np.all(np.isfinite(got))
+    _compare_spatial(got, want)
+
+
+@pytest.mark.parametrize("audio_format", ["foa", "mic"])
+def test_spatial_all_zero_input_gives_zero(audio_format):
+    z = torch.zeros(2, 4, 5, 40 + 2 * H)
+    out = tspatial.salsa_spatial(z, z, torch.ones(2, 5, 40, dtype=torch.bool), n_hop=H,
+                                 audio_format=audio_format, condition_number=5.0,
+                                 lower_bin=1, fs=24000, n_fft=512)
+    assert out.shape == (2, 3, 5, 40)
+    assert torch.isfinite(out).all() and not out.any()
+
+
+def test_spatial_rejects_unsupported_input():
+    kw = dict(n_hop=H, audio_format="foa", condition_number=5.0, lower_bin=1, fs=24000,
+              n_fft=512)
+    x3 = torch.zeros(1, 3, 4, 16)
+    with pytest.raises(NotImplementedError):
+        tspatial.salsa_spatial(x3, x3, torch.ones(1, 4, 10, dtype=torch.bool), **kw)
+    x = torch.zeros(1, 4, 4, 16)
+    with pytest.raises(ValueError):
+        tspatial.salsa_spatial(x, x, torch.ones(1, 4, 9, dtype=torch.bool), **kw)
+    with pytest.raises(TypeError):
+        tspatial.salsa_spatial(x, x, torch.ones(1, 4, 10), **kw)
+    with pytest.raises(ValueError):
+        m = torch.ones(1, 4, 10, dtype=torch.bool, device="meta")
+        tspatial.salsa_spatial(x.to("meta"), x.to("meta"), m, **kw)
+
+
+@pytest.fixture(scope="module")
+def golden():
+    return np.load(GOLDEN)
+
+
+def _assert_golden_bounds(got, want):
+    """tests/test_golden_features.py:57-64."""
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got[:4], want[:4], atol=2e-2, rtol=1e-3)
+    ref_mask = np.any(want[4:] != 0, axis=0)
+    got_mask = np.any(got[4:] != 0, axis=0)
+    assert np.mean(ref_mask != got_mask) < 0.01
+    both = ref_mask & got_mask
+    np.testing.assert_allclose(got[4:][:, both], want[4:][:, both], atol=5e-3, rtol=1e-2)
+
+
+@pytest.mark.parametrize("fmt", ["foa", "mic"])
+def test_extract_salsa_matches_jax_pallas_and_golden(golden, fmt):
+    x = golden["audio"]
+    kw = dict(fs=int(golden["fs"]), n_fft=int(golden["n_fft"]), hop_length=int(golden["hop"]))
+    want_jax = np.asarray(j_make_extractor("salsa", fmt, eig_method="pallas", **kw)(x))
+    got = make_extractor("salsa", fmt, **kw)(torch.from_numpy(x)[None])
+    assert got.shape == (1,) + want_jax.shape and got.dtype == torch.float32
+    got = got[0].numpy()
+    _assert_golden_bounds(got, want_jax)
+    _assert_golden_bounds(got, golden[f"salsa_{fmt}"])
+
+
+def test_make_extractor_metadata_and_unported_types():
+    ex = make_extractor("salsa", "foa")
+    j = j_make_extractor("salsa", "foa", jit=False)
+    for k in ("name", "audio_format", "n_channels", "n_features", "n_spec_channels",
+              "description"):
+        assert getattr(ex, k) == getattr(j, k)
+    with pytest.raises(NotImplementedError):
+        make_extractor("salsa_lite", "mic")
+    with pytest.raises(NotImplementedError):
+        make_extractor("salsa", "foa", is_tracking=False)
+    with pytest.raises(ValueError):
+        make_extractor("nope", "foa")
