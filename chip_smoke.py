@@ -6,7 +6,8 @@ on one NVIDIA GPU and check every kernel on the way.
 
 Phases, each printing what it found; any failure raises and exits non-zero:
   0. require CUDA; print the card (nvidia-smi) and switch TF32 off;
-  1. build the CUDA kernels (K1 spatial stage, K2 noise-floor tracker) with nvcc;
+  1. build the CUDA kernels (K1 spatial stage, K2 noise-floor tracker, K3, K4)
+     with nvcc, one process per source;
   2. K1 and K2 against their plain PyTorch versions at the serving shapes, a
      ragged shape and all-zero input;
   3. CUDA SALSA extraction against the committed reference golden;
@@ -14,7 +15,13 @@ Phases, each printing what it found; any failure raises and exits non-zero:
      through SeldInferencePipeline, with launch counts, batch-vs-solo and
      GPU-vs-CPU checks and DCASE CSVs written and read back;
   5. times (CUDA-synchronized medians) of a request and of each kernel against
-     its plain version.
+     its plain version;
+  6. K3, the SALSA-kernel ablation variants, against their plain versions at the
+     serving shape, a ragged shape and all-zero input, `full` against K1, then
+     the probe `salsa_tpu_torch.scripts.probe_salsa_kernel` at B=32;
+  7. K4, the 3x3 conv with 64 outputs, against its plain version in bf16 and f32
+     at the stage-1 shape and a ragged shape, then the probe
+     `salsa_tpu_torch.scripts.probe_pallas_conv` at B=32.
 The second-to-last line is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Weights are random, from a fixed seed.
 """
@@ -43,9 +50,18 @@ from salsa_tpu_torch.features.salsa import (
     noise_floor_mask_plain,
 )
 from salsa_tpu_torch.features.salsa_spatial import salsa_spatial, salsa_spatial_plain
-from salsa_tpu_torch.kernels.build import build_library, load_library
+from salsa_tpu_torch.kernels.build import build_library, load_library, ptxas_usage
 from salsa_tpu_torch.models.seld import build_model, init_random_
 from salsa_tpu_torch.pipeline import SeldInferencePipeline
+from salsa_tpu_torch.scripts import probe_pallas_conv, probe_salsa_kernel
+from salsa_tpu_torch.scripts.probe_pallas_conv import conv3x3_64, conv3x3_64_plain, rel_err
+from salsa_tpu_torch.scripts.probe_salsa_kernel import (
+    VARIANTS,
+    check_variant,
+    salsa_spatial_variant,
+    salsa_spatial_variant_plain,
+)
+from salsa_tpu_torch.scripts.timing import cuda_ms
 from salsa_tpu_torch.submission import write_classwise_csv
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -58,6 +74,7 @@ INTERP = 16 * D["label_rate"] / (FS / HOP)  # encoder rate -> label rate: 2.0
 FOA = SalsaParams(fs=FS, n_fft=N_FFT, hop_length=HOP, fmax_doa=9000.0, audio_format="foa")
 MIC = SalsaParams(fs=FS, n_fft=N_FFT, hop_length=HOP, fmax_doa=4000.0, audio_format="mic")
 CARD = ""  # nvidia-smi name and power limit, set in phase 0
+K1_REGISTERS = 80  # ptxas count of K1 at sm_90a since it was written (PERF.md)
 
 
 def log(phase: str, msg: str) -> None:
@@ -90,7 +107,7 @@ def spatial_kw(p: SalsaParams) -> dict:
                 n_fft=p.n_fft)
 
 
-def compare_spatial(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+def compare_spatial(got: torch.Tensor, want: torch.Tensor, what: str, phase: str = "2") -> float:
     """K1's bound (tests/test_salsa_pallas.py): validity masks disagree on < 0.5%
     of cells; features within atol/rtol 5e-3 where both are valid. Returns the max
     abs error over those cells."""
@@ -102,27 +119,12 @@ def compare_spatial(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     both = m_got & m_want
     g, w = np.moveaxis(got, 1, -1)[both], np.moveaxis(want, 1, -1)[both]
     err = float(np.abs(g - w).max()) if both.any() else 0.0
-    log("2", f"{what}: valid {m_want.mean():.4%}, mask disagreement {disagree:.4%}, "
+    log(phase, f"{what}: valid {m_want.mean():.4%}, mask disagreement {disagree:.4%}, "
              f"max abs err {err:.3e} on {int(both.sum())} cells")
     if disagree >= 0.005:
         raise AssertionError(f"{what}: validity masks disagree on {disagree:.3%}")
     np.testing.assert_allclose(g, w, atol=5e-3, rtol=5e-3, err_msg=what)
     return err
-
-
-def cuda_ms(fn, repeats: int = 7, warmup: int = 2) -> float:
-    """Median CUDA-event time of fn() in ms, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(repeats):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 # ---------------------------------------------------------------------------
@@ -150,11 +152,14 @@ def phase1() -> None:
     path, seconds = build_library()
     load_library()
     log("1", f"built {os.path.relpath(path, REPO)} in {seconds:.1f} s (0.0 = reused)")
-    log_file = path.with_suffix(".log")
-    if log_file.exists():
-        for line in log_file.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("1", f"ptxas: {line.strip()}")
+    usage = ptxas_usage(path.with_suffix(".log").read_text())
+    for name, (regs, st, ld) in sorted(usage.items()):
+        log("1", f"ptxas: {regs:3d} registers, spill stores {st} B, loads {ld} B: {name}")
+    k1 = [u for name, u in usage.items() if "20salsa_spatial_kernel" in name]
+    if k1 != [(K1_REGISTERS, 0, 0)]:
+        raise AssertionError(f"K1 salsa_spatial_kernel: ptxas (registers, spill stores, spill "
+                             f"loads) {k1}, expected [({K1_REGISTERS}, 0, 0)] as before")
+    log("1", f"K1 salsa_spatial_kernel: {K1_REGISTERS} registers, no spills, as before")
 
 
 def phase2(dev) -> dict:
@@ -393,6 +398,114 @@ def phase5(dev, pipe, request) -> dict:
     return times
 
 
+def phase6(dev) -> dict:
+    """K3 against its plain version; returns errors, times and the probe's launches."""
+    rng = np.random.default_rng(SEED)
+    waves = torch.from_numpy(foa_clips(rng, 4, 60.0)).to(dev)  # phase 2's clips
+    xr, xi = stft_band(waves, FOA)
+    n_t = xr.shape[-1] - 2 * FOA.n_hopframes
+    mask, _ = noise_floor_mask(xr[:, 0].contiguous(), xi[:, 0].contiguous(),
+                               n_hop=FOA.n_hopframes, n_frames=n_t)
+    rxr = torch.from_numpy(rng.standard_normal((3, 4, 11, 339)).astype(np.float32)).to(dev)
+    rxr += rxr[:, :1].clone()  # correlated channels: a coherent share of cells
+    rxi = torch.from_numpy(rng.standard_normal((3, 4, 11, 339)).astype(np.float32)).to(dev)
+    rxi += rxi[:, :1].clone()
+    rm = torch.from_numpy(rng.random((3, 11, 333)) < 0.7).to(dev)
+    z = torch.zeros(2, 4, 7, 106, device=dev)
+    zm = torch.ones(2, 7, 100, dtype=torch.bool, device=dev)
+    err = 0.0
+    for variant, n_sq in [(v, 3) for v in VARIANTS] + [("full", q) for q in (1, 2, 4)]:
+        kw = dict(variant=variant, n_sq=n_sq)
+        for serving, what, (a, b, m) in ((True, f"{tuple(xr.shape)}", (xr, xi, mask)),
+                                         (False, "ragged (3,4,11,339)", (rxr, rxi, rm))):
+            got = salsa_spatial_variant(a, b, m, **kw)
+            torch.cuda.synchronize()
+            e, line = check_variant(got, salsa_spatial_variant_plain(a, b, m, **kw), variant,
+                                    f"K3 {variant} n_sq={n_sq} {what}")
+            log("6", line)
+            err = max(err, e) if serving else err
+        out = salsa_spatial_variant(z, z, zm, **kw)
+        if not (torch.isfinite(out).all() and not out.any()):
+            raise AssertionError(f"K3 {variant} n_sq={n_sq} all-zero input: output not all 0")
+    log("6", "K3 all-zero input, every variant and n_sq: output all 0 and finite")
+
+    fam = salsa_spatial_variant(xr, xi, mask, variant="full", n_sq=3, block=128)
+    k1 = salsa_spatial(xr, xi, mask, **spatial_kw(FOA))
+    torch.cuda.synchronize()
+    log("6", f"K3 full at 128 threads vs production K1: bit-equal {torch.equal(fam, k1)}, "
+             f"max abs diff {float((fam - k1).abs().max()):.3e}")
+    compare_spatial(fam, k1, "K3 full (128 threads) vs K1", phase="6")
+
+    kw = dict(variant="full", n_sq=3)
+    times = {"k3": cuda_ms(lambda: salsa_spatial_variant(xr, xi, mask, **kw)),
+             "k3_plain": cuda_ms(lambda: salsa_spatial_variant_plain(xr, xi, mask, **kw))}
+    log("6", f"K3 full {tuple(xr.shape)}: kernel {times['k3']:.3f} ms, plain "
+             f"{times['k3_plain']:.3f} ms [{CARD}]")
+    del waves, xr, xi, mask, fam, k1
+
+    log("6", f"probe_salsa_kernel --batch 32 [{CARD}]")
+    salsa_spatial_variant.launches = 0
+    probe_salsa_kernel.main(["--batch", "32"])
+    torch.cuda.synchronize()
+    launches = salsa_spatial_variant.launches
+    log("6", f"the probe launched K3 {launches} times")
+    if launches == 0:
+        raise AssertionError("the K3 probe launched no K3 kernel")
+    return {"err": err, "launches": launches, **times}
+
+
+def phase7(dev) -> dict:
+    """K4 against its plain version; returns the error, times and the probe's launches."""
+    rng = np.random.default_rng(SEED + 3)
+    x = torch.from_numpy(rng.standard_normal((32, 320, 100, 64)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal((3, 3, 64, 64)).astype(np.float32) * 0.05).to(dev)
+    rx = torch.from_numpy(rng.standard_normal((3, 13, 37, 7)).astype(np.float32)).to(dev)
+    rw = torch.from_numpy(rng.standard_normal((3, 3, 7, 64)).astype(np.float32) * 0.3).to(dev)
+    # bf16: the kernel rounds its f32 sum once (<= 2^-8 relative), held against the
+    # plain version's f32 sum and against its rounded output, both within 5e-3 of
+    # max|plain|. Where the two roundings differ it is by one bf16 step, at most
+    # 2^-7 of the value; on these fixed inputs a step in the top binade comes to
+    # 4.6e-3 of the max.
+    bounds = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
+    main_err = None
+    for dtype, bound in bounds.items():
+        for main_shape, what, (a, b) in ((True, f"{tuple(x.shape)}", (x, w)),
+                                         (False, f"ragged {tuple(rx.shape)}", (rx, rw))):
+            a, b = a.to(dtype), b.to(dtype)
+            want = conv3x3_64_plain(a, b)
+            want_f32 = conv3x3_64_plain(a.float(), b.float())
+            for rows in ((8,) if main_shape else (1, 2, 4, 8)):
+                got = conv3x3_64(a, b, rows_per_block=rows)
+                torch.cuda.synchronize()
+                err, err_rounded = rel_err(got, want_f32), rel_err(got, want)
+                if main_shape and dtype == torch.bfloat16:
+                    main_err = float((got.float() - want.float()).abs().max())
+                log("7", f"K4 {what} {dtype} rows {rows}: max|kernel - plain| / max|plain| "
+                         f"{err:.3e} against the f32 sum, {err_rounded:.3e} against the plain "
+                         f"output in {dtype} (bound {bound:.0e} each)")
+                if not (torch.isfinite(got.float()).all() and err <= bound
+                        and err_rounded <= bound):
+                    raise AssertionError(f"K4 {what} {dtype} rows {rows}: rel err {err}, "
+                                         f"{err_rounded} against the rounded plain output")
+
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    times = {"k4": cuda_ms(lambda: conv3x3_64(xb, wb), repeats=20, warmup=3),
+             "k4_plain": cuda_ms(lambda: conv3x3_64_plain(xb, wb), repeats=20, warmup=3)}
+    log("7", f"K4 {tuple(x.shape)} bf16: kernel {times['k4']:.3f} ms, plain (f32 cuDNN) "
+             f"{times['k4_plain']:.3f} ms [{CARD}]")
+    del x, w, xb, wb
+
+    log("7", f"probe_pallas_conv --batch 32 [{CARD}]")
+    conv3x3_64.launches = 0
+    probe_pallas_conv.main(["--batch", "32"])
+    torch.cuda.synchronize()
+    launches = conv3x3_64.launches
+    log("7", f"the probe launched K4 {launches} times")
+    if launches == 0:
+        raise AssertionError("the K4 probe launched no K4 kernel")
+    return {"err": main_err, "launches": launches, **times}
+
+
 def main() -> None:
     card = phase0()
     dev = torch.device("cuda", 0)
@@ -404,6 +517,9 @@ def main() -> None:
     pipe = build_pipeline(dev)
     launches = phase4(dev, pipe, requests)
     times = phase5(dev, pipe, requests[0])
+    del pipe
+    k3 = phase6(dev)
+    k4 = phase7(dev)
     kernels = [
         {"name": "salsa_spatial", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/salsa_spatial.cu",
@@ -415,6 +531,16 @@ def main() -> None:
          "replaces": "salsa_tpu/features/salsa.py:82",
          "launches": launches["noise_floor"], "max_abs_err": errs["k2"],
          "ms": times["k2"], "plain_ms": times["k2_plain"]},
+        {"name": "salsa_spatial_probe", "route": "cuda",
+         "source": "salsa_tpu_torch/csrc/salsa_spatial_probe.cu",
+         "replaces": "scripts/probe_salsa_kernel.py:67",
+         "launches": k3["launches"], "max_abs_err": k3["err"],
+         "ms": k3["k3"], "plain_ms": k3["k3_plain"]},
+        {"name": "conv3x3_64", "route": "cuda",
+         "source": "salsa_tpu_torch/csrc/conv3x3_64.cu",
+         "replaces": "scripts/probe_pallas_conv.py:90",
+         "launches": k4["launches"], "max_abs_err": k4["err"],
+         "ms": k4["k4"], "plain_ms": k4["k4_plain"]},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

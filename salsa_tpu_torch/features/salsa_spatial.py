@@ -125,19 +125,14 @@ def _const_vec(s, like):
                   torch.full_like(like, float(s[c].imag))) for c in range(C)]
 
 
-def salsa_spatial_plain(xr, xi, sig_mask, *, n_hop, audio_format, condition_number,
-                        lower_bin, fs, n_fft):
-    """Plain PyTorch version of the K1 kernel; same signature and arithmetic order.
-
-    xr, xi: (B, 4, n_bins, n_frames + 2*n_hop) float32 STFT planes carrying n_hop
-    context frames per side; sig_mask: (B, n_bins, n_frames) bool.
-    Returns (B, 3, n_bins, n_frames) float32, zero where invalid.
-    """
+def window_covariance(xr, xi, n_hop):
+    """Upper triangle {(i, j): R_ij} of the (2*n_hop+1)-frame covariance
+    R = mean_k x[t+k] x[t+k]^H, each entry (B, n_bins, n_frames), summed in frame
+    order and scaled by 1/win as the kernel does."""
     n_frames = xr.shape[-1] - 2 * n_hop
     win = 2 * n_hop + 1
     x = [[_Cplx(xr[:, c, :, k:k + n_frames], xi[:, c, :, k:k + n_frames])
           for c in range(C)] for k in range(win)]
-
     inv_win = np.float32(1.0 / win).item()
     R = {}
     for i in range(C):
@@ -146,30 +141,54 @@ def salsa_spatial_plain(xr, xi, sig_mask, *, n_hop, audio_format, condition_numb
             for k in range(1, win):
                 acc = acc + x[k][i] * x[k][j].conj()
             R[(i, j)] = acc.scale(inv_win)
+    return R
 
+
+def top_eigs(R, n_squarings, *, square=_square_renorm, second=True):
+    """(v, lambda0, lambda1): principal eigenvector from two matvecs with
+    (R/tr R)^(2^n_squarings), lambda0 = v^H R v, and lambda1 from 3 steps of
+    orthogonalised iteration with R/tr R (0 where `second` is False)."""
     inv_tr = 1.0 / (_trace(R) + 1e-30)
     Rn = {ij: R[ij].scale(inv_tr) for ij in R}
     P = Rn
-    for _ in range(N_SQUARINGS):
-        P = _square_renorm(P)
+    for _ in range(n_squarings):
+        P = square(P)
 
     like = R[(0, 0)].re
     v = _normalize(_matvec(P, _const_vec(START_S0, like)))
     v = _normalize(_matvec(P, v))
     lam0 = _rayleigh(R, v)
+    if not second:
+        return v, lam0, torch.zeros_like(lam0)
 
     u = _orth(_const_vec(START_S1, like), v)
     for _ in range(3):
         u = _normalize(_orth(_matvec(Rn, u), v))
-    lam1 = _rayleigh(R, u)
+    return v, lam0, _rayleigh(R, u)
 
+
+def foa_features(v):
+    """Re(v_c conj(v_0)) / |v_0|^2 for c = 1..3, L2-normalised: (B, 3, ...)."""
+    inv_v0 = 1.0 / (v[0].re * v[0].re + v[0].im * v[0].im + 1e-30)
+    comps = [(v[c].re * v[0].re + v[c].im * v[0].im) * inv_v0 for c in range(1, C)]
+    nrm = torch.rsqrt(_dot_terms([r * r for r in comps]) + 1e-30)
+    return torch.stack([r * nrm for r in comps], dim=1)
+
+
+def salsa_spatial_plain(xr, xi, sig_mask, *, n_hop, audio_format, condition_number,
+                        lower_bin, fs, n_fft):
+    """Plain PyTorch version of the K1 kernel; same signature and arithmetic order.
+
+    xr, xi: (B, 4, n_bins, n_frames + 2*n_hop) float32 STFT planes carrying n_hop
+    context frames per side; sig_mask: (B, n_bins, n_frames) bool.
+    Returns (B, 3, n_bins, n_frames) float32, zero where invalid.
+    """
+    R = window_covariance(xr, xi, n_hop)
+    v, lam0, lam1 = top_eigs(R, N_SQUARINGS)
     valid = sig_mask & (lam0 > lam1 * condition_number)
 
     if audio_format == "foa":
-        inv_v0 = 1.0 / (v[0].re * v[0].re + v[0].im * v[0].im + 1e-30)
-        comps = [(v[c].re * v[0].re + v[c].im * v[0].im) * inv_v0 for c in range(1, C)]
-        nrm = torch.rsqrt(_dot_terms([r * r for r in comps]) + 1e-30)
-        feats = [r * nrm for r in comps]
+        out = foa_features(v)
     else:
         abs_bin = torch.arange(lower_bin, lower_bin + xr.shape[2], dtype=torch.float32,
                                device=xr.device)[:, None]
@@ -179,8 +198,7 @@ def salsa_spatial_plain(xr, xi, sig_mask, *, n_hop, audio_format, condition_numb
             pr = v[c].re * v[0].re + v[c].im * v[0].im
             pi = v[c].im * v[0].re - v[c].re * v[0].im
             feats.append(torch.atan2(pi, pr) * inv_bin)
-
-    out = torch.stack(feats, dim=1)
+        out = torch.stack(feats, dim=1)
     return torch.where(valid[:, None], out, torch.zeros((), dtype=out.dtype, device=out.device))
 
 

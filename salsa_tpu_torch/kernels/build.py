@@ -1,10 +1,11 @@
 """nvcc build of `salsa_tpu_torch/csrc/*.cu` into one shared library with a plain
 C interface, bound with ctypes.
 
-The library is built at first use into `build/salsa_tpu_torch/` beside the
-package and reused while a hash of the sources and flags matches. Nothing is built
-when this module is imported, and nothing falls back: a missing nvcc or a failed
-compile raises.
+Every source is compiled to an object by its own nvcc, all started together, and
+the objects are linked into one library. The library is built at first use into
+`build/salsa_tpu_torch/` beside the package and reused while a hash of the
+sources, headers and flags matches. Nothing is built when this module is
+imported, and nothing falls back: a missing nvcc or a failed compile raises.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -19,8 +21,9 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "salsa_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                 "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -29,6 +32,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "salsa_spatial_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F, _P),
     "noise_floor_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P),
+    "salsa_spatial_probe_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "conv3x3_64_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -46,9 +51,9 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    """Where the library for the current sources, headers and flags lives."""
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libsalsa_tpu_torch_{h.hexdigest()[:16]}.so"
@@ -56,23 +61,65 @@ def library_path() -> Path:
 
 def build_library() -> tuple[Path, float]:
     """Compile the sources unless a library for them exists. Returns the library
-    path and the seconds spent compiling (0.0 when it was reused). The compiler's
-    output (ptxas registers and spills) is kept beside it as `<lib>.log`."""
+    path and the wall seconds spent building (0.0 when it was reused). The
+    compilers' output (ptxas registers and spills) is kept beside it as
+    `<lib>.log`."""
     path = library_path()
     if path.exists():
         return path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc = _find_nvcc()
+    tag = f"{path.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = path.with_name(f"{tag}.so.tmp")
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    path.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
     return path, seconds
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_usage(log: str) -> dict[str, tuple[int, int, int]]:
+    """{mangled kernel name: (registers, spill store bytes, spill load bytes)} from
+    the `-Xptxas -v` output of a build."""
+    usage, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            name, spills = m.group(1), (0, 0)
+        elif (m := _SPILL.search(line)) and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := _REGS.search(line)) and name:
+            usage[name] = (int(m.group(1)), *spills)
+            name = None
+    return usage
 
 
 @functools.lru_cache(maxsize=1)

@@ -166,6 +166,16 @@ HYGIENE = textwrap.dedent("""
     ev, doa = pipe(np.random.default_rng(0).standard_normal((4, 9600)).astype(np.float32))
     assert ev.shape == (4, 2) and doa.shape == (4, 6), (ev.shape, doa.shape)
     assert np.isfinite(ev).all() and np.isfinite(doa).all()
+
+    import salsa_tpu_torch.scripts.probe_pallas_conv as probe_conv
+    import salsa_tpu_torch.scripts.probe_salsa_kernel as probe_k3
+
+    z = torch.zeros(1, 4, 3, 16)
+    k3 = probe_k3.salsa_spatial_variant(z, z, torch.ones(1, 3, 10, dtype=torch.bool),
+                                        variant="realdiag", n_sq=2)
+    assert k3.shape == (1, 3, 3, 10), k3.shape
+    k4 = probe_conv.conv3x3_64(torch.ones(1, 3, 5, 7), torch.ones(3, 3, 7, 64))
+    assert k4.shape == (1, 3, 5, 64), k4.shape
     leaked = sorted(m for m in sys.modules if blocked(m))
     assert not leaked, leaked
     print("HYGIENE_OK")
