@@ -7,7 +7,8 @@ on one NVIDIA GPU and check every kernel on the way.
 Phases, each printing what it found; any failure raises and exits non-zero:
   0. require CUDA; print the card (nvidia-smi) and switch TF32 off;
   1. build the CUDA kernels (K1 spatial stage, K2 noise-floor tracker, K3, K4)
-     with nvcc, one process per source;
+     with nvcc, one process per source; check ptxas registers and spills, and
+     that K4's bf16 kernels run on the tensor cores (HMMA in their SASS);
   2. K1 and K2 against their plain PyTorch versions at the serving shapes, a
      ragged shape and all-zero input;
   3. CUDA SALSA extraction against the committed reference golden;
@@ -20,7 +21,8 @@ Phases, each printing what it found; any failure raises and exits non-zero:
      serving shape, a ragged shape and all-zero input, `full` against K1, then
      the probe `salsa_tpu_torch.scripts.probe_salsa_kernel` at B=32;
   7. K4, the 3x3 conv with 64 outputs, against its plain version in bf16 and f32
-     at the stage-1 shape and a ragged shape, then the probe
+     at the stage-1 shape and two ragged shapes (7 and 80 channels), each at
+     every rows-per-block, then the probe
      `salsa_tpu_torch.scripts.probe_pallas_conv` at B=32.
 The second-to-last line is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Weights are random, from a fixed seed.
@@ -50,7 +52,13 @@ from salsa_tpu_torch.features.salsa import (
     noise_floor_mask_plain,
 )
 from salsa_tpu_torch.features.salsa_spatial import salsa_spatial, salsa_spatial_plain
-from salsa_tpu_torch.kernels.build import build_library, load_library, ptxas_usage
+from salsa_tpu_torch.kernels.build import (
+    build_library,
+    library_sass,
+    load_library,
+    ptxas_usage,
+    sass_opcode_counts,
+)
 from salsa_tpu_torch.models.seld import build_model, init_random_
 from salsa_tpu_torch.pipeline import SeldInferencePipeline
 from salsa_tpu_torch.scripts import probe_pallas_conv, probe_salsa_kernel
@@ -160,6 +168,28 @@ def phase1() -> None:
         raise AssertionError(f"K1 salsa_spatial_kernel: ptxas (registers, spill stores, spill "
                              f"loads) {k1}, expected [({K1_REGISTERS}, 0, 0)] as before")
     log("1", f"K1 salsa_spatial_kernel: {K1_REGISTERS} registers, no spills, as before")
+
+    # K4: the bf16 kernels run on the tensor cores (HMMA in their machine code) and
+    # do not spill; the f32 kernels stay on the CUDA cores (no HMMA)
+    ops = sass_opcode_counts(library_sass(path))
+    for kind, want_mma in (("conv3x3_64_mma_kernel", True), ("conv3x3_64_f32_kernel", False)):
+        names = sorted(name for name in ops if kind in name)
+        if len(names) != len(probe_pallas_conv.ROWS):
+            raise AssertionError(f"K4 {kind}: {len(names)} instantiations in the SASS, expected "
+                                 f"{len(probe_pallas_conv.ROWS)} (rows per block "
+                                 f"{probe_pallas_conv.ROWS})")
+        for name in names:
+            hmma = ops[name].get("HMMA", 0)
+            regs, st, ld = usage[name]
+            log("1", f"SASS: {hmma:4d} HMMA of {sum(ops[name].values())} instructions, "
+                     f"{regs} registers, spills {st}/{ld} B: {name}")
+            if want_mma and not (hmma > 0 and st == 0 and ld == 0):
+                raise AssertionError(f"K4 bf16 {name}: {hmma} HMMA, spill stores {st} B, "
+                                     f"loads {ld} B; expected HMMA and no spills")
+            if not want_mma and hmma:
+                raise AssertionError(f"K4 f32 {name}: {hmma} HMMA, expected none")
+    log("1", "K4: bf16 instantiations use the tensor cores (HMMA) without spills; f32 "
+             "instantiations use none")
 
 
 def phase2(dev) -> dict:
@@ -457,10 +487,14 @@ def phase6(dev) -> dict:
 def phase7(dev) -> dict:
     """K4 against its plain version; returns the error, times and the probe's launches."""
     rng = np.random.default_rng(SEED + 3)
-    x = torch.from_numpy(rng.standard_normal((32, 320, 100, 64)).astype(np.float32)).to(dev)
-    w = torch.from_numpy(rng.standard_normal((3, 3, 64, 64)).astype(np.float32) * 0.05).to(dev)
-    rx = torch.from_numpy(rng.standard_normal((3, 13, 37, 7)).astype(np.float32)).to(dev)
-    rw = torch.from_numpy(rng.standard_normal((3, 3, 7, 64)).astype(np.float32) * 0.3).to(dev)
+
+    def normal(shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to(dev)
+
+    x, w = normal((32, 320, 100, 64)), normal((3, 3, 64, 64), 0.05)
+    # ragged: C = 7 takes the element-load fills, C = 80 the 16-byte fills and a
+    # second 64-channel chunk
+    ragged = [(normal((3, 13, 37, c)), normal((3, 3, c, 64), s)) for c, s in ((7, 0.3), (80, 0.1))]
     # bf16: the kernel rounds its f32 sum once (<= 2^-8 relative), held against the
     # plain version's f32 sum and against its rounded output, both within 5e-3 of
     # max|plain|. Where the two roundings differ it is by one bf16 step, at most
@@ -469,16 +503,16 @@ def phase7(dev) -> dict:
     bounds = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
     main_err = None
     for dtype, bound in bounds.items():
-        for main_shape, what, (a, b) in ((True, f"{tuple(x.shape)}", (x, w)),
-                                         (False, f"ragged {tuple(rx.shape)}", (rx, rw))):
+        for main_shape, (a, b) in [(True, (x, w))] + [(False, r) for r in ragged]:
+            what = f"{'' if main_shape else 'ragged '}{tuple(a.shape)}"
             a, b = a.to(dtype), b.to(dtype)
             want = conv3x3_64_plain(a, b)
             want_f32 = conv3x3_64_plain(a.float(), b.float())
-            for rows in ((8,) if main_shape else (1, 2, 4, 8)):
+            for rows in probe_pallas_conv.ROWS:
                 got = conv3x3_64(a, b, rows_per_block=rows)
                 torch.cuda.synchronize()
                 err, err_rounded = rel_err(got, want_f32), rel_err(got, want)
-                if main_shape and dtype == torch.bfloat16:
+                if main_shape and dtype == torch.bfloat16 and rows == 8:
                     main_err = float((got.float() - want.float()).abs().max())
                 log("7", f"K4 {what} {dtype} rows {rows}: max|kernel - plain| / max|plain| "
                          f"{err:.3e} against the f32 sum, {err_rounded:.3e} against the plain "
@@ -488,12 +522,16 @@ def phase7(dev) -> dict:
                     raise AssertionError(f"K4 {what} {dtype} rows {rows}: rel err {err}, "
                                          f"{err_rounded} against the rounded plain output")
 
+    # the kernel's time is its time at 8 rows, the wrapper's default
     xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
-    times = {"k4": cuda_ms(lambda: conv3x3_64(xb, wb), repeats=20, warmup=3),
-             "k4_plain": cuda_ms(lambda: conv3x3_64_plain(xb, wb), repeats=20, warmup=3)}
-    log("7", f"K4 {tuple(x.shape)} bf16: kernel {times['k4']:.3f} ms, plain (f32 cuDNN) "
-             f"{times['k4_plain']:.3f} ms [{CARD}]")
-    del x, w, xb, wb
+    kw = dict(repeats=20, warmup=3, calls=probe_pallas_conv.K4_CALLS)
+    rows_ms = {rows: cuda_ms(lambda: conv3x3_64(xb, wb, rows_per_block=rows), **kw)
+               for rows in probe_pallas_conv.ROWS}
+    times = {"k4": rows_ms[8], "k4_plain": cuda_ms(lambda: conv3x3_64_plain(xb, wb), **kw)}
+    log("7", f"K4 {tuple(x.shape)} bf16, {kw['calls']} calls back to back: kernel "
+             + ", ".join(f"{rows} rows {ms:.3f} ms" for rows, ms in rows_ms.items())
+             + f"; plain (f32 cuDNN) {times['k4_plain']:.3f} ms [{CARD}]")
+    del x, w, xb, wb, ragged
 
     log("7", f"probe_pallas_conv --batch 32 [{CARD}]")
     conv3x3_64.launches = 0

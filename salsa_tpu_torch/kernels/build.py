@@ -6,6 +6,8 @@ the objects are linked into one library. The library is built at first use into
 `build/salsa_tpu_torch/` beside the package and reused while a hash of the
 sources, headers and flags matches. Nothing is built when this module is
 imported, and nothing falls back: a missing nvcc or a failed compile raises.
+`ptxas_usage` and `sass_opcode_counts` read what the compiler and `cuobjdump`
+say about the built kernels (registers, spills, machine instructions).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import re
 import shutil
 import subprocess
 import time
+from collections import Counter
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -37,13 +40,14 @@ _SIGNATURES = {
 }
 
 
-def _find_nvcc() -> str:
+def _find_tool(name: str) -> str:
+    """A CUDA toolkit program (nvcc, cuobjdump) from CUDA_HOME/CUDA_PATH or PATH."""
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
+    for cand in (os.path.join(cuda_home, "bin", name), shutil.which(name)):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError(f"nvcc not found (looked in {cuda_home}/bin and on PATH): "
-                       "the CUDA kernels cannot be built")
+    raise RuntimeError(f"{name} not found (looked in {cuda_home}/bin and on PATH): "
+                       "the CUDA kernels cannot be built or inspected")
 
 
 def _sources() -> list[Path]:
@@ -68,7 +72,7 @@ def build_library() -> tuple[Path, float]:
     if path.exists():
         return path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _find_nvcc()
+    nvcc = _find_tool("nvcc")
     tag = f"{path.stem}.{os.getpid()}"
     t0 = time.perf_counter()
     jobs = []
@@ -120,6 +124,35 @@ def ptxas_usage(log: str) -> dict[str, tuple[int, int, int]]:
             usage[name] = (int(m.group(1)), *spills)
             name = None
     return usage
+
+
+_FUNCTION = re.compile(r"\bFunction\s*:\s*(\S+)")
+# an instruction line: /*0a30*/ [@P0 | @!UP1 ] OPCODE.MODIFIERS operands ;
+_INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)[.\s;]")
+
+
+def sass_opcode_counts(sass: str) -> dict[str, dict[str, int]]:
+    """{mangled kernel name: {opcode: count}} from `cuobjdump -sass` output; an
+    opcode is the instruction's name without its modifiers (`HMMA` for
+    `HMMA.16816.F32.BF16`)."""
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if m := _FUNCTION.search(line):
+            name = m.group(1)
+            counts[name] = Counter()
+        elif name and (m := _INSTR.search(line)):
+            counts[name][m.group(1)] += 1
+    return counts
+
+
+def library_sass(path: Path) -> str:
+    """`cuobjdump -sass` of a built library: the machine code of every kernel."""
+    cmd = [_find_tool("cuobjdump"), "-sass", str(path)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return proc.stdout
 
 
 @functools.lru_cache(maxsize=1)

@@ -5,16 +5,18 @@
 
 `conv3x3_64` is an NHWC 3x3 SAME convolution with 64 output channels, f32
 accumulation, output in the input's type: it launches `csrc/conv3x3_64.cu` on
-CUDA tensors and runs `conv3x3_64_plain` on CPU tensors. x and w keep the JAX
-layouts, NHWC and HWIO (3, 3, C, 64); `hwio_from_w_big` carries the JAX
-kernel's paired weight matrix (`make_w_big`) back to HWIO.
+CUDA tensors (bf16 on the tensor cores, f32 on the CUDA cores) and runs
+`conv3x3_64_plain` on CPU tensors. x and w keep the JAX layouts, NHWC and HWIO
+(3, 3, C, 64), in both types; `hwio_from_w_big` carries the JAX kernel's paired
+weight matrix (`make_w_big`) back to HWIO.
 
 The probe runs the JAX probe's shape, the stage-1 geometry of the from-wav
 training step (B=32, 320 x 100, C=64, bf16, w * 0.05, seed 0), and prints the
 max relative error against the plain version's f32 sum (raising above 5e-3),
 then ms and effective TF/s of the
-kernel, of the plain version (f32 cuDNN, TF32 as the caller set it) and of
-cuDNN in bf16, and the kernel's speed relative to each.
+kernel, of the plain version (f32 cuDNN with TF32 switched off, as the probe
+sets and prints it) and of cuDNN in bf16, and the kernel's speed relative to each.
+Each time is a median over CUDA-event timings of K4_CALLS calls back to back.
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ from salsa_tpu_torch.scripts.timing import cuda_ms, require_cuda
 
 N_OUT = 64
 ROWS = (1, 2, 4, 8)
+# calls back to back between the events of one timing, so the host's launch gap is hidden
+K4_CALLS = 10
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -125,6 +129,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
     dev = require_cuda("probe_pallas_conv")
+    # the plain version is the f32 conv itself, not cuDNN's TF32 one
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(0)
     B, H, W, C = args.batch, 320, 100, 64
     dt = torch.bfloat16
@@ -132,7 +139,8 @@ def main(argv=None) -> dict:
     w = torch.from_numpy(rng.standard_normal((3, 3, C, N_OUT)).astype(np.float32) * 0.05
                          ).to(dev, dt)
     print(f"device: {torch.cuda.get_device_name(dev)}; x {tuple(x.shape)} {dt}, rows per "
-          f"block {args.bh}", flush=True)
+          f"block {args.bh}; matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
 
     # one bf16 rounding of the f32 sum: <= 2^-8 of max|plain|
     err = rel_err(conv3x3_64(x, w, rows_per_block=args.bh),
@@ -146,15 +154,15 @@ def main(argv=None) -> dict:
     x_cl = x.permute(0, 3, 1, 2)
 
     def timed(fn):
-        return cuda_ms(fn, repeats=args.iters, warmup=3)
+        return cuda_ms(fn, repeats=args.iters, warmup=3, calls=K4_CALLS)
 
     t = {"kernel": timed(lambda: conv3x3_64(x, w, rows_per_block=args.bh)),
          "plain": timed(lambda: conv3x3_64_plain(x, w)),
          "cudnn_bf16": timed(lambda: F.conv2d(x_cl, w_cl, padding=1))}
     flops = 2 * B * H * W * 9 * C * N_OUT
-    for name, label in (("kernel", "conv3x3_64 kernel"), ("plain", "plain (f32 cuDNN)"),
-                        ("cudnn_bf16", "cuDNN bf16")):
-        print(f"{label:>18}: {t[name]:8.3f} ms  ({flops / (t[name] * 1e-3) / 1e12:6.1f} "
+    for name, label in (("kernel", "conv3x3_64 kernel"),
+                        ("plain", "plain (f32 cuDNN, no TF32)"), ("cudnn_bf16", "cuDNN bf16")):
+        print(f"{label:>26}: {t[name]:8.3f} ms  ({flops / (t[name] * 1e-3) / 1e12:6.1f} "
               "TF/s effective)", flush=True)
     print(f"kernel speed vs plain: {t['plain'] / t['kernel']:.3f}x, vs cuDNN bf16: "
           f"{t['cudnn_bf16'] / t['kernel']:.3f}x", flush=True)

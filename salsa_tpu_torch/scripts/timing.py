@@ -14,16 +14,20 @@ def require_cuda(what: str) -> torch.device:
     return torch.device("cuda", 0)
 
 
-def cuda_ms(fn, repeats: int = 7, warmup: int = 2) -> float:
-    """Median CUDA-event time of fn() in ms, after warm-up."""
+def cuda_ms(fn, repeats: int = 7, warmup: int = 2, calls: int = 1) -> float:
+    """Median CUDA-event time of fn() in ms, after warm-up. Each repeat times
+    `calls` calls back to back between its two events and counts the mean: with
+    one call, the card waits on the host's launch of fn() inside the events; with
+    several, the host queues each call while the card runs the one before."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(repeats):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)

@@ -51,6 +51,39 @@ def test_hwio_from_w_big_inverts_make_w_big(C):
         tconv.hwio_from_w_big(w_big[:-1])
 
 
+@pytest.mark.parametrize("C", [7, 64, 80])
+def test_mma_weight_layout(C):
+    """The bf16 kernel's weights in shared memory: per 64-channel chunk, HWIO w
+    transposed to [dh, dw, n, c] and padded with zero channels to a multiple of
+    16; read back at [dh, dw, n, c] it is w[dh, dw, c0 + c, n]. Taken so,
+    B[k][n] = ws[tap, n, c] and A[m][k] = the zero-padded input give, as one GEMM
+    per chunk, the float64 conv and the wrapper's output on the CPU."""
+    x, w = _inputs(C)
+    xp = torch.nn.functional.pad(torch.from_numpy(x), (0, 0, 1, 1, 1, 1))  # 1-pixel halo
+    B_, H, W, _ = x.shape
+    out = torch.zeros(B_ * H * W, 64, dtype=torch.float64)
+    for c0 in range(0, C, 64):
+        ck = min(64, C - c0)
+        cp = -(-ck // 16) * 16
+        wpad = torch.zeros(3, 3, 64, cp, dtype=torch.float64)
+        wpad[..., :ck] = torch.from_numpy(w[:, :, c0:c0 + ck]).double().transpose(2, 3)
+        for dh, dw, n, c in np.ndindex(3, 3, 64, ck):
+            assert wpad[dh, dw, n, c] == w[dh, dw, c0 + c, n]
+        assert not wpad[..., ck:].any()
+        xpad = torch.zeros(B_, H + 2, W + 2, cp, dtype=torch.float64)
+        xpad[..., :ck] = xp[..., c0:c0 + ck].double()
+        A = torch.stack([xpad[:, dh:dh + H, dw:dw + W].reshape(-1, cp)
+                         for dh in range(3) for dw in range(3)], 1).reshape(-1, 9 * cp)
+        Bm = wpad.permute(0, 1, 3, 2).reshape(9 * cp, 64)  # k = tap * cp + c
+        out += A @ Bm
+    want = torch.nn.functional.conv2d(torch.from_numpy(x).double().permute(0, 3, 1, 2),
+                                      torch.from_numpy(w).double().permute(3, 2, 0, 1),
+                                      padding=1).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(out.reshape(B_, H, W, 64).numpy(), want.numpy(), atol=1e-10)
+    got = tconv.conv3x3_64(torch.from_numpy(x), torch.from_numpy(w))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cpu_wrapper_is_the_plain_version(dtype):
     x, w = _inputs(7)
