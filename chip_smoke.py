@@ -7,16 +7,19 @@ on one NVIDIA GPU and check every kernel on the way.
 Phases, each printing what it found; any failure raises and exits non-zero:
   0. require CUDA; print the card (nvidia-smi) and switch TF32 off;
   1. build the CUDA kernels (K1 spatial stage, K2 noise-floor tracker, K3, K4)
-     with nvcc, one process per source; check ptxas registers and spills, and
-     that K4's bf16 kernels run on the tensor cores (HMMA in their SASS);
-  2. K1 and K2 against their plain PyTorch versions at the serving shapes, a
-     ragged shape and all-zero input;
+     with nvcc, one process per source; check ptxas registers and spills (K1 80
+     registers, K2 no spills), and that K4's bf16 kernels run on the tensor
+     cores (HMMA in their SASS);
+  2. K1 against its plain PyTorch version at the serving shapes, a ragged shape
+     and all-zero input; K2 bit-equal to its plain version at the serving shape,
+     at (64, 191, 4807), at 33 rows around its frame tile, resumed off a tile
+     boundary, resumed for 3 frames, and on all-zero planes;
   3. CUDA SALSA extraction against the committed reference golden;
   4. the full-width SALSA-FOA CRNN (configs/seld.yml) answering three requests
      through SeldInferencePipeline, with launch counts, batch-vs-solo and
      GPU-vs-CPU checks and DCASE CSVs written and read back;
   5. times (CUDA-synchronized medians) of a request and of each kernel against
-     its plain version;
+     its plain version, K2 also at (64, 191, 4807);
   6. K3, the SALSA-kernel ablation variants, against their plain versions at the
      serving shape, a ragged shape and all-zero input, `full` against K1, then
      the probe `salsa_tpu_torch.scripts.probe_salsa_kernel` at B=32;
@@ -24,7 +27,10 @@ Phases, each printing what it found; any failure raises and exits non-zero:
      at the stage-1 shape and two ragged shapes (7 and 80 channels), each at
      every rows-per-block, then the probe
      `salsa_tpu_torch.scripts.probe_pallas_conv` at B=32.
-The second-to-last line is a JSON summary of the kernels; the last line is
+The second-to-last line is a JSON summary of the kernels, each with its time,
+its plain version's, its bound (the larger of its bytes over the memory rate and
+its operations over the peak rate of their type) and, where one PyTorch call
+computes the same function, that call's time; the last line is
 {"ok": true, "device": {...}}. Weights are random, from a fixed seed.
 """
 from __future__ import annotations
@@ -82,7 +88,25 @@ INTERP = 16 * D["label_rate"] / (FS / HOP)  # encoder rate -> label rate: 2.0
 FOA = SalsaParams(fs=FS, n_fft=N_FFT, hop_length=HOP, fmax_doa=9000.0, audio_format="foa")
 MIC = SalsaParams(fs=FS, n_fft=N_FFT, hop_length=HOP, fmax_doa=4000.0, audio_format="mic")
 CARD = ""  # nvidia-smi name and power limit, set in phase 0
+K2_CALLS = 10  # K2 calls back to back between the events of one timing
 K1_REGISTERS = 80  # ptxas count of K1 at sm_90a since it was written (PERF.md)
+
+# NVIDIA H100 SXM published peaks (dense): device memory, fp32 outside the tensor
+# cores, bf16 on the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+# K1 (and K3 `full`, n_sq 3) fp32 operations per (clip, bin, frame) cell, counted
+# from csrc/salsa_spatial.cu and csrc/hermitian4.cuh (each +, -, *, /, rsqrt and
+# atan2 one operation; cmul 6, cadd 2, cscale 2, matvec 120, normalize 25,
+# rayleigh 135, orth 62, square_renorm 325): covariance 561, trace normalisation
+# 25, 3 squarings 975, principal pair 290 + 135, runner-up 62 + 3 x 207 + 135,
+# coherence test 1, then FOA directions 28 or MIC phases 26. The work does not
+# depend on the data: every cell runs all of it.
+K1_FLOPS_PER_CELL = {"foa": 2833, "mic": 2831}
+# K2 per cell: power 3, the 3-frame sum 2, divide and root 2, the step's compare,
+# product, max, threshold product and compare 5
+K2_FLOPS_PER_CELL = 12
 
 
 def log(phase: str, msg: str) -> None:
@@ -113,6 +137,59 @@ def spatial_kw(p: SalsaParams) -> dict:
     return dict(n_hop=p.n_hopframes, audio_format=p.audio_format,
                 condition_number=p.condition_number, lower_bin=p.lower_bin, fs=p.fs,
                 n_fft=p.n_fft)
+
+
+def roofline(n_bytes: float, n_ops: float, peak_ops: float) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what sets it: the bytes
+    moved over the memory rate or the operations over their peak rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_bound(shape, fmt: str = "foa") -> tuple[float, str]:
+    """K1's bound on planes (B, 4, bins, T + 2h): read re/im once and the mask,
+    write 3 feature planes."""
+    B, C, n_bins, n_padded = shape
+    cells = B * n_bins * (n_padded - 2 * FOA.n_hopframes)
+    n_bytes = 2 * B * C * n_bins * n_padded * 4 + cells + 3 * cells * 4
+    return roofline(n_bytes, cells * K1_FLOPS_PER_CELL[fmt], FP32_FLOPS)
+
+
+def k2_bound(shape) -> tuple[float, str]:
+    """K2's bound on channel-0 planes (B, bins, T + 2h): read re/im once, write the
+    byte mask and the final state."""
+    B, n_bins, n_padded = shape
+    rows, cells = B * n_bins, B * n_bins * (n_padded - 2 * FOA.n_hopframes)
+    return roofline(2 * rows * n_padded * 4 + cells + rows * 8, cells * K2_FLOPS_PER_CELL,
+                    FP32_FLOPS)
+
+
+def k2_chain_floor_ms(n_frames: int, clk_per_step: float, sm_hz: float = 1.98e9) -> float:
+    """The recurrence's own floor: n_frames dependent steps of clk_per_step each."""
+    return n_frames * clk_per_step / sm_hz * 1e3
+
+
+def normal_planes(rng: np.random.Generator, shape, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """Seeded standard-normal re/im planes, float32, on `dev`."""
+    return tuple(torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+                 for _ in range(2))
+
+
+def check_k2(xr0, xi0, n_frames: int, what: str, state0=None):
+    """K2 against its plain version on CPU copies (the kernel is bit-exact IEEE):
+    mask, floor and countdown must be equal. Returns the plain (mask, state)."""
+    mask, (floor, cd) = noise_floor_mask(xr0, xi0, n_hop=3, n_frames=n_frames, state0=state0)
+    cpu_state = None if state0 is None else tuple(s.cpu() for s in state0)
+    p_mask, (p_floor, p_cd) = noise_floor_mask_plain(xr0.cpu(), xi0.cpu(), n_hop=3,
+                                                     n_frames=n_frames, state0=cpu_state)
+    if not (torch.equal(mask.cpu(), p_mask) and torch.equal(floor.cpu(), p_floor)
+            and torch.equal(cd.cpu(), p_cd)):
+        raise AssertionError(
+            f"K2 {what} {tuple(xr0.shape)}: not bit-equal to the plain tracker (mask "
+            f"mismatches {int((mask.cpu() != p_mask).sum())}, floor max diff "
+            f"{float((floor.cpu() - p_floor).abs().max()):.3e}, countdown mismatches "
+            f"{int((cd.cpu() != p_cd).sum())})")
+    return p_mask, (p_floor, p_cd)
 
 
 def compare_spatial(got: torch.Tensor, want: torch.Tensor, what: str, phase: str = "2") -> float:
@@ -168,6 +245,12 @@ def phase1() -> None:
         raise AssertionError(f"K1 salsa_spatial_kernel: ptxas (registers, spill stores, spill "
                              f"loads) {k1}, expected [({K1_REGISTERS}, 0, 0)] as before")
     log("1", f"K1 salsa_spatial_kernel: {K1_REGISTERS} registers, no spills, as before")
+    k2 = [(name, u) for name, u in usage.items() if "noise_floor_kernel" in name]
+    if len(k2) != 1 or k2[0][1][1:] != (0, 0):
+        raise AssertionError(f"K2 noise_floor_kernel: ptxas (registers, spill stores, spill "
+                             f"loads) {k2}, expected one kernel without spills")
+    log("1", f"K2 noise_floor_kernel: {k2[0][1][0]} registers, no spills, tile of "
+             f"{load_library().noise_floor_tile_frames()} frames")
 
     # K4: the bf16 kernels run on the tensor cores (HMMA in their machine code) and
     # do not spill; the f32 kernels stay on the CUDA cores (no HMMA)
@@ -223,32 +306,51 @@ def phase2(dev) -> dict:
             raise AssertionError(f"K1 {p.audio_format} all-zero input: output not all 0")
     log("2", "K1 all-zero input (FOA, MIC): output all 0 and finite")
 
-    # K2 vs the plain tracker (run on CPU copies: the kernel is bit-exact IEEE)
+    # K2 vs the plain tracker, bit-equal, on CPU copies
     xr, xi = stft_band(waves, FOA)
     xr0, xi0 = xr[:, 0].contiguous(), xi[:, 0].contiguous()
     n_t = xr0.shape[-1] - 6
-    mask, (floor, cd) = noise_floor_mask(xr0, xi0, n_hop=3, n_frames=n_t)
-    p_mask, (p_floor, p_cd) = noise_floor_mask_plain(xr0.cpu(), xi0.cpu(), n_hop=3,
-                                                     n_frames=n_t)
-    k2_err = float((floor.cpu() - p_floor).abs().max())
-    if not (torch.equal(mask.cpu(), p_mask) and torch.equal(floor.cpu(), p_floor)
-            and torch.equal(cd.cpu(), p_cd)):
-        raise AssertionError(f"K2 {tuple(xr0.shape)}: not bit-equal to the plain tracker "
-                             f"(mask mismatches {int((mask.cpu() != p_mask).sum())}, "
-                             f"floor max diff {k2_err:.3e})")
-    # resume mid-clip from the plain tracker's state
+    p_mask, p_state = check_k2(xr0, xi0, n_t, "serving")
+    # resume mid-clip, off a tile boundary, from the plain tracker's state there
+    tile = load_library().noise_floor_tile_frames()
     cut = n_t // 2
+    if cut % tile == 0:
+        raise AssertionError(f"resume frame {cut} is on a tile boundary ({tile} frames)")
     _, st = noise_floor_mask_plain(xr0[..., :cut + 6].cpu(), xi0[..., :cut + 6].cpu(),
                                    n_hop=3, n_frames=cut)
-    r_mask, (r_floor, r_cd) = noise_floor_mask(
-        xr0[..., cut:].contiguous(), xi0[..., cut:].contiguous(), n_hop=3,
-        n_frames=n_t - cut, state0=(st[0].to(dev), st[1].to(dev)))
-    if not (torch.equal(r_mask.cpu(), p_mask[..., cut:]) and torch.equal(r_floor.cpu(), p_floor)
-            and torch.equal(r_cd.cpu(), p_cd)):
-        raise AssertionError("K2 resumed from a mid-clip state differs from the plain tracker")
+    r_mask, r_state = check_k2(xr0[..., cut:].contiguous(), xi0[..., cut:].contiguous(),
+                               n_t - cut, f"resumed at frame {cut}",
+                               state0=(st[0].to(dev), st[1].to(dev)))
+    if not (torch.equal(r_mask, p_mask[..., cut:]) and torch.equal(r_state[0], p_state[0])
+            and torch.equal(r_state[1], p_state[1])):
+        raise AssertionError("K2 resumed from a mid-clip state differs from the whole clip")
     log("2", f"K2 {tuple(xr0.shape)}: mask ({p_mask.float().mean():.3%} set), floor and "
-             f"countdown bit-equal to the plain tracker, also resumed at frame {cut}")
-    errs["k2"] = k2_err
+             f"countdown bit-equal to the plain tracker, also resumed at frame {cut} "
+             f"({cut % tile} into a tile of {tile})")
+    del xr, xi, xr0, xi0
+
+    # bench.py's batch, seeded normal planes
+    big = normal_planes(rng, (64, 191, n_t + 6), dev)
+    b_mask, _ = check_k2(*big, n_t, "B=64")
+    log("2", f"K2 (64, 191, {n_t + 6}): mask ({b_mask.float().mean():.3%} set), floor and "
+             f"countdown bit-equal")
+    del big, b_mask
+    # 33 rows (one full block and one row) around the frame tile
+    for t in (5, tile - 1, tile, tile + 1, 2 * tile + 3):
+        check_k2(*normal_planes(rng, (3, 11, t + 6), dev), t, f"33 rows T={t}")
+    log("2", f"K2 (3, 11, T + 6) for T in 5, {tile - 1}, {tile}, {tile + 1}, {2 * tile + 3}: "
+             "bit-equal")
+    # 3 frames from a given state: countdowns on both sides of 0
+    st = (torch.from_numpy(rng.uniform(0.5, 1.5, (3, 11)).astype(np.float32)).to(dev),
+          torch.from_numpy(rng.integers(-3, 4, (3, 11), dtype=np.int32)).to(dev))
+    check_k2(*normal_planes(rng, (3, 11, 3 + 6), dev), 3, "resumed for T=3", state0=st)
+    log("2", "K2 (3, 11, 9) resumed for 3 frames from a given state: bit-equal")
+    z = torch.zeros(2, 7, 100 + 6, device=dev)
+    z_mask, (z_floor, _) = check_k2(z, z, 100, "all-zero")
+    if z_mask.any() or not torch.equal(z_floor, torch.full_like(z_floor, 1e-6)):
+        raise AssertionError("K2 all-zero planes: mask set or floor not clamped at 1e-6")
+    log("2", "K2 all-zero planes: mask all false, floor 1e-6, bit-equal")
+    errs["k2"] = 0.0  # every comparison above is exact
     return errs
 
 
@@ -389,17 +491,30 @@ def phase5(dev, pipe, request) -> dict:
     xr0, xi0 = xr[:, 0].contiguous(), xi[:, 0].contiguous()
     mask, _ = noise_floor_mask(xr0, xi0, n_hop=3, n_frames=n_t)
     kw = spatial_kw(FOA)
+    big = normal_planes(np.random.default_rng(SEED + 4), (64, 191, n_t + 6), dev)
     times = {
         "k1": cuda_ms(lambda: salsa_spatial(xr, xi, mask, **kw)),
         "k1_plain": cuda_ms(lambda: salsa_spatial_plain(xr, xi, mask, **kw)),
-        "k2": cuda_ms(lambda: noise_floor_mask(xr0, xi0, n_hop=3, n_frames=n_t)),
+        "k2": cuda_ms(lambda: noise_floor_mask(xr0, xi0, n_hop=3, n_frames=n_t),
+                      calls=K2_CALLS),
+        "k2_b64": cuda_ms(lambda: noise_floor_mask(*big, n_hop=3, n_frames=n_t),
+                          calls=K2_CALLS),
         "k2_plain": cuda_ms(lambda: noise_floor_mask_plain(xr0, xi0, n_hop=3, n_frames=n_t),
                             repeats=5, warmup=1),
     }
+    times["k1_bound"] = k1_bound(xr.shape)
+    times["k2_bound"] = k2_bound(xr0.shape)
     log("5", f"K1 salsa_spatial {tuple(xr.shape)}: kernel {times['k1']:.3f} ms, plain "
-             f"{times['k1_plain']:.3f} ms [{CARD}]")
-    log("5", f"K2 noise_floor {tuple(xr0.shape)}: kernel {times['k2']:.3f} ms, plain "
-             f"{times['k2_plain']:.3f} ms [{CARD}]")
+             f"{times['k1_plain']:.3f} ms, bound {times['k1_bound'][0]:.4f} ms "
+             f"({times['k1_bound'][1]}) [{CARD}]")
+    chain = "-".join(f"{k2_chain_floor_ms(n_t, clk):.3f}" for clk in (16, 24))
+    for key, planes in (("k2", xr0), ("k2_b64", big[0])):
+        b_ms, b_by = k2_bound(planes.shape)
+        log("5", f"K2 noise_floor {tuple(planes.shape)}, {K2_CALLS} calls back to back: "
+                 f"kernel {times[key]:.4f} ms, bound {b_ms:.4f} ms ({b_by}), recurrence "
+                 f"floor {chain} ms at 16-24 clk a step [{CARD}]")
+    log("5", f"K2 plain {tuple(xr0.shape)}: {times['k2_plain']:.3f} ms [{CARD}]")
+    del big
 
     # where a request's device time goes: kernel and copy activities only (op-level
     # rows repeat the time of the kernels they launch)
@@ -469,8 +584,10 @@ def phase6(dev) -> dict:
     kw = dict(variant="full", n_sq=3)
     times = {"k3": cuda_ms(lambda: salsa_spatial_variant(xr, xi, mask, **kw)),
              "k3_plain": cuda_ms(lambda: salsa_spatial_variant_plain(xr, xi, mask, **kw))}
+    times["k3_bound"] = k1_bound(xr.shape)
     log("6", f"K3 full {tuple(xr.shape)}: kernel {times['k3']:.3f} ms, plain "
-             f"{times['k3_plain']:.3f} ms [{CARD}]")
+             f"{times['k3_plain']:.3f} ms, bound {times['k3_bound'][0]:.4f} ms "
+             f"({times['k3_bound'][1]}) [{CARD}]")
     del waves, xr, xi, mask, fam, k1
 
     log("6", f"probe_salsa_kernel --batch 32 [{CARD}]")
@@ -531,17 +648,24 @@ def phase7(dev) -> dict:
     log("7", f"K4 {tuple(x.shape)} bf16, {kw['calls']} calls back to back: kernel "
              + ", ".join(f"{rows} rows {ms:.3f} ms" for rows, ms in rows_ms.items())
              + f"; plain (f32 cuDNN) {times['k4_plain']:.3f} ms [{CARD}]")
+    # bf16 in and out: x and the output once each, the weights once
+    B, H, W, C = x.shape
+    times["k4_bound"] = roofline(2 * (B * H * W * C + 9 * C * 64 + B * H * W * 64),
+                                 2 * B * H * W * 9 * C * 64, BF16_FLOPS)
+    log("7", f"K4 bound at {tuple(x.shape)} bf16: {times['k4_bound'][0]:.4f} ms "
+             f"({times['k4_bound'][1]})")
     del x, w, xb, wb, ragged
 
     log("7", f"probe_pallas_conv --batch 32 [{CARD}]")
     conv3x3_64.launches = 0
-    probe_pallas_conv.main(["--batch", "32"])
+    probe = probe_pallas_conv.main(["--batch", "32"])
     torch.cuda.synchronize()
     launches = conv3x3_64.launches
     log("7", f"the probe launched K4 {launches} times")
     if launches == 0:
         raise AssertionError("the K4 probe launched no K4 kernel")
-    return {"err": main_err, "launches": launches, **times}
+    return {"err": main_err, "launches": launches, "k4_cudnn_bf16": probe["cudnn_bf16_ms"],
+            **times}
 
 
 def main() -> None:
@@ -558,27 +682,33 @@ def main() -> None:
     del pipe
     k3 = phase6(dev)
     k4 = phase7(dev)
+    # library_ms: one PyTorch call computing the same function, where there is one
+    # (cuDNN bf16 for K4, timed by the probe); none exists for K1-K3
     kernels = [
         {"name": "salsa_spatial", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/salsa_spatial.cu",
          "replaces": "salsa_tpu/features/salsa_pallas.py:138",
          "launches": launches["salsa_spatial"], "max_abs_err": errs["foa"],
-         "ms": times["k1"], "plain_ms": times["k1_plain"]},
+         "ms": times["k1"], "plain_ms": times["k1_plain"], "bound_ms": times["k1_bound"][0],
+         "bound_by": times["k1_bound"][1], "library_ms": None},
         {"name": "noise_floor", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/noise_floor.cu",
          "replaces": "salsa_tpu/features/salsa.py:82",
          "launches": launches["noise_floor"], "max_abs_err": errs["k2"],
-         "ms": times["k2"], "plain_ms": times["k2_plain"]},
+         "ms": times["k2"], "plain_ms": times["k2_plain"], "bound_ms": times["k2_bound"][0],
+         "bound_by": times["k2_bound"][1], "library_ms": None},
         {"name": "salsa_spatial_probe", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/salsa_spatial_probe.cu",
          "replaces": "scripts/probe_salsa_kernel.py:67",
          "launches": k3["launches"], "max_abs_err": k3["err"],
-         "ms": k3["k3"], "plain_ms": k3["k3_plain"]},
+         "ms": k3["k3"], "plain_ms": k3["k3_plain"], "bound_ms": k3["k3_bound"][0],
+         "bound_by": k3["k3_bound"][1], "library_ms": None},
         {"name": "conv3x3_64", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/conv3x3_64.cu",
          "replaces": "scripts/probe_pallas_conv.py:90",
          "launches": k4["launches"], "max_abs_err": k4["err"],
-         "ms": k4["k4"], "plain_ms": k4["k4_plain"]},
+         "ms": k4["k4"], "plain_ms": k4["k4_plain"], "bound_ms": k4["k4_bound"][0],
+         "bound_by": k4["k4_bound"][1], "library_ms": k4["k4_cudnn_bf16"]},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,6 +7,6 @@ The two hot spots of SALSA extraction are hand-written CUDA kernels
 on CPU tensors their wrappers run the plain PyTorch versions beside them.
 
 The package imports torch, numpy and the standard library only: no jax, flax,
-yaml, h5py or `salsa_tpu` (the weight converter in `interop.py` imports
-`salsa_tpu` inside its function, where flax parameters exist).
+yaml, h5py or `salsa_tpu`. It carries numpy copies of what it needs from
+`salsa_tpu`, its weight converter (`interop.py`) included.
 """

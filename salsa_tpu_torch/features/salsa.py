@@ -2,8 +2,9 @@
 log-linear spectrogram + normalized principal eigenvector of the local spatial
 covariance at each time-frequency bin of the DOA band.
 
-The noise-floor tracker is K2 (`csrc/noise_floor.cu`, one thread per (clip, bin)
-looping over frames) and the spatial stage is K1 (`features/salsa_spatial.py`).
+The noise-floor tracker is K2 (`csrc/noise_floor.cu`: a block of 32 (clip, bin)
+rows, producer warps staging tiles of frames in shared memory, one consumer warp
+running the recurrence) and the spatial stage is K1 (`features/salsa_spatial.py`).
 On CPU tensors both run their plain PyTorch versions. Layouts follow `salsa_tpu`
 with its `vmap` written out as a leading batch dimension: waves (B, 4, n_samples),
 band planes (B, C, bins, T + 2h), features (B, 7, T, F).
@@ -65,16 +66,31 @@ class SalsaParams:
 # Noise-floor tracker: plain versions
 # ---------------------------------------------------------------------------
 
+def sqrt_rn(q: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded square root of a non-negative float32 tensor, as CUDA's
+    __fsqrt_rn. torch's float32 sqrt on the CPU can be one ulp off (with AVX512,
+    about 1 root in 150 of random input); the root is moved to the neighbour whose
+    rounding interval holds q, decided exactly in float64 (a midpoint between two
+    float32 values has 25 bits, its square 50)."""
+    y = torch.sqrt(q)
+    up = torch.nextafter(y, torch.full_like(y, float("inf")))
+    down = torch.nextafter(y, torch.zeros_like(y))
+    qd, yd = q.double(), y.double()
+    hi, lo = (yd + up.double()) * 0.5, (yd + down.double()) * 0.5
+    return torch.where(qd > hi * hi, up, torch.where(qd < lo * lo, down, y))
+
+
 def tracking_magspec_planes(xr0: torch.Tensor, xi0: torch.Tensor, n_hopframes: int,
                             n_frames: int) -> torch.Tensor:
     """3-frame RMS magnitude of channel 0 from re/im planes (..., bins, T + 2h):
-    sqrt((|x[t]|^2 + |x[t-1]|^2 + |x[t-2]|^2) / 3), summed in that order."""
+    sqrt((|x[t]|^2 + |x[t-1]|^2 + |x[t-2]|^2) / 3), summed in that order, every
+    operation correctly rounded in float32."""
     acc = None
     for i in range(3):
         sl = slice(n_hopframes - i, n_hopframes - i + n_frames)
         p = xr0[..., sl] * xr0[..., sl] + xi0[..., sl] * xi0[..., sl]
         acc = p if acc is None else acc + p
-    return torch.sqrt(acc / 3.0)
+    return sqrt_rn(acc / 3.0)
 
 
 def tracker_init_state(magspec: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -145,6 +161,8 @@ def noise_floor_mask(xr0: torch.Tensor, xi0: torch.Tensor, *, n_hop: int, n_fram
     if n_hop < 2 or n_padded != n_frames + 2 * n_hop:
         raise ValueError(f"planes of {n_padded} frames do not hold n_frames={n_frames} "
                          f"with n_hop={n_hop} (>= 2) context frames per side")
+    if n_frames < 1:
+        raise ValueError(f"n_frames must be >= 1, got {n_frames}")
     if state0 is None and n_frames < 5:
         raise ValueError(f"the tracker's initial floor needs >= 5 frames, got {n_frames}")
     if xr0.dtype != torch.float32 or xi0.dtype != torch.float32 or xr0.device != xi0.device:

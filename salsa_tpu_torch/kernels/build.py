@@ -31,12 +31,13 @@ LINK_FLAGS = ("-shared",)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# (argtypes) of every C entry point; each returns cudaGetLastError() as int
+# (argtypes) of every C entry point; each launcher returns its CUDA error code
 _SIGNATURES = {
     "salsa_spatial_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F, _P),
     "noise_floor_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P),
     "salsa_spatial_probe_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "conv3x3_64_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "noise_floor_tile_frames": (),
 }
 
 

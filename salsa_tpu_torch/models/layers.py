@@ -1,9 +1,9 @@
 """Conv blocks and ResNet blocks (counterpart of `salsa_tpu.models.layers`), NCHW.
 
 Module attribute names are the reference's torch names (`conv1`, `bn1`, ...,
-`downsample`, `layer1`...), which are the keys
-`salsa_tpu.interop.torch_export.flax_to_torch_state_dict` emits, so flax weights
-load with strict=True. The flax `ConvBnRelu` submodule therefore has no module of
+`downsample`, `layer1`...), which are the keys `interop.flax_to_torch_state_dict`
+emits (as `salsa_tpu.interop.torch_export` does), so flax weights load with
+strict=True. The flax `ConvBnRelu` submodule therefore has no module of
 its own here: the reference flattens it into `convN`/`bnN` pairs, applied by
 `conv_bn_relu`.
 

@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from salsa_tpu_torch.features.registry import FeatureExtractor
+from salsa_tpu_torch.interop import load_flax_variables
 from salsa_tpu_torch.models.seld import interpolate_index_repeat
 
 
@@ -36,8 +37,6 @@ class SeldInferencePipeline:
             raise ValueError(f"unknown output format '{output_format}'")
         self.device = torch.device(device)
         if state_dict is not None and "params" in state_dict:
-            from salsa_tpu_torch.interop import load_flax_variables
-
             load_flax_variables(model, state_dict["params"], state_dict["batch_stats"])
         elif state_dict is not None:
             model.load_state_dict(state_dict, strict=True)

@@ -10,9 +10,12 @@ import yaml
 
 torch = pytest.importorskip("torch")
 
+from salsa_tpu.interop.torch_export import (  # noqa: E402
+    flax_to_torch_state_dict as j_flax_to_torch_state_dict,
+)
 from salsa_tpu.models import seld as jseld  # noqa: E402
 from salsa_tpu_torch import configs  # noqa: E402
-from salsa_tpu_torch.interop import load_flax_variables  # noqa: E402
+from salsa_tpu_torch.interop import flax_to_torch_state_dict, load_flax_variables  # noqa: E402
 from salsa_tpu_torch.models import seld as tseld  # noqa: E402
 
 CONFIG = os.path.join(os.path.dirname(__file__), "..", "configs", "seld.yml")
@@ -63,6 +66,35 @@ def test_seldnet_matches_flax(rng, decoder_type):
         assert np.asarray(want[k]).std() > 0.05  # the comparison is not vacuous
         # test_interop.py's bound for a flax -> torch weight transplant
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=5e-4, rtol=1e-3)
+
+
+def _flax_tree(rng, decoder_type, size=16):
+    enc = {"name": "PannResNet22", "n_input_channels": 7}
+    dec = {"name": "SeldDecoder", "decoder_type": decoder_type, "decoder_size": size,
+           "freq_pool": "avg"}
+    model = jseld.build_model(encoder=enc, decoder=dec, n_classes=3)
+    return flax_init(rng, model, np.zeros((1, 7, 64, 32), np.float32))
+
+
+@pytest.mark.parametrize("decoder_type", ["gru", "bigru"])
+def test_converter_equals_salsa_tpu_export(rng, decoder_type):
+    """The port's numpy converter gives salsa_tpu's state_dict key for key (in
+    order) and array for array."""
+    params, stats = _flax_tree(rng, decoder_type)
+    want = j_flax_to_torch_state_dict(params, stats)
+    got = flax_to_torch_state_dict(params, stats)
+    assert list(got) == list(want) and len(got) > 100
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("decoder_type", ["lstm", "bilstm", "transformer"])
+def test_converter_refuses_unported_decoders(rng, decoder_type):
+    params, stats = _flax_tree(rng, decoder_type)
+    assert j_flax_to_torch_state_dict(params, stats)  # salsa_tpu exports these
+    with pytest.raises(NotImplementedError):
+        flax_to_torch_state_dict(params, stats)
 
 
 @pytest.mark.parametrize("ratio,n_in", [(2, 8), (3, 5), (0.5, 8), (0.25, 12), (1.5, 6),

@@ -167,8 +167,12 @@ HYGIENE = textwrap.dedent("""
     assert ev.shape == (4, 2) and doa.shape == (4, 6), (ev.shape, doa.shape)
     assert np.isfinite(ev).all() and np.isfinite(doa).all()
 
+    import salsa_tpu_torch.interop as interop
+    import salsa_tpu_torch.scripts.bench_noise_floor as bench_k2
     import salsa_tpu_torch.scripts.probe_pallas_conv as probe_conv
     import salsa_tpu_torch.scripts.probe_salsa_kernel as probe_k3
+
+    assert callable(interop.flax_to_torch_state_dict) and callable(bench_k2.main)
 
     z = torch.zeros(1, 4, 3, 16)
     k3 = probe_k3.salsa_spatial_variant(z, z, torch.ones(1, 3, 10, dtype=torch.bool),

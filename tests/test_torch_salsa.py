@@ -20,6 +20,7 @@ from salsa_tpu.features.salsa_pallas import (  # noqa: E402
 from salsa_tpu_torch.features import salsa as tsalsa  # noqa: E402
 from salsa_tpu_torch.features import salsa_spatial as tspatial  # noqa: E402
 from salsa_tpu_torch.features.registry import make_extractor  # noqa: E402
+from salsa_tpu_torch.scripts import bench_noise_floor  # noqa: E402
 from tests.test_salsa_pallas import make_band  # noqa: E402
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "reference_features.npz")
@@ -60,12 +61,35 @@ def _band_mag(rng, n_bins=16, n_frames=700):
     return xr, xi, mag
 
 
+def _np_magnitudes(xr0, xi0, n_frames):
+    """K2's magnitudes in numpy float32, every operation correctly rounded:
+    sqrt(((|x[t]|^2 + |x[t-1]|^2) + |x[t-2]|^2) / 3) with |x|^2 = re*re + im*im."""
+    acc = None
+    for i in range(3):
+        sl = slice(H - i, H - i + n_frames)
+        p = xr0[..., sl] * xr0[..., sl] + xi0[..., sl] * xi0[..., sl]
+        acc = p if acc is None else acc + p
+    return np.sqrt(acc / np.float32(3.0))
+
+
 def test_tracking_magnitude_matches_jax(rng):
     xr, xi, want = _band_mag(rng)
     got = tsalsa.tracking_magspec_planes(torch.from_numpy(xr[0]), torch.from_numpy(xi[0]),
                                          H, want.shape[1]).numpy()
     # |z|^2 via re*re + im*im here, abs(complex)**2 in JAX: ulp-level differences
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    # and exactly the kernel's arithmetic
+    np.testing.assert_array_equal(got, _np_magnitudes(xr[0], xi[0], want.shape[1]))
+
+
+def test_sqrt_rn_is_correctly_rounded(rng):
+    """torch's float32 sqrt on the CPU can be an ulp off; sqrt_rn equals numpy's
+    correctly rounded root (and CUDA's __fsqrt_rn) on every input here."""
+    q = np.concatenate([
+        (rng.standard_normal(300_000) ** 2 * scale).astype(np.float32)
+        for scale in (1.0, 3e-30, 7e25)] + [np.array([0.0, 1e-45, 1.0, 4.0, 3.4e38],
+                                                     np.float32)])
+    np.testing.assert_array_equal(tsalsa.sqrt_rn(torch.from_numpy(q)).numpy(), np.sqrt(q))
 
 
 def test_tracker_init_state_matches_jax(rng):
@@ -77,23 +101,65 @@ def test_tracker_init_state_matches_jax(rng):
     assert c_t.dtype == torch.int32
 
 
-@pytest.mark.parametrize("resume_at", [0, 311])
-def test_tracker_scan_bit_equal_to_jax(rng, resume_at):
-    """Same magspec array and same entering state -> identical masks and final
-    states; resume_at > 0 restarts mid-clip from the JAX pre-state there."""
-    _, _, mag = _band_mag(rng)
-    state0 = jsalsa.tracker_init_state(jnp.asarray(mag))
+# (clips, bins, frames, resume_at, all-zero planes); ids "0" and "311" are the
+# single-clip cases of 16 bins, "33rows" a block of 32 rows and one more
+TRACKER_CASES = [
+    pytest.param(1, 16, 389, 0, False, id="0"),
+    pytest.param(1, 16, 389, 311, False, id="311"),
+    pytest.param(3, 11, 5, 0, False, id="33rows-T5"),
+    pytest.param(3, 11, 259, 0, False, id="33rows-T259"),
+    pytest.param(3, 11, 3, 311, False, id="33rows-resume-T3"),
+    pytest.param(2, 7, 100, 0, True, id="all-zero"),
+]
+
+
+@pytest.mark.parametrize("n_clips,n_bins,n_frames,resume_at,zero", TRACKER_CASES)
+def test_tracker_scan_bit_equal_to_jax(rng, n_clips, n_bins, n_frames, resume_at, zero):
+    """Frames [resume_at, resume_at + n_frames) of 700-frame clips: the port's scan
+    on the same magnitudes and entering state, and the K2 wrapper (plain on CPU)
+    on the planes, give the masks and final states of `salsa_tpu`'s
+    noise_floor_scan exactly. At the clip start the state is the first 5 frames'
+    (summed in frame order, within 1e-6 of JAX's mean); resume_at > 0 restarts
+    from JAX's pre-state there."""
+    full = 700
+    planes = [_planes(make_band(rng, n_bins=n_bins, n_frames=full)) for _ in range(n_clips)]
+    xr0 = np.stack([p[0][0] for p in planes])  # (clips, bins, full + 2h)
+    xi0 = np.stack([p[1][0] for p in planes])
+    if zero:
+        xr0, xi0 = np.zeros_like(xr0), np.zeros_like(xi0)
+    rows = n_clips * n_bins
+    mag = _np_magnitudes(xr0, xi0, full).reshape(rows, full)
+    floor0 = (((((mag[:, 0] + mag[:, 1]) + mag[:, 2]) + mag[:, 3]) + mag[:, 4])
+              / np.float32(5.0) * np.float32(0.5))
+    f_init, c_init = jsalsa.tracker_init_state(jnp.asarray(mag))
+    np.testing.assert_allclose(floor0, np.asarray(f_init), rtol=1e-6, atol=0)
+    state0 = (jnp.asarray(floor0), c_init)
     if resume_at:
         _, _, pre = jsalsa.noise_floor_scan(jnp.asarray(mag), state0, collect_states=True)
         state0 = (pre[0][resume_at], pre[1][resume_at])
-    seg = mag[:, resume_at:]
+    seg = mag[:, resume_at:resume_at + n_frames]
     (f_j, c_j), m_j = jsalsa.noise_floor_scan(jnp.asarray(seg), state0)
+    m_j, f_j, c_j = np.asarray(m_j), np.asarray(f_j), np.asarray(c_j)
+
     st = (torch.from_numpy(np.array(state0[0])), torch.from_numpy(np.array(state0[1])))
     (f_t, c_t), m_t = tsalsa.noise_floor_scan(torch.from_numpy(seg), st)
-    np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
-    np.testing.assert_array_equal(f_t.numpy(), np.asarray(f_j))
-    np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
-    assert m_t.numpy().any() and not m_t.numpy().all()
+    np.testing.assert_array_equal(m_t.numpy(), m_j)
+    np.testing.assert_array_equal(f_t.numpy(), f_j)
+    np.testing.assert_array_equal(c_t.numpy(), c_j)
+
+    win = slice(resume_at, resume_at + n_frames + 2 * H)  # the frames and their context
+    st = None if not resume_at else tuple(s.reshape(n_clips, n_bins) for s in st)
+    m_w, (f_w, c_w) = tsalsa.noise_floor_mask(
+        torch.from_numpy(np.ascontiguousarray(xr0[..., win])),
+        torch.from_numpy(np.ascontiguousarray(xi0[..., win])), n_hop=H, n_frames=n_frames,
+        state0=st)
+    np.testing.assert_array_equal(m_w.numpy().reshape(rows, n_frames), m_j)
+    np.testing.assert_array_equal(f_w.numpy().ravel(), f_j)
+    np.testing.assert_array_equal(c_w.numpy().ravel(), c_j)
+    if zero:
+        assert not m_j.any() and np.all(f_j == np.float32(1e-6))
+    elif n_frames > 100:
+        assert m_j.any() and not m_j.all()
 
 
 def test_noise_floor_mask_wrapper_batches_and_resumes(rng):
@@ -125,11 +191,28 @@ def test_noise_floor_mask_rejects_bad_input():
     with pytest.raises(ValueError):
         tsalsa.noise_floor_mask(x, x, n_hop=3, n_frames=15)  # 20 != 15 + 6
     with pytest.raises(ValueError):
+        state = (torch.zeros(1, 4), torch.zeros(1, 4, dtype=torch.int32))
+        tsalsa.noise_floor_mask(x[..., :6], x[..., :6], n_hop=3, n_frames=0, state0=state)
+    with pytest.raises(ValueError):
         tsalsa.noise_floor_mask(x[..., :10], x[..., :10], n_hop=3, n_frames=4)  # < 5 frames
     with pytest.raises(TypeError):
         tsalsa.noise_floor_mask(x.double(), x.double(), n_hop=3, n_frames=14)
     with pytest.raises(ValueError):
         tsalsa.noise_floor_mask(x.to("meta"), x.to("meta"), n_hop=3, n_frames=14)
+
+
+def test_bench_noise_floor_variants_name_the_kernels_macros():
+    name, defines = bench_noise_floor.parse_variant("t256=NF_TILE_FRAMES=256,NF_PRODUCER_WARPS=15")
+    assert name == "t256" and defines == ["-DNF_TILE_FRAMES=256", "-DNF_PRODUCER_WARPS=15"]
+    src = (bench_noise_floor.CSRC_DIR / "noise_floor.cu").read_text()
+    for macro in ("NF_TILE_FRAMES", "NF_PRODUCER_WARPS"):
+        assert f"#ifndef {macro}" in src
+    for bad in ("t256", "t=", "t=TILE=256", "t=NF_TILE_FRAMES"):
+        with pytest.raises(ValueError):
+            bench_noise_floor.parse_variant(bad)
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit):
+            bench_noise_floor.main([])
 
 
 def _compare_spatial(got, want, max_disagree=0.005):
