@@ -7,22 +7,24 @@ on one NVIDIA GPU and check every kernel on the way.
 Phases, each printing what it found; any failure raises and exits non-zero:
   0. require CUDA; print the card (nvidia-smi) and switch TF32 off;
   1. build the CUDA kernels (K1 spatial stage, K2 noise-floor tracker, K3, K4)
-     with nvcc, one process per source; check ptxas registers and spills (K1 80
-     registers, K2 no spills), and that K4's bf16 kernels run on the tensor
-     cores (HMMA in their SASS);
+     with nvcc, one process per source; check ptxas registers and spills (K1 and
+     K2 no spills), print K1's SASS instruction mix, and check that K4's bf16
+     kernels run on the tensor cores (HMMA in their SASS);
   2. K1 against its plain PyTorch version at the serving shapes, a ragged shape
      and all-zero input; K2 bit-equal to its plain version at the serving shape,
-     at (64, 191, 4807), at 33 rows around its frame tile, resumed off a tile
-     boundary, resumed for 3 frames, and on all-zero planes;
+     at (64, 191, 4807), at 33 rows for clips of 1-5 frames and around its frame
+     tile, resumed off a tile boundary, resumed for 3 frames, and on all-zero
+     planes;
   3. CUDA SALSA extraction against the committed reference golden;
   4. the full-width SALSA-FOA CRNN (configs/seld.yml) answering three requests
      through SeldInferencePipeline, with launch counts, batch-vs-solo and
      GPU-vs-CPU checks and DCASE CSVs written and read back;
   5. times (CUDA-synchronized medians) of a request and of each kernel against
-     its plain version, K2 also at (64, 191, 4807);
+     its plain version, kernels 10 calls back to back, K2 also at (64, 191,
+     4807), and K1's issue-slot floor from its SASS count and the SM clock;
   6. K3, the SALSA-kernel ablation variants, against their plain versions at the
-     serving shape, a ragged shape and all-zero input, `full` against K1, then
-     the probe `salsa_tpu_torch.scripts.probe_salsa_kernel` at B=32;
+     serving shape, a ragged shape and all-zero input, `full` bit-equal to K1,
+     then the probe `salsa_tpu_torch.scripts.probe_salsa_kernel` at B=32;
   7. K4, the 3x3 conv with 64 outputs, against its plain version in bf16 and f32
      at the stage-1 shape and two ragged shapes (7 and 80 channels), each at
      every rows-per-block, then the probe
@@ -57,7 +59,11 @@ from salsa_tpu_torch.features.salsa import (
     noise_floor_mask,
     noise_floor_mask_plain,
 )
-from salsa_tpu_torch.features.salsa_spatial import salsa_spatial, salsa_spatial_plain
+from salsa_tpu_torch.features.salsa_spatial import (
+    mic_delta,
+    salsa_spatial,
+    salsa_spatial_plain,
+)
 from salsa_tpu_torch.kernels.build import (
     build_library,
     library_sass,
@@ -75,7 +81,7 @@ from salsa_tpu_torch.scripts.probe_salsa_kernel import (
     salsa_spatial_variant,
     salsa_spatial_variant_plain,
 )
-from salsa_tpu_torch.scripts.timing import cuda_ms
+from salsa_tpu_torch.scripts.timing import cuda_ms, smi
 from salsa_tpu_torch.submission import write_classwise_csv
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -88,8 +94,7 @@ INTERP = 16 * D["label_rate"] / (FS / HOP)  # encoder rate -> label rate: 2.0
 FOA = SalsaParams(fs=FS, n_fft=N_FFT, hop_length=HOP, fmax_doa=9000.0, audio_format="foa")
 MIC = SalsaParams(fs=FS, n_fft=N_FFT, hop_length=HOP, fmax_doa=4000.0, audio_format="mic")
 CARD = ""  # nvidia-smi name and power limit, set in phase 0
-K2_CALLS = 10  # K2 calls back to back between the events of one timing
-K1_REGISTERS = 80  # ptxas count of K1 at sm_90a since it was written (PERF.md)
+CALLS = 10  # kernel calls back to back between the events of one timing
 
 # NVIDIA H100 SXM published peaks (dense): device memory, fp32 outside the tensor
 # cores, bf16 on the tensor cores
@@ -97,16 +102,42 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 # K1 (and K3 `full`, n_sq 3) fp32 operations per (clip, bin, frame) cell, counted
-# from csrc/salsa_spatial.cu and csrc/hermitian4.cuh (each +, -, *, /, rsqrt and
-# atan2 one operation; cmul 6, cadd 2, cscale 2, matvec 120, normalize 25,
-# rayleigh 135, orth 62, square_renorm 325): covariance 561, trace normalisation
-# 25, 3 squarings 975, principal pair 290 + 135, runner-up 62 + 3 x 207 + 135,
-# coherence test 1, then FOA directions 28 or MIC phases 26. The work does not
-# depend on the data: every cell runs all of it.
-K1_FLOPS_PER_CELL = {"foa": 2833, "mic": 2831}
+# from csrc/salsa_spatial.cu and csrc/hermitian4.cuh, each +, -, *, /, rcp, rsqrt
+# and atan2 one operation (an FFMA two), on the Hermitian-real form (a real
+# diagonal and 6 complex upper entries):
+# - covariance 448: frame 0 48 (4 x |x_i|^2 3, 6 x x_i conj(x_j) 6), 6 more
+#   frames 64 each (4 x 4, 6 x 8), the 1/win scale 16;
+# - trace normalisation 21: trace 3, guard 1, reciprocal 1, scale 16;
+# - 3 squarings, 187 each, 561: diagonal 4 x 13 (h_ii^2, 3 x |h_ik|^2 with its
+#   sums), upper 6 x 19 ((h_ii + h_jj) h_ij 3, two complex multiply-adds 8 each),
+#   then the trace renormalisation 21;
+# - principal pair 258 + 80: two matvecs 104 each (4 rows x (2 + 3 x 8)) and
+#   normalisations 25 each; the Rayleigh quotient 80 (diagonal 19, 6 cross terms
+#   59, 2 x and + 2);
+# - runner-up 715: orth 62, 3 x (matvec 104 + orth 62 + normalise 25), Rayleigh
+#   quotient 80;
+# - the coherence test's product 1, then FOA directions 28 or MIC phases 26.
+# Before the Hermitian-real form (complex pairs for every entry) it was 2,833.
+# The work does not depend on the data: every cell runs all of it.
+K1_FLOPS_PER_CELL = {"foa": 2112, "mic": 2110}
 # K2 per cell: power 3, the 3-frame sum 2, divide and root 2, the step's compare,
 # product, max, threshold product and compare 5
 K2_FLOPS_PER_CELL = 12
+
+
+# integer and address arithmetic in SASS
+INT_OPS = {"IMAD", "IADD3", "LEA", "SHF", "LOP3", "ISETP", "IMNMX", "IABS", "SEL", "I2F",
+           "F2I", "IMUL", "PRMT"}
+
+
+def sass_mix(opcodes) -> dict[str, int]:
+    """An instruction mix: fp32 FFMA/FMUL/FADD, MUFU, global loads and stores,
+    integer, everything else, and the total."""
+    mix = {k: opcodes.get(k, 0) for k in ("FFMA", "FMUL", "FADD", "MUFU", "LDG", "STG")}
+    mix["integer"] = sum(v for k, v in opcodes.items() if k in INT_OPS)
+    mix["other"] = sum(opcodes.values()) - sum(mix.values())
+    mix["total"] = sum(opcodes.values())
+    return mix
 
 
 def log(phase: str, msg: str) -> None:
@@ -192,10 +223,20 @@ def check_k2(xr0, xi0, n_frames: int, what: str, state0=None):
     return p_mask, (p_floor, p_cd)
 
 
-def compare_spatial(got: torch.Tensor, want: torch.Tensor, what: str, phase: str = "2") -> float:
+def mic_period(p: SalsaParams, n_bins: int) -> np.ndarray:
+    """The period of a MIC feature, a phase over delta * absolute bin, in each bin:
+    2 pi / (delta * bin). Values a period apart are one direction."""
+    return 2 * np.pi / (mic_delta(p.fs, p.n_fft) * np.arange(p.lower_bin, p.lower_bin + n_bins))
+
+
+def compare_spatial(got: torch.Tensor, want: torch.Tensor, what: str, phase: str = "2",
+                    period: np.ndarray | None = None) -> float:
     """K1's bound (tests/test_salsa_pallas.py): validity masks disagree on < 0.5%
-    of cells; features within atol/rtol 5e-3 where both are valid. Returns the max
-    abs error over those cells."""
+    of cells; features within atol/rtol 5e-3 where both are valid. With `period`
+    (per bin) the features are MIC phases and each difference is taken on the
+    circle: a phase at the branch cut, whose sine the two versions round to
+    opposite signs, reads +pi in one and -pi in the other. Returns the max abs
+    error over those cells."""
     got, want = got.cpu().numpy(), want.cpu().numpy()
     if got.shape != want.shape or not np.isfinite(got).all():
         raise AssertionError(f"{what}: shape {got.shape} vs {want.shape} or non-finite")
@@ -203,6 +244,12 @@ def compare_spatial(got: torch.Tensor, want: torch.Tensor, what: str, phase: str
     disagree = float(np.mean(m_got != m_want))
     both = m_got & m_want
     g, w = np.moveaxis(got, 1, -1)[both], np.moveaxis(want, 1, -1)[both]
+    if period is not None:
+        per = np.broadcast_to(period[None, :, None], both.shape)[both][:, None]
+        turns = np.round((g - w) / per)
+        log(phase, f"{what}: {int(np.count_nonzero(turns))} phases a period apart (the "
+                   "branch cut), compared on the circle")
+        g = g - (turns * per).astype(g.dtype)
     err = float(np.abs(g - w).max()) if both.any() else 0.0
     log(phase, f"{what}: valid {m_want.mean():.4%}, mask disagreement {disagree:.4%}, "
              f"max abs err {err:.3e} on {int(both.sum())} cells")
@@ -233,18 +280,19 @@ def phase0() -> str:
     return CARD
 
 
-def phase1() -> None:
+def phase1() -> dict[str, dict[str, int]]:
+    """Build and inspect the kernels; returns K1's SASS instruction mixes."""
     path, seconds = build_library()
     load_library()
     log("1", f"built {os.path.relpath(path, REPO)} in {seconds:.1f} s (0.0 = reused)")
     usage = ptxas_usage(path.with_suffix(".log").read_text())
     for name, (regs, st, ld) in sorted(usage.items()):
         log("1", f"ptxas: {regs:3d} registers, spill stores {st} B, loads {ld} B: {name}")
-    k1 = [u for name, u in usage.items() if "20salsa_spatial_kernel" in name]
-    if k1 != [(K1_REGISTERS, 0, 0)]:
+    k1 = [(name, u) for name, u in usage.items() if "20salsa_spatial_kernel" in name]
+    if len(k1) != 1 or k1[0][1][1:] != (0, 0):
         raise AssertionError(f"K1 salsa_spatial_kernel: ptxas (registers, spill stores, spill "
-                             f"loads) {k1}, expected [({K1_REGISTERS}, 0, 0)] as before")
-    log("1", f"K1 salsa_spatial_kernel: {K1_REGISTERS} registers, no spills, as before")
+                             f"loads) {k1}, expected one kernel without spills")
+    log("1", f"K1 salsa_spatial_kernel: {k1[0][1][0]} registers, no spills")
     k2 = [(name, u) for name, u in usage.items() if "noise_floor_kernel" in name]
     if len(k2) != 1 or k2[0][1][1:] != (0, 0):
         raise AssertionError(f"K2 noise_floor_kernel: ptxas (registers, spill stores, spill "
@@ -252,9 +300,21 @@ def phase1() -> None:
     log("1", f"K2 noise_floor_kernel: {k2[0][1][0]} registers, no spills, tile of "
              f"{load_library().noise_floor_tile_frames()} frames")
 
+    ops = sass_opcode_counts(library_sass(path))
+    # K1's machine code: every cell runs one straight-line path, FOA or MIC, so the
+    # static counts bound what a thread issues; K3 `full` at n_sq 3 is K1's FOA
+    # path alone (the same herm4::solve_cell), without the MIC branch
+    mixes = {}
+    for what, key in (("K1", "20salsa_spatial_kernel"),
+                      ("K3 full n_sq 3", "salsa_spatial_probe_kernelILi0ELi3E")):
+        name = [n for n in ops if key in n]
+        if len(name) != 1:
+            raise AssertionError(f"{what}: {len(name)} functions in the SASS match {key}")
+        mixes[what] = sass_mix(ops[name[0]])
+        log("1", f"SASS of {what}: " + ", ".join(f"{k} {v}" for k, v in mixes[what].items()))
+
     # K4: the bf16 kernels run on the tensor cores (HMMA in their machine code) and
     # do not spill; the f32 kernels stay on the CUDA cores (no HMMA)
-    ops = sass_opcode_counts(library_sass(path))
     for kind, want_mma in (("conv3x3_64_mma_kernel", True), ("conv3x3_64_f32_kernel", False)):
         names = sorted(name for name in ops if kind in name)
         if len(names) != len(probe_pallas_conv.ROWS):
@@ -273,6 +333,7 @@ def phase1() -> None:
                 raise AssertionError(f"K4 f32 {name}: {hmma} HMMA, expected none")
     log("1", "K4: bf16 instantiations use the tensor cores (HMMA) without spills; f32 "
              "instantiations use none")
+    return mixes
 
 
 def phase2(dev) -> dict:
@@ -288,8 +349,9 @@ def phase2(dev) -> dict:
         got = salsa_spatial(xr, xi, mask, **spatial_kw(p))
         torch.cuda.synchronize()
         want = salsa_spatial_plain(xr, xi, mask, **spatial_kw(p))
+        period = mic_period(p, xr.shape[2]) if p.audio_format == "mic" else None
         errs[p.audio_format] = compare_spatial(got, want, f"K1 {p.audio_format} "
-                                                          f"{tuple(xr.shape)}")
+                                                          f"{tuple(xr.shape)}", period=period)
     # ragged shape and all-zero input
     xr = torch.from_numpy(rng.standard_normal((3, 4, 11, 333 + 6)).astype(np.float32)).to(dev)
     xr += xr[:, :1].clone()  # correlated channels: a coherent share of cells
@@ -336,10 +398,11 @@ def phase2(dev) -> dict:
              f"countdown bit-equal")
     del big, b_mask
     # 33 rows (one full block and one row) around the frame tile
-    for t in (5, tile - 1, tile, tile + 1, 2 * tile + 3):
+    # clips of 1-5 frames: the clip-start floor from the first min(5, T) frames
+    for t in (1, 2, 3, 4, 5, tile - 1, tile, tile + 1, 2 * tile + 3):
         check_k2(*normal_planes(rng, (3, 11, t + 6), dev), t, f"33 rows T={t}")
-    log("2", f"K2 (3, 11, T + 6) for T in 5, {tile - 1}, {tile}, {tile + 1}, {2 * tile + 3}: "
-             "bit-equal")
+    log("2", f"K2 (3, 11, T + 6) for T in 1, 2, 3, 4, 5, {tile - 1}, {tile}, {tile + 1}, "
+             f"{2 * tile + 3}: bit-equal")
     # 3 frames from a given state: countdowns on both sides of 0
     st = (torch.from_numpy(rng.uniform(0.5, 1.5, (3, 11)).astype(np.float32)).to(dev),
           torch.from_numpy(rng.integers(-3, 4, (3, 11), dtype=np.int32)).to(dev))
@@ -462,7 +525,7 @@ def phase4(dev, pipe, requests) -> dict:
     return launches
 
 
-def phase5(dev, pipe, request) -> dict:
+def phase5(dev, pipe, request, sass_mixes) -> dict:
     secs = request.shape[0] * request.shape[-1] / FS
 
     def host_ms(fn, repeats=7):
@@ -493,24 +556,37 @@ def phase5(dev, pipe, request) -> dict:
     kw = spatial_kw(FOA)
     big = normal_planes(np.random.default_rng(SEED + 4), (64, 191, n_t + 6), dev)
     times = {
-        "k1": cuda_ms(lambda: salsa_spatial(xr, xi, mask, **kw)),
+        "k1": cuda_ms(lambda: salsa_spatial(xr, xi, mask, **kw), calls=CALLS),
+    }
+    sm_clock = smi("clocks.sm").splitlines()[0]  # right after K1's run, e.g. "1980 MHz"
+    times.update({
         "k1_plain": cuda_ms(lambda: salsa_spatial_plain(xr, xi, mask, **kw)),
         "k2": cuda_ms(lambda: noise_floor_mask(xr0, xi0, n_hop=3, n_frames=n_t),
-                      calls=K2_CALLS),
+                      calls=CALLS),
         "k2_b64": cuda_ms(lambda: noise_floor_mask(*big, n_hop=3, n_frames=n_t),
-                          calls=K2_CALLS),
+                          calls=CALLS),
         "k2_plain": cuda_ms(lambda: noise_floor_mask_plain(xr0, xi0, n_hop=3, n_frames=n_t),
                             repeats=5, warmup=1),
-    }
+    })
     times["k1_bound"] = k1_bound(xr.shape)
     times["k2_bound"] = k2_bound(xr0.shape)
-    log("5", f"K1 salsa_spatial {tuple(xr.shape)}: kernel {times['k1']:.3f} ms, plain "
-             f"{times['k1_plain']:.3f} ms, bound {times['k1_bound'][0]:.4f} ms "
-             f"({times['k1_bound'][1]}) [{CARD}]")
+    log("5", f"K1 salsa_spatial {tuple(xr.shape)}, {CALLS} calls back to back: kernel "
+             f"{times['k1']:.4f} ms, plain {times['k1_plain']:.3f} ms, bound "
+             f"{times['k1_bound'][0]:.4f} ms ({times['k1_bound'][1]}; "
+             f"{K1_FLOPS_PER_CELL['foa']} fp32 operations a cell), "
+             f"{times['k1_bound'][0] / times['k1']:.1%} of it [{CARD}]")
+    # issue slots: 132 SMs x 4 schedulers, one warp instruction each a clock
+    cells = xr.shape[0] * xr.shape[2] * n_t
+    mhz = float(sm_clock.split()[0])
+    for what, mix in sass_mixes.items():
+        slot_ms = cells / 32 * mix["total"] / (132 * 4 * mhz * 1e6) * 1e3
+        log("5", f"K1 issue-slot floor from the SASS of {what} ({mix['total']} instructions "
+                 f"a thread, {mix['FFMA'] + mix['FMUL'] + mix['FADD']} fp32) at {sm_clock}: "
+                 f"{slot_ms:.4f} ms, {slot_ms / times['k1']:.1%} of the kernel's time")
     chain = "-".join(f"{k2_chain_floor_ms(n_t, clk):.3f}" for clk in (16, 24))
     for key, planes in (("k2", xr0), ("k2_b64", big[0])):
         b_ms, b_by = k2_bound(planes.shape)
-        log("5", f"K2 noise_floor {tuple(planes.shape)}, {K2_CALLS} calls back to back: "
+        log("5", f"K2 noise_floor {tuple(planes.shape)}, {CALLS} calls back to back: "
                  f"kernel {times[key]:.4f} ms, bound {b_ms:.4f} ms ({b_by}), recurrence "
                  f"floor {chain} ms at 16-24 clk a step [{CARD}]")
     log("5", f"K2 plain {tuple(xr0.shape)}: {times['k2_plain']:.3f} ms [{CARD}]")
@@ -574,20 +650,26 @@ def phase6(dev) -> dict:
             raise AssertionError(f"K3 {variant} n_sq={n_sq} all-zero input: output not all 0")
     log("6", "K3 all-zero input, every variant and n_sq: output all 0 and finite")
 
-    fam = salsa_spatial_variant(xr, xi, mask, variant="full", n_sq=3, block=128)
+    # both run herm4::solve_cell<3, 3>: K3 `full` is K1's FOA path, bit for bit, at
+    # K1's launch shape and every other
     k1 = salsa_spatial(xr, xi, mask, **spatial_kw(FOA))
-    torch.cuda.synchronize()
-    log("6", f"K3 full at 128 threads vs production K1: bit-equal {torch.equal(fam, k1)}, "
-             f"max abs diff {float((fam - k1).abs().max()):.3e}")
-    compare_spatial(fam, k1, "K3 full (128 threads) vs K1", phase="6")
+    for block in probe_salsa_kernel.BLOCKS:
+        fam = salsa_spatial_variant(xr, xi, mask, variant="full", n_sq=3, block=block)
+        torch.cuda.synchronize()
+        if not torch.equal(fam, k1):
+            raise AssertionError(f"K3 full ({block} threads) is not bit-equal to K1: max abs "
+                                 f"diff {float((fam - k1).abs().max()):.3e}, "
+                                 f"{int((fam != k1).sum())} values differ")
+    log("6", f"K3 full at {', '.join(map(str, probe_salsa_kernel.BLOCKS))} threads vs "
+             "production K1: bit-equal")
 
     kw = dict(variant="full", n_sq=3)
-    times = {"k3": cuda_ms(lambda: salsa_spatial_variant(xr, xi, mask, **kw)),
+    times = {"k3": cuda_ms(lambda: salsa_spatial_variant(xr, xi, mask, **kw), calls=CALLS),
              "k3_plain": cuda_ms(lambda: salsa_spatial_variant_plain(xr, xi, mask, **kw))}
     times["k3_bound"] = k1_bound(xr.shape)
-    log("6", f"K3 full {tuple(xr.shape)}: kernel {times['k3']:.3f} ms, plain "
-             f"{times['k3_plain']:.3f} ms, bound {times['k3_bound'][0]:.4f} ms "
-             f"({times['k3_bound'][1]}) [{CARD}]")
+    log("6", f"K3 full {tuple(xr.shape)}, {CALLS} calls back to back: kernel "
+             f"{times['k3']:.4f} ms, plain {times['k3_plain']:.3f} ms, bound "
+             f"{times['k3_bound'][0]:.4f} ms ({times['k3_bound'][1]}) [{CARD}]")
     del waves, xr, xi, mask, fam, k1
 
     log("6", f"probe_salsa_kernel --batch 32 [{CARD}]")
@@ -671,14 +753,14 @@ def phase7(dev) -> dict:
 def main() -> None:
     card = phase0()
     dev = torch.device("cuda", 0)
-    phase1()
+    sass_mixes = phase1()
     errs = phase2(dev)
     phase3(dev)
     rng = np.random.default_rng(SEED + 2)
     requests = [foa_clips(rng, 4, 60.0), foa_clips(rng, 2, 60.0), foa_clips(rng, 1, 20.7)]
     pipe = build_pipeline(dev)
     launches = phase4(dev, pipe, requests)
-    times = phase5(dev, pipe, requests[0])
+    times = phase5(dev, pipe, requests[0], sass_mixes)
     del pipe
     k3 = phase6(dev)
     k4 = phase7(dev)

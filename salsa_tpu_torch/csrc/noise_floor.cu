@@ -4,7 +4,8 @@
 // fed by tracking_magspec_planes; on the TPU both are XLA ops, not Pallas. Per
 // (clip, bin) row of channel 0: the 3-frame RMS magnitude
 // sqrt(((|x[t]|^2 + |x[t-1]|^2) + |x[t-2]|^2) / 3); the clip-start floor, 0.5 x the
-// mean of frames 0..4 summed in frame order with countdown 3, or the entering
+// mean of the first min(5, n_frames) frames summed in frame order with countdown
+// 3, or the entering
 // state; the up/down tracker (rise x1.02, x1.002 once the 3-frame countdown has
 // run out, fall x0.98, floor >= 1e-6); mask = mag > snr_ratio * next floor; and
 // the final (floor, countdown).
@@ -203,8 +204,8 @@ __device__ __forceinline__ void track_tile(const float* mag, uint32_t* words, in
 }
 
 // xr0, xi0: (rows, n_frames + 2*n_hop) channel-0 planes, one row per (clip, bin).
-// floor0/countdown0: entering state per row, or null for the clip-start state
-// (then n_frames >= 5). mask: (rows, n_frames) bytes; floor_out/countdown_out:
+// floor0/countdown0: entering state per row, or null for the clip-start state.
+// n_frames >= 1. mask: (rows, n_frames) bytes; floor_out/countdown_out:
 // final state per row. Warp 0 is the consumer, warps 1.. the producers.
 __global__ void __launch_bounds__(kThreads) noise_floor_kernel(
     const float* __restrict__ xr0, const float* __restrict__ xi0,
@@ -233,10 +234,12 @@ __global__ void __launch_bounds__(kThreads) noise_floor_kernel(
       bar_sync(kBarFull + st, kThreads);
       const float* mag = &sm.mag[st][0][lane];
       if (k == 0 && floor0 == nullptr) {
-        // 0.5 * mean of the first 5 frames, summed in frame order
+        // 0.5 * mean of the first min(5, n_frames) frames, summed in frame
+        // order; frames past n_frames in the tile hold no data
+        const int n0 = min(5, n_frames);
         float s = mag[0];
-        for (int t = 1; t < 5; ++t) s = __fadd_rn(s, mag[t * kMagPitch]);
-        floor = __fmul_rn(__fdiv_rn(s, 5.0f), 0.5f);
+        for (int t = 1; t < n0; ++t) s = __fadd_rn(s, mag[t * kMagPitch]);
+        floor = __fmul_rn(__fdiv_rn(s, (float)n0), 0.5f);
       }
       const int n_valid = min(kTile, n_frames - k * kTile);
       if (n_valid == kTile)

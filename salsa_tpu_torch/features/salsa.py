@@ -94,15 +94,16 @@ def tracking_magspec_planes(xr0: torch.Tensor, xi0: torch.Tensor, n_hopframes: i
 
 
 def tracker_init_state(magspec: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Clip-start tracker state for magspec (..., bins, T): floor = 0.5 * mean of the
-    first 5 frames (summed in frame order, as K2 does), countdown = 3."""
-    if magspec.shape[-1] < 5:
-        raise ValueError(f"the tracker's initial floor needs >= 5 frames, got "
-                         f"{magspec.shape[-1]}")
+    """Clip-start tracker state for magspec (..., bins, T), T >= 1: floor = 0.5 *
+    mean of the first min(5, T) frames (summed in frame order, as K2 does),
+    countdown = 3."""
+    n = min(5, magspec.shape[-1])
+    if n < 1:
+        raise ValueError("the tracker's initial floor needs at least one frame")
     s = magspec[..., 0]
-    for t in range(1, 5):
+    for t in range(1, n):
         s = s + magspec[..., t]
-    floor0 = s / 5.0 * 0.5
+    floor0 = s / float(n) * 0.5
     countdown0 = torch.full(magspec.shape[:-1], N_SIG_FRAMES, dtype=torch.int32,
                             device=magspec.device)
     return floor0, countdown0
@@ -150,7 +151,8 @@ def noise_floor_mask(xr0: torch.Tensor, xi0: torch.Tensor, *, n_hop: int, n_fram
 
     Returns (mask (B, bins, n_frames) bool, (floor f32, countdown int32) (B, bins)),
     the state after the last frame. state0 resumes from a given entering state;
-    None starts the clip (floor from the first 5 frames, countdown 3). CUDA tensors
+    None starts the clip (floor from the first min(5, n_frames) frames, countdown
+    3). CUDA tensors
     launch `csrc/noise_floor.cu` once for the batch; CPU tensors run
     `noise_floor_mask_plain`. Anything else raises.
     """
@@ -163,8 +165,6 @@ def noise_floor_mask(xr0: torch.Tensor, xi0: torch.Tensor, *, n_hop: int, n_fram
                          f"with n_hop={n_hop} (>= 2) context frames per side")
     if n_frames < 1:
         raise ValueError(f"n_frames must be >= 1, got {n_frames}")
-    if state0 is None and n_frames < 5:
-        raise ValueError(f"the tracker's initial floor needs >= 5 frames, got {n_frames}")
     if xr0.dtype != torch.float32 or xi0.dtype != torch.float32 or xr0.device != xi0.device:
         raise TypeError("xr0/xi0 must be float32 tensors on one device")
     if state0 is not None:

@@ -5,7 +5,12 @@
 and runs `salsa_spatial_plain`, the same arithmetic in vectorized PyTorch, on CPU
 tensors. Per (clip, bin, frame): 7-frame covariance -> R/tr(R) squared 3 times ->
 principal eigenvector and the top two eigenvalues -> coherence test AND tracker
-mask -> FOA direction or MIC phase features, zero where invalid.
+mask -> FOA direction or MIC phase features, zero where invalid. The Hermitian
+matrices are held as `csrc/hermitian4.cuh` holds them (`Herm`: a real diagonal and
+the complex upper entries) and every sum runs in the kernel's order; the kernel's
+FMAs and its approximate reciprocal for the trace renormalisations differ from it
+in the last bits only. Both take n_hop = 3 alone (`N_HOPS`), the only value any
+configuration uses.
 
 The mirror follows the kernel (3 squarings, as `salsa_pallas.N_SQUARINGS`), not
 `salsa_tpu.features.salsa.principal_eigs_power`, which squares 4 times at the
@@ -21,10 +26,11 @@ from salsa_tpu_torch.kernels.build import check_launch, load_library
 
 C = 4
 N_SQUARINGS = 3
+N_HOPS = (3,)  # the window half-widths the kernels are compiled for
 SPEED_OF_SOUND = 343.0
 
 # jax.random.normal(PRNGKey(20211021), (2, 2, 4)) as salsa_pallas._start_vectors
-# returns it, frozen as float32 literals (also in csrc/salsa_spatial.cu)
+# returns it, frozen as float32 literals (also in csrc/hermitian4.cuh)
 START_S0 = np.array([0.72769094 + 0.32384574j, -0.9307311 - 2.380504j,
                      1.1572573 - 1.076081j, 0.88554 + 0.3645283j], dtype=np.complex64)
 START_S1 = np.array([-2.3784811 + 0.20879258j, -1.759696 + 1.0385665j,
@@ -61,38 +67,73 @@ class _Cplx:
         return _Cplx(self.re * s, self.im * s)
 
 
-def _herm(H, i, j):
-    """H holds the upper triangle (i <= j) of a Hermitian matrix."""
-    return H[(i, j)] if i <= j else H[(j, i)].conj()
+class Herm:
+    """A 4x4 Hermitian matrix as `csrc/hermitian4.cuh` holds it: the real
+    diagonal `d[i]` and the upper entries `o[(i, j)]`, i < j, each a tensor
+    (pair) of the cells' shape."""
+
+    __slots__ = ("d", "o")
+
+    def __init__(self, d, o):
+        self.d = list(d)
+        self.o = dict(o)
+
+    def entry(self, i, k):
+        """H[i][k] for i != k."""
+        return self.o[(i, k)] if i < k else self.o[(k, i)].conj()
+
+    def scale(self, s):
+        return Herm([d * s for d in self.d], {ij: h.scale(s) for ij, h in self.o.items()})
+
+
+UPPER = [(i, j) for i in range(C) for j in range(i + 1, C)]
+
+
+def _cmac(acc, a, b):
+    """acc + a * b as the kernel's two chains of two products each."""
+    re = acc.re + a.re * b.re
+    re = re - a.im * b.im
+    im = acc.im + a.re * b.im
+    im = im + a.im * b.re
+    return _Cplx(re, im)
 
 
 def _matvec(H, v):
     out = []
     for i in range(C):
-        acc = _herm(H, i, 0) * v[0]
-        for j in range(1, C):
-            acc = acc + _herm(H, i, j) * v[j]
+        acc = v[i].scale(H.d[i])
+        for k in range(C):
+            if k != i:
+                acc = _cmac(acc, H.entry(i, k), v[k])
         out.append(acc)
     return out
 
 
 def _trace(H):
-    t = H[(0, 0)].re
-    for i in range(1, C):
-        t = t + H[(i, i)].re
-    return t
+    return ((H.d[0] + H.d[1]) + H.d[2]) + H.d[3]
 
 
 def _square_renorm(H):
-    out = {}
+    """H @ H / (tr(H @ H) + 1e-30): diagonal h_ii^2 + sum |h_ik|^2, upper entries
+    (h_ii + h_jj) h_ij + the two other products."""
+    d = []
     for i in range(C):
-        for j in range(i, C):
-            acc = _herm(H, i, 0) * _herm(H, 0, j)
-            for k in range(1, C):
-                acc = acc + _herm(H, i, k) * _herm(H, k, j)
-            out[(i, j)] = acc
-    inv = 1.0 / (_trace(out) + 1e-30)
-    return {ij: out[ij].scale(inv) for ij in out}
+        acc = H.d[i] * H.d[i]
+        for k in range(C):
+            if k != i:
+                h = H.o[(min(i, k), max(i, k))]
+                acc = acc + h.re * h.re
+                acc = acc + h.im * h.im
+        d.append(acc)
+    o = {}
+    for i, j in UPPER:
+        acc = H.o[(i, j)].scale(H.d[i] + H.d[j])
+        for k in range(C):
+            if k not in (i, j):
+                acc = _cmac(acc, H.entry(i, k), H.entry(k, j))
+        o[(i, j)] = acc
+    out = Herm(d, o)
+    return out.scale(1.0 / (_trace(out) + 1e-30))
 
 
 def _dot_terms(terms):
@@ -109,8 +150,17 @@ def _normalize(v):
 
 
 def _rayleigh(H, v):
-    hv = _matvec(H, v)
-    return _dot_terms([v[c].re * hv[c].re + v[c].im * hv[c].im for c in range(C)])
+    """v^H H v = sum h_ii |v_i|^2 + 2 Re sum_{i<j} conj(v_i) h_ij v_j."""
+    diag = _dot_terms([H.d[i] * (v[i].re * v[i].re + v[i].im * v[i].im) for i in range(C)])
+    cross = None
+    for i, j in UPPER:
+        w = H.o[(i, j)] * v[j]
+        if cross is None:
+            cross = v[i].re * w.re + v[i].im * w.im
+        else:
+            cross = cross + v[i].re * w.re
+            cross = cross + v[i].im * w.im
+    return diag + 2.0 * cross
 
 
 def _orth(u, v):
@@ -126,35 +176,40 @@ def _const_vec(s, like):
 
 
 def window_covariance(xr, xi, n_hop):
-    """Upper triangle {(i, j): R_ij} of the (2*n_hop+1)-frame covariance
-    R = mean_k x[t+k] x[t+k]^H, each entry (B, n_bins, n_frames), summed in frame
-    order and scaled by 1/win as the kernel does."""
+    """The (2*n_hop+1)-frame covariance R = mean_k x[t+k] x[t+k]^H as a `Herm`,
+    each entry (B, n_bins, n_frames): every product added in frame order, the
+    diagonal as |x_i|^2, then scaled by 1/win, as the kernel does."""
     n_frames = xr.shape[-1] - 2 * n_hop
     win = 2 * n_hop + 1
-    x = [[_Cplx(xr[:, c, :, k:k + n_frames], xi[:, c, :, k:k + n_frames])
-          for c in range(C)] for k in range(win)]
-    inv_win = np.float32(1.0 / win).item()
-    R = {}
-    for i in range(C):
-        for j in range(i, C):
-            acc = x[0][i] * x[0][j].conj()
-            for k in range(1, win):
-                acc = acc + x[k][i] * x[k][j].conj()
-            R[(i, j)] = acc.scale(inv_win)
-    return R
+    re = [[xr[:, c, :, k:k + n_frames] for c in range(C)] for k in range(win)]
+    im = [[xi[:, c, :, k:k + n_frames] for c in range(C)] for k in range(win)]
+    d = [re[0][i] * re[0][i] + im[0][i] * im[0][i] for i in range(C)]
+    o = {(i, j): _Cplx(re[0][i] * re[0][j] + im[0][i] * im[0][j],
+                       im[0][i] * re[0][j] - re[0][i] * im[0][j]) for i, j in UPPER}
+    for k in range(1, win):
+        for i in range(C):
+            d[i] = d[i] + re[k][i] * re[k][i]
+            d[i] = d[i] + im[k][i] * im[k][i]
+        for i, j in UPPER:
+            h = o[(i, j)]
+            hr = h.re + re[k][i] * re[k][j]
+            hr = hr + im[k][i] * im[k][j]
+            hi = h.im + im[k][i] * re[k][j]
+            hi = hi - re[k][i] * im[k][j]
+            o[(i, j)] = _Cplx(hr, hi)
+    return Herm(d, o).scale(np.float32(1.0 / win).item())
 
 
-def top_eigs(R, n_squarings, *, square=_square_renorm, second=True):
-    """(v, lambda0, lambda1): principal eigenvector from two matvecs with
-    (R/tr R)^(2^n_squarings), lambda0 = v^H R v, and lambda1 from 3 steps of
-    orthogonalised iteration with R/tr R (0 where `second` is False)."""
-    inv_tr = 1.0 / (_trace(R) + 1e-30)
-    Rn = {ij: R[ij].scale(inv_tr) for ij in R}
+def top_eigs(R, n_squarings, *, second=True):
+    """(v, lambda0, lambda1) from a `Herm` R: principal eigenvector from two
+    matvecs with (R/tr R)^(2^n_squarings), lambda0 = v^H R v, and lambda1 from 3
+    steps of orthogonalised iteration with R/tr R (0 where `second` is False)."""
+    Rn = R.scale(1.0 / (_trace(R) + 1e-30))
     P = Rn
     for _ in range(n_squarings):
-        P = square(P)
+        P = _square_renorm(P)
 
-    like = R[(0, 0)].re
+    like = R.d[0]
     v = _normalize(_matvec(P, _const_vec(START_S0, like)))
     v = _normalize(_matvec(P, v))
     lam0 = _rayleigh(R, v)
@@ -205,6 +260,9 @@ def salsa_spatial_plain(xr, xi, sig_mask, *, n_hop, audio_format, condition_numb
 def _check_inputs(xr, xi, sig_mask, n_hop, audio_format):
     if audio_format not in ("foa", "mic"):
         raise ValueError(f"unknown audio format '{audio_format}'")
+    if n_hop not in N_HOPS:
+        raise NotImplementedError(
+            f"the spatial kernels are instantiated for n_hop in {N_HOPS}, got n_hop={n_hop}")
     if xr.dim() != 4 or xr.shape != xi.shape:
         raise ValueError(f"xr/xi must be matching (B, C, bins, T+2h) planes, got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
@@ -222,6 +280,9 @@ def _check_inputs(xr, xi, sig_mask, n_hop, audio_format):
         raise TypeError("xr/xi must be float32 and sig_mask bool")
     if not (xr.device == xi.device == sig_mask.device):
         raise ValueError("xr, xi and sig_mask must be on one device")
+    if xr.numel() >= 2**31:
+        raise ValueError(f"planes {tuple(xr.shape)} hold {xr.numel()} elements; the spatial "
+                         "kernels index them in 32 bits (< 2^31): split the batch")
     return B, n_bins, n_frames
 
 

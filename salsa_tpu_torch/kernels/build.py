@@ -156,16 +156,44 @@ def library_sass(path: Path) -> str:
     return proc.stdout
 
 
+def _bind(lib: ctypes.CDLL, names) -> ctypes.CDLL:
+    """Declare argtypes/restype of the entry points `names` of `lib`."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     """The built library with every entry point's argtypes/restype declared."""
     path, _ = build_library()
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    return _bind(ctypes.CDLL(str(path)), _SIGNATURES)
+
+
+def build_variants(builds: dict[str, tuple[Path, list[str]]], subdir: str,
+                   entry: str) -> dict[str, tuple[ctypes.CDLL, str]]:
+    """Compile each build, a source and its extra nvcc flags (-D macros), into a
+    library of its own under BUILD_DIR/subdir, one nvcc each, all started
+    together, with the flags of `build_library`. Returns {name: (library with
+    the entry point `entry` bound, the compiler's output)}; a failed compile
+    raises."""
+    nvcc, procs = _find_tool("nvcc"), {}
+    out_dir = BUILD_DIR / subdir
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for name, (src, flags) in builds.items():
+        cmd = [nvcc, *COMPILE_FLAGS, *LINK_FLAGS, *flags, "-o", str(out_dir / f"{name}.so"),
+               str(src)]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        libs[name] = (_bind(ctypes.CDLL(str(out_dir / f"{name}.so")), [entry]), log)
+    return libs
 
 
 def check_launch(name: str, err: int) -> None:

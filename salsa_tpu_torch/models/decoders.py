@@ -1,7 +1,8 @@
 """SELD decoder (counterpart of `salsa_tpu.models.decoders` and `models/rnn.py`):
-frequency pooling -> 2-layer GRU/BiGRU (dropout 0.3 between layers) -> SED head
-FC->relu->FC and three DOA heads with tanh, concatenated (x | y | z) per class;
-0.2 dropout before each head layer. Dropout acts only in training mode.
+frequency pooling -> 2-layer GRU/BiGRU (dropout `rnn_dropout`, 0.3, between
+layers) -> SED head FC->relu->FC and three DOA heads with tanh, concatenated
+(x | y | z) per class; dropout `head_dropout`, 0.2, before each head layer.
+Dropout acts only in training mode.
 `output_format` is accepted for config compatibility; the pipeline applies it.
 
 The recurrence is `nn.GRU`, whose gate order (r, z, n) and candidate
@@ -18,6 +19,7 @@ class SeldDecoder(nn.Module):
     def __init__(self, n_output_channels: int = 512, n_classes: int = 12,
                  output_format: str = "reg_xyz", decoder_type: str = "bigru",
                  decoder_size: int = 256, freq_pool: str = "avg",
+                 head_dropout: float = 0.2, rnn_dropout: float = 0.3,
                  compute_dtype: str | None = None):
         super().__init__()
         if decoder_type not in ("gru", "bigru"):
@@ -32,9 +34,9 @@ class SeldDecoder(nn.Module):
         self.freq_pool = freq_pool
         bidirectional = decoder_type == "bigru"
         self.gru = nn.GRU(n_output_channels, decoder_size, num_layers=2, batch_first=True,
-                          bidirectional=bidirectional, dropout=0.3)
+                          bidirectional=bidirectional, dropout=rnn_dropout)
         fc = decoder_size * (2 if bidirectional else 1)
-        self.head_dropout = nn.Dropout(0.2)
+        self.head_dropout = nn.Dropout(head_dropout)
         for name in ("event", "x", "y", "z"):
             setattr(self, f"{name}_fc_1", nn.Linear(fc, fc // 2))
             setattr(self, f"{name}_fc_2", nn.Linear(fc // 2, n_classes))

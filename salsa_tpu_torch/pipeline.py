@@ -27,12 +27,13 @@ class SeldInferencePipeline:
         scaler: (mean, std) arrays of shape (n_scaler_chan, 1, F); only the leading
             n_scaler_chan feature channels are normalized (SALSA convention).
         interp_ratio: encoder-rate -> label-rate index-repeat factor.
-        device: where features and model run, e.g. torch.device("cuda", 0).
+        device: where features and model run; the first CUDA card by default.
+            `device="cpu"` runs the kernels' plain versions, for tests.
     """
 
     def __init__(self, extractor: FeatureExtractor, model: nn.Module,
                  state_dict: Mapping | None, scaler, interp_ratio: float, n_classes: int,
-                 output_format: str = "reg_xyz", device: torch.device | str = "cpu"):
+                 output_format: str = "reg_xyz", device: torch.device | str = "cuda"):
         if output_format not in ("reg_xyz", "accdoa"):
             raise ValueError(f"unknown output format '{output_format}'")
         self.device = torch.device(device)

@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import subprocess
 import time
 from pathlib import Path
 
@@ -32,15 +31,9 @@ from salsa_tpu_torch.features.salsa import (
     FLOOR_UP_SLOW,
     noise_floor_mask_plain,
 )
-from salsa_tpu_torch.kernels.build import (
-    BUILD_DIR,
-    COMPILE_FLAGS,
-    CSRC_DIR,
-    LINK_FLAGS,
-    _find_tool,
-    ptxas_usage,
-)
-from salsa_tpu_torch.scripts.timing import cuda_ms, require_cuda
+from salsa_tpu_torch.kernels.build import CSRC_DIR, build_variants, ptxas_usage
+from salsa_tpu_torch.scripts import timing
+from salsa_tpu_torch.scripts.timing import cuda_ms, require_cuda, smi
 
 N_HOP = 3
 N_FRAMES = 4807
@@ -50,43 +43,20 @@ RAGGED = sorted({5} | {t + d for t in (64, 128, 256) for d in (-1, 0, 1)}
                 | {2 * t + 3 for t in (64, 128, 256)})
 
 
-def card(query: str = "name,power.limit,clocks.sm") -> str:
-    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60).stdout.strip()
-
-
 def parse_variant(spec: str) -> tuple[str, list[str]]:
-    """'NAME=MACRO=VALUE[,MACRO=VALUE]' -> (NAME, the -D defines of that build)."""
-    name, _, macros = spec.partition("=")
-    defines = [f"-D{m}" for m in macros.split(",") if m]
-    if not name or not defines or any(not m.startswith("NF_") or "=" not in m
-                                      for m in macros.split(",")):
-        raise ValueError(f"--variant wants NAME=NF_MACRO=VALUE[,...], got {spec!r}")
-    return name, defines
+    """'NAME=NF_MACRO=VALUE[,NF_MACRO=VALUE]' -> (NAME, the -D defines of that build)."""
+    return timing.parse_variant(spec, "NF_")
 
 
 def build(builds: dict[str, tuple[Path, list[str]]]) -> dict[str, ctypes.CDLL]:
     """Compile every (source, defines) into its own library, all nvcc at once."""
-    out_dir = BUILD_DIR / "bench_noise_floor"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc, t0, procs = _find_tool("nvcc"), time.perf_counter(), {}
-    for name, (src, defines) in builds.items():
-        cmd = [nvcc, *COMPILE_FLAGS, *LINK_FLAGS, *defines, "-o", str(out_dir / f"{name}.so"),
-               str(src)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True)
+    t0 = time.perf_counter()
     libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+    for name, (lib, log) in build_variants(builds, "bench_noise_floor",
+                                           "noise_floor_launch").items():
         for kernel, (regs, st, ld) in ptxas_usage(log).items():
             print(f"[build] {name}: {regs} registers, spill stores {st} B, loads {ld} B: "
                   f"{kernel}", flush=True)
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        lib.noise_floor_launch.argtypes = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 3 + (
-            ctypes.c_float,) * 4 + (ctypes.c_void_p,)
-        lib.noise_floor_launch.restype = ctypes.c_int
         libs[name] = lib
     print(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
     return libs
@@ -120,7 +90,7 @@ def main(argv=None) -> dict:
     for spec in args.variant:
         name, defines = parse_variant(spec)
         builds[name] = (CSRC_DIR / "noise_floor.cu", defines)
-    print(f"[card] {card()}", flush=True)
+    print(f"[card] {smi()}", flush=True)
     libs = build(builds)
 
     rng = np.random.default_rng(0)
@@ -145,18 +115,18 @@ def main(argv=None) -> dict:
     order = list(libs)
     times: dict[str, dict[str, list[float]]] = {}
     for key, (xr0, xi0), n_frames in cases[:len(SHAPES)]:
-        print(f"[time] {key} {tuple(xr0.shape)}, {CALLS} calls back to back: {card()}",
+        print(f"[time] {key} {tuple(xr0.shape)}, {CALLS} calls back to back: {smi()}",
               flush=True)
         for name in order + order[::-1]:
             ms = cuda_ms(lambda: launch(libs[name], xr0, xi0, n_frames), repeats=20, warmup=3,
                          calls=CALLS)
             times.setdefault(key, {}).setdefault(name, []).append(ms)
             print(f"[time] {key} {name}: {ms:.4f} ms", flush=True)
-        print(f"[time] {key} done: {card()}", flush=True)
+        print(f"[time] {key} done: {smi()}", flush=True)
     for key, by_name in times.items():
         print(f"[summary] {key}: " + ", ".join(
             f"{name} {' / '.join(f'{ms:.4f}' for ms in runs)} ms" for name, runs in by_name.items())
-            + f" [{card('name,power.limit')}]", flush=True)
+            + f" [{smi('name,power.limit')}]", flush=True)
     return times
 
 

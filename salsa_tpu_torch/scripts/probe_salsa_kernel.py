@@ -12,7 +12,12 @@ dropped or reordered, to show where K1's time goes:
   - cov_only   : the windowed covariance only: Re R[0][c+1] where the mask is set
   - no_second  : no runner-up eigenvector (lambda1 = 0)
   - prodslide  : each frame's 10 products computed once, then 7 shifted sums
-  - realdiag   : prodslide with the diagonals of R and of each P^2 kept real
+  - realdiag   : prodslide with the diagonal products kept real (|x_i|^2)
+
+K1 holds every Hermitian matrix with a real diagonal, so prodslide and realdiag
+differ from `full` only in how the covariance is formed: they time staging the
+products in shared memory against K1's recomputation in registers. Like K1, the
+variants take n_hop = 3 alone.
 
 `salsa_spatial_variant` launches `csrc/salsa_spatial_probe.cu` on CUDA tensors
 and runs `salsa_spatial_variant_plain` on CPU tensors. The probe prints, at the
@@ -32,10 +37,10 @@ import torch
 
 from salsa_tpu_torch.features.salsa_spatial import (
     C,
+    UPPER,
+    Herm,
     _check_inputs,
     _Cplx,
-    _herm,
-    _trace,
     foa_features,
     salsa_spatial,
     top_eigs,
@@ -51,50 +56,28 @@ BLOCKS = (64, 128, 256, 512)
 
 
 def _slide_covariance(xr, xi, n_hop, realdiag):
-    """window_covariance from per-frame products computed once over the padded
-    planes and summed over the 2*n_hop+1 shifts; with `realdiag` the diagonal is
-    sum |x_i|^2 with a zero imaginary part."""
+    """The window covariance as a `Herm`, from per-frame products x_i conj(x_j)
+    computed once over the padded planes and summed over the 2*n_hop+1 shifts in
+    frame order; with `realdiag` the diagonal's products are |x_i|^2 (equal to
+    the real part of x_i conj(x_i) in IEEE float32)."""
     n_frames = xr.shape[-1] - 2 * n_hop
     win = 2 * n_hop + 1
     inv_win = np.float32(1.0 / win).item()
     x = [_Cplx(xr[:, c], xi[:, c]) for c in range(C)]
-    R = {}
-    for i in range(C):
-        for j in range(i, C):
-            if realdiag and i == j:
-                p = x[i].re * x[i].re + x[i].im * x[i].im
-                acc = p[..., 0:n_frames]
-                for k in range(1, win):
-                    acc = acc + p[..., k:k + n_frames]
-                R[(i, j)] = _Cplx(acc * inv_win, torch.zeros_like(acc))
-            else:
-                p = x[i] * x[j].conj()
-                acc = _Cplx(p.re[..., 0:n_frames], p.im[..., 0:n_frames])
-                for k in range(1, win):
-                    acc = acc + _Cplx(p.re[..., k:k + n_frames], p.im[..., k:k + n_frames])
-                R[(i, j)] = acc.scale(inv_win)
-    return R
 
+    def window_sum(p):
+        acc = p[..., 0:n_frames]
+        for k in range(1, win):
+            acc = acc + p[..., k:k + n_frames]
+        return acc * inv_win
 
-def _square_renorm_realdiag(H):
-    """features.salsa_spatial._square_renorm with real diagonals sum_k |h_ik|^2."""
-    out = {}
-    for i in range(C):
-        for j in range(i, C):
-            if i == j:
-                h = H[(0, i)]
-                acc = h.re * h.re + h.im * h.im
-                for k in range(1, C):
-                    h = H[(i, k)] if i <= k else H[(k, i)]
-                    acc = acc + (h.re * h.re + h.im * h.im)
-                out[(i, j)] = _Cplx(acc, torch.zeros_like(acc))
-            else:
-                acc = _herm(H, i, 0) * _herm(H, 0, j)
-                for k in range(1, C):
-                    acc = acc + _herm(H, i, k) * _herm(H, k, j)
-                out[(i, j)] = acc
-    inv = 1.0 / (_trace(out) + 1e-30)
-    return {ij: out[ij].scale(inv) for ij in out}
+    d = [window_sum(x[i].re * x[i].re + x[i].im * x[i].im if realdiag
+                    else (x[i] * x[i].conj()).re) for i in range(C)]
+    o = {}
+    for i, j in UPPER:
+        p = x[i] * x[j].conj()
+        o[(i, j)] = _Cplx(window_sum(p.re), window_sum(p.im))
+    return Herm(d, o)
 
 
 def salsa_spatial_variant_plain(xr, xi, sig_mask, *, variant, n_sq, n_hop=3,
@@ -111,12 +94,9 @@ def salsa_spatial_variant_plain(xr, xi, sig_mask, *, variant, n_sq, n_hop=3,
     else:
         R = window_covariance(xr, xi, n_hop)
     if variant == "cov_only":
-        cov = torch.stack([R[(0, c)].re for c in range(1, C)], dim=1)
+        cov = torch.stack([R.o[(0, c)].re for c in range(1, C)], dim=1)
         return torch.where(sig_mask[:, None], cov, zero)
-    if variant == "realdiag":
-        v, lam0, lam1 = top_eigs(R, n_sq, square=_square_renorm_realdiag)
-    else:
-        v, lam0, lam1 = top_eigs(R, n_sq, second=variant != "no_second")
+    v, lam0, lam1 = top_eigs(R, n_sq, second=variant != "no_second")
     valid = sig_mask & (lam0 > lam1 * condition_number)
     return torch.where(valid[:, None], foa_features(v), zero)
 

@@ -1,9 +1,29 @@
-"""Device timing and the card check shared by the probes and `chip_smoke.py`."""
+"""Device timing, the card check and the variant specs shared by the probes, the
+benches and `chip_smoke.py`."""
 from __future__ import annotations
 
 import statistics
+import subprocess
 
 import torch
+
+
+def smi(query: str = "name,power.limit,clocks.sm") -> str:
+    """What nvidia-smi says of the card: by default its name, power limit and SM
+    clock."""
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def parse_variant(spec: str, prefix: str) -> tuple[str, list[str]]:
+    """'NAME=MACRO=VALUE[,MACRO=VALUE]' -> (NAME, the -D defines of that build);
+    every macro must start with `prefix`, the kernel's own."""
+    name, _, macros = spec.partition("=")
+    defines = [f"-D{m}" for m in macros.split(",") if m]
+    if not name or not defines or any(not m.startswith(prefix) or "=" not in m
+                                      for m in macros.split(",")):
+        raise ValueError(f"--variant wants NAME={prefix}MACRO=VALUE[,...], got {spec!r}")
+    return name, defines
 
 
 def require_cuda(what: str) -> torch.device:

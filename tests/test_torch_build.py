@@ -85,3 +85,13 @@ def test_cuda_tools_are_looked_up_not_assumed(monkeypatch, tmp_path):
     tool.parent.mkdir()
     tool.write_text("")
     assert build._find_tool("cuobjdump") == str(tool)
+
+
+def test_variant_builds_need_nvcc(monkeypatch, tmp_path):
+    """Side-by-side builds look nvcc up as the library build does, and raise where
+    there is none."""
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build_variants({"tree": (build.CSRC_DIR / "salsa_spatial.cu", [])}, "variants",
+                             "salsa_spatial_launch")

@@ -68,6 +68,36 @@ def test_seldnet_matches_flax(rng, decoder_type):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=5e-4, rtol=1e-3)
 
 
+@pytest.mark.parametrize("enc_extra,dec_extra", [
+    ({"p_dropout": 0.0}, {}),
+    ({"p_dropout": 0.25}, {"head_dropout": 0.5, "rnn_dropout": 0.4}),
+    ({}, {"head_dropout": 0.0, "rnn_dropout": 0.0}),
+])
+def test_dropout_keys_match_flax_in_eval(rng, enc_extra, dec_extra):
+    """salsa_tpu's p_dropout, head_dropout and rnn_dropout keys build the port's
+    model with those rates as nn.Dropout / nn.GRU dropout; in eval mode the
+    outputs match SeldNet.apply(train=False) at test_seldnet_matches_flax's
+    tolerance."""
+    enc = {"name": "PannResNet22", "n_input_channels": 7, **enc_extra}
+    dec = {"name": "SeldDecoder", "decoder_type": "bigru", "decoder_size": 16,
+           "freq_pool": "avg", **dec_extra}
+    x = rng.standard_normal((2, 7, 64, 32)).astype(np.float32)
+    j_model = jseld.build_model(encoder=enc, decoder=dec, n_classes=3)
+    params, stats = flax_init(rng, j_model, x)
+    want = j_model.apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
+                         train=False)
+    t_model = load_flax_variables(tseld.build_model(encoder=enc, decoder=dec, n_classes=3),
+                                  params, stats).eval()
+    assert t_model.encoder.dropout.p == enc_extra.get("p_dropout", 0.0)
+    assert t_model.decoder.head_dropout.p == dec_extra.get("head_dropout", 0.2)
+    assert t_model.decoder.gru.dropout == dec_extra.get("rnn_dropout", 0.3)
+    with torch.no_grad():
+        got = t_model(torch.from_numpy(x))
+    for k in ("event_frame_logit", "doa_frame_output"):
+        assert np.asarray(want[k]).std() > 0.05
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=5e-4, rtol=1e-3)
+
+
 def _flax_tree(rng, decoder_type, size=16):
     enc = {"name": "PannResNet22", "n_input_channels": 7}
     dec = {"name": "SeldDecoder", "decoder_type": decoder_type, "decoder_size": size,

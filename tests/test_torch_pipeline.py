@@ -107,23 +107,41 @@ def test_pipeline_loads_torch_state_dict(slice_setup):
     pipe = SeldInferencePipeline(t_pipe.extractor,
                                  build_model(encoder=ENC, decoder=DEC, n_classes=N_CLASSES),
                                  sd, (t_pipe.mean.numpy(), t_pipe.std.numpy()), INTERP,
-                                 N_CLASSES)
+                                 N_CLASSES, device="cpu")
     for got, want in zip(pipe(waves), t_pipe(waves)):
         np.testing.assert_array_equal(got, want)
     with pytest.raises(RuntimeError):
         SeldInferencePipeline(t_pipe.extractor, build_model(encoder=ENC, decoder=DEC),
-                              sd, (t_pipe.mean.numpy(), t_pipe.std.numpy()), INTERP, 12)
+                              sd, (t_pipe.mean.numpy(), t_pipe.std.numpy()), INTERP, 12,
+                              device="cpu")
 
 
 def test_pipeline_accdoa_output(slice_setup):
     waves, _, t_pipe = slice_setup
     acc = SeldInferencePipeline(t_pipe.extractor, t_pipe.model, None,
                                 (t_pipe.mean.numpy(), t_pipe.std.numpy()), INTERP, N_CLASSES,
-                                output_format="accdoa")
+                                output_format="accdoa", device="cpu")
     ev, doa = acc(waves)
     n = N_CLASSES
     want = np.sqrt(doa[..., :n] ** 2 + doa[..., n:2 * n] ** 2 + doa[..., 2 * n:] ** 2)
     np.testing.assert_allclose(ev, want, rtol=1e-6)
+
+
+def test_pipeline_defaults_to_the_card():
+    """With no `device` the pipeline serves on the first CUDA card: on a host
+    without one it raises at its first move to CUDA instead of serving on the
+    CPU (which error is torch's own)."""
+    model = build_model(encoder=ENC, decoder=DEC, n_classes=N_CLASSES)
+    scaler = (np.zeros((4, 1, 200), np.float32), np.ones((4, 1, 200), np.float32))
+    args = (make_extractor("salsa", "foa"), model, None, scaler, INTERP, N_CLASSES)
+    if torch.cuda.is_available():
+        pipe = SeldInferencePipeline(*args)
+        assert pipe.device.type == "cuda" and next(pipe.model.parameters()).is_cuda
+    else:
+        with pytest.raises(Exception) as err:
+            SeldInferencePipeline(*args)
+        assert "cuda" in str(err.value).lower() or "nvidia" in str(err.value).lower()
+        assert next(model.parameters()).device.type == "cpu"  # nothing moved
 
 
 HYGIENE = textwrap.dedent("""
@@ -169,10 +187,12 @@ HYGIENE = textwrap.dedent("""
 
     import salsa_tpu_torch.interop as interop
     import salsa_tpu_torch.scripts.bench_noise_floor as bench_k2
+    import salsa_tpu_torch.scripts.bench_salsa_spatial as bench_k1
     import salsa_tpu_torch.scripts.probe_pallas_conv as probe_conv
     import salsa_tpu_torch.scripts.probe_salsa_kernel as probe_k3
 
     assert callable(interop.flax_to_torch_state_dict) and callable(bench_k2.main)
+    assert callable(bench_k1.main)
 
     z = torch.zeros(1, 4, 3, 16)
     k3 = probe_k3.salsa_spatial_variant(z, z, torch.ones(1, 3, 10, dtype=torch.bool),

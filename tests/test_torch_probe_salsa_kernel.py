@@ -12,7 +12,10 @@ torch = pytest.importorskip("torch")
 
 import scripts.probe_salsa_kernel as jprobe  # noqa: E402
 from salsa_tpu.features import salsa as jsalsa  # noqa: E402
-from salsa_tpu_torch.features.salsa_spatial import salsa_spatial_plain  # noqa: E402
+from salsa_tpu_torch.features.salsa_spatial import (  # noqa: E402
+    salsa_spatial_plain,
+    window_covariance,
+)
 from salsa_tpu_torch.scripts import probe_salsa_kernel as tprobe  # noqa: E402
 from tests.test_salsa_pallas import make_band  # noqa: E402
 from tests.test_torch_salsa import _compare_spatial, _planes  # noqa: E402
@@ -90,14 +93,25 @@ def test_full_at_three_squarings_is_k1_plain(band):
 
 
 def test_prodslide_and_realdiag_reorder_without_changing_the_result(band):
-    """In IEEE float32 without contraction both reorderings give `full` exactly,
-    as the JAX probe's checksums show (the card's FMAs may differ in last bits)."""
+    """Both reorderings sum each frame's finished products, where K1 (`full`)
+    adds every product term to a chain: in IEEE float32 their covariance equals
+    K1's to rounding (within 1e-6 of its largest entry), and their features hold
+    K1's bound against `full`. The two give each other's result exactly, since
+    the real part of x conj(x) is |x|^2 exactly."""
     _, _, (xr, xi, m) = band
     full = tprobe.salsa_spatial_variant_plain(xr, xi, m, variant="full", n_sq=3, n_hop=H)
+    R = window_covariance(xr, xi, H)
+    outs = []
     for variant in ("prodslide", "realdiag"):
-        assert torch.equal(
-            tprobe.salsa_spatial_variant_plain(xr, xi, m, variant=variant, n_sq=3, n_hop=H),
-            full)
+        S = tprobe._slide_covariance(xr, xi, H, realdiag=variant == "realdiag")
+        for want, got in [(R.d[i], S.d[i]) for i in range(4)] + [
+                (getattr(R.o[ij], part), getattr(S.o[ij], part))
+                for ij in R.o for part in ("re", "im")]:
+            assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+        outs.append(tprobe.salsa_spatial_variant_plain(xr, xi, m, variant=variant, n_sq=3,
+                                                       n_hop=H))
+        tprobe.check_variant(outs[-1], full, variant, f"{variant} vs full")
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.parametrize("variant", tprobe.VARIANTS)
@@ -121,6 +135,8 @@ def test_variant_wrapper_dispatch_and_checks(band):
         tprobe.salsa_spatial_variant(xr, xi, m, variant="nope", n_sq=3)
     with pytest.raises(ValueError):
         tprobe.salsa_spatial_variant(xr, xi, m, variant="full", n_sq=5)
+    with pytest.raises(NotImplementedError, match=r"n_hop in \(3,\)"):
+        tprobe.salsa_spatial_variant(xr, xi, m[..., 2:], n_hop=2, **kw)
     with pytest.raises(ValueError):
         tprobe.salsa_spatial_variant(xr, xi, m, block=96, **kw)
     with pytest.raises(ValueError):

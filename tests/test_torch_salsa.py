@@ -20,7 +20,7 @@ from salsa_tpu.features.salsa_pallas import (  # noqa: E402
 from salsa_tpu_torch.features import salsa as tsalsa  # noqa: E402
 from salsa_tpu_torch.features import salsa_spatial as tspatial  # noqa: E402
 from salsa_tpu_torch.features.registry import make_extractor  # noqa: E402
-from salsa_tpu_torch.scripts import bench_noise_floor  # noqa: E402
+from salsa_tpu_torch.scripts import bench_noise_floor, bench_salsa_spatial  # noqa: E402
 from tests.test_salsa_pallas import make_band  # noqa: E402
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "reference_features.npz")
@@ -92,11 +92,24 @@ def test_sqrt_rn_is_correctly_rounded(rng):
     np.testing.assert_array_equal(tsalsa.sqrt_rn(torch.from_numpy(q)).numpy(), np.sqrt(q))
 
 
-def test_tracker_init_state_matches_jax(rng):
+@pytest.mark.parametrize("n_frames", [700, 1, 2, 3, 4, 5, 6])
+def test_tracker_init_state_matches_jax(rng, n_frames):
+    """The clip-start floor is 0.5 x the mean of the first min(5, T) frames,
+    summed in frame order (as K2 sums them). jnp.mean on the CPU sums 3 and 5
+    frames in another order: the two differ by at most one ulp (ROADMAP queue 3)
+    and agree exactly where the order cannot matter (1 or 2 frames)."""
     _, _, mag = _band_mag(rng)
+    mag = mag[:, :n_frames]
     f_j, c_j = jsalsa.tracker_init_state(jnp.asarray(mag))
     f_t, c_t = tsalsa.tracker_init_state(torch.from_numpy(mag))
-    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=1e-6, atol=0)
+    n = min(5, n_frames)
+    want = mag[:, 0]
+    for t in range(1, n):
+        want = want + mag[:, t]
+    np.testing.assert_array_equal(f_t.numpy(), want / np.float32(n) * np.float32(0.5))
+    ulps = np.abs(f_t.numpy().view(np.int32).astype(np.int64)
+                  - np.asarray(f_j).view(np.int32).astype(np.int64))
+    assert ulps.max() <= (0 if n <= 2 else 1)
     np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
     assert c_t.dtype == torch.int32
 
@@ -106,6 +119,10 @@ def test_tracker_init_state_matches_jax(rng):
 TRACKER_CASES = [
     pytest.param(1, 16, 389, 0, False, id="0"),
     pytest.param(1, 16, 389, 311, False, id="311"),
+    pytest.param(3, 11, 1, 0, False, id="33rows-T1"),
+    pytest.param(3, 11, 2, 0, False, id="33rows-T2"),
+    pytest.param(3, 11, 3, 0, False, id="33rows-T3"),
+    pytest.param(3, 11, 4, 0, False, id="33rows-T4"),
     pytest.param(3, 11, 5, 0, False, id="33rows-T5"),
     pytest.param(3, 11, 259, 0, False, id="33rows-T259"),
     pytest.param(3, 11, 3, 311, False, id="33rows-resume-T3"),
@@ -118,9 +135,9 @@ def test_tracker_scan_bit_equal_to_jax(rng, n_clips, n_bins, n_frames, resume_at
     """Frames [resume_at, resume_at + n_frames) of 700-frame clips: the port's scan
     on the same magnitudes and entering state, and the K2 wrapper (plain on CPU)
     on the planes, give the masks and final states of `salsa_tpu`'s
-    noise_floor_scan exactly. At the clip start the state is the first 5 frames'
-    (summed in frame order, within 1e-6 of JAX's mean); resume_at > 0 restarts
-    from JAX's pre-state there."""
+    noise_floor_scan exactly. At the clip start the state is the first
+    min(5, n_frames) frames' (summed in frame order, within 1e-6 of JAX's mean);
+    resume_at > 0 restarts from JAX's pre-state there, the clip's 5-frame start."""
     full = 700
     planes = [_planes(make_band(rng, n_bins=n_bins, n_frames=full)) for _ in range(n_clips)]
     xr0 = np.stack([p[0][0] for p in planes])  # (clips, bins, full + 2h)
@@ -129,9 +146,12 @@ def test_tracker_scan_bit_equal_to_jax(rng, n_clips, n_bins, n_frames, resume_at
         xr0, xi0 = np.zeros_like(xr0), np.zeros_like(xi0)
     rows = n_clips * n_bins
     mag = _np_magnitudes(xr0, xi0, full).reshape(rows, full)
-    floor0 = (((((mag[:, 0] + mag[:, 1]) + mag[:, 2]) + mag[:, 3]) + mag[:, 4])
-              / np.float32(5.0) * np.float32(0.5))
-    f_init, c_init = jsalsa.tracker_init_state(jnp.asarray(mag))
+    n0 = 5 if resume_at else min(5, n_frames)
+    floor0 = mag[:, 0]
+    for t in range(1, n0):
+        floor0 = floor0 + mag[:, t]
+    floor0 = floor0 / np.float32(n0) * np.float32(0.5)
+    f_init, c_init = jsalsa.tracker_init_state(jnp.asarray(mag[:, :n0]))
     np.testing.assert_allclose(floor0, np.asarray(f_init), rtol=1e-6, atol=0)
     state0 = (jnp.asarray(floor0), c_init)
     if resume_at:
@@ -194,7 +214,7 @@ def test_noise_floor_mask_rejects_bad_input():
         state = (torch.zeros(1, 4), torch.zeros(1, 4, dtype=torch.int32))
         tsalsa.noise_floor_mask(x[..., :6], x[..., :6], n_hop=3, n_frames=0, state0=state)
     with pytest.raises(ValueError):
-        tsalsa.noise_floor_mask(x[..., :10], x[..., :10], n_hop=3, n_frames=4)  # < 5 frames
+        tsalsa.noise_floor_mask(x[..., :6], x[..., :6], n_hop=3, n_frames=0)  # no frame
     with pytest.raises(TypeError):
         tsalsa.noise_floor_mask(x.double(), x.double(), n_hop=3, n_frames=14)
     with pytest.raises(ValueError):
@@ -215,6 +235,20 @@ def test_bench_noise_floor_variants_name_the_kernels_macros():
             bench_noise_floor.main([])
 
 
+def test_bench_salsa_spatial_variants_name_the_kernels_macros():
+    name, defines = bench_salsa_spatial.parse_variant("b256m2=K1_BLOCK=256,K1_MIN_BLOCKS=2")
+    assert name == "b256m2" and defines == ["-DK1_BLOCK=256", "-DK1_MIN_BLOCKS=2"]
+    src = (bench_salsa_spatial.CSRC_DIR / "salsa_spatial.cu").read_text()
+    for macro in ("K1_BLOCK", "K1_MIN_BLOCKS"):
+        assert f"#ifndef {macro}" in src
+    for bad in ("b256", "b=", "b=NF_TILE_FRAMES=256", "b=K1_BLOCK"):
+        with pytest.raises(ValueError):
+            bench_salsa_spatial.parse_variant(bad)
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit):
+            bench_salsa_spatial.main([])
+
+
 def _compare_spatial(got, want, max_disagree=0.005):
     """test_salsa_pallas.py's bound: validity masks agree on > 99.5% of cells, and
     features agree to atol/rtol 5e-3 where both are valid."""
@@ -225,6 +259,114 @@ def _compare_spatial(got, want, max_disagree=0.005):
     both = m_got & m_want
     assert both.mean() > 0.05
     np.testing.assert_allclose(got[:, both], want[:, both], atol=5e-3, rtol=5e-3)
+
+
+# The complex-pair algebra K1 ran before its Hermitian-real form: every entry of
+# the upper triangle a complex pair, the lower read as conjugates, each product a
+# full complex product.
+def _pair_herm(H, i, j):
+    return H[(i, j)] if i <= j else H[(j, i)].conj()
+
+
+def _pair_matvec(H, v):
+    out = []
+    for i in range(4):
+        acc = _pair_herm(H, i, 0) * v[0]
+        for j in range(1, 4):
+            acc = acc + _pair_herm(H, i, j) * v[j]
+        out.append(acc)
+    return out
+
+
+def _pair_trace(H):
+    return ((H[(0, 0)].re + H[(1, 1)].re) + H[(2, 2)].re) + H[(3, 3)].re
+
+
+def _pair_square_renorm(H):
+    out = {}
+    for i in range(4):
+        for j in range(i, 4):
+            acc = _pair_herm(H, i, 0) * _pair_herm(H, 0, j)
+            for k in range(1, 4):
+                acc = acc + _pair_herm(H, i, k) * _pair_herm(H, k, j)
+            out[(i, j)] = acc
+    inv = 1.0 / (_pair_trace(out) + 1e-30)
+    return {ij: out[ij].scale(inv) for ij in out}
+
+
+def _pair_rayleigh(H, v):
+    hv = _pair_matvec(H, v)
+    acc = v[0].re * hv[0].re + v[0].im * hv[0].im
+    for c in range(1, 4):
+        acc = acc + (v[c].re * hv[c].re + v[c].im * hv[c].im)
+    return acc
+
+
+def _psd_cells(rng, n=400):
+    """(n, 4, 4) complex64 Hermitian PSD matrices: random ranks 1-4 and scales
+    over 12 decades, a near-rank-1 (coherent) share, and the all-zero matrix."""
+    A = rng.standard_normal((n, 4, 4)) + 1j * rng.standard_normal((n, 4, 4))
+    rank = rng.integers(1, 5, n)
+    A = A * (np.arange(4)[None, None, :] < rank[:, None, None])
+    A[: n // 4] += 30 * A[: n // 4, :, :1]
+    M = A @ np.conj(np.transpose(A, (0, 2, 1))) * 10.0 ** rng.uniform(-6, 6, n)[:, None, None]
+    M[-1] = 0
+    return M.astype(np.complex64)
+
+
+def _as_pairs_and_herm(M):
+    cpl = lambda z: tspatial._Cplx(torch.from_numpy(np.ascontiguousarray(z.real)),
+                                   torch.from_numpy(np.ascontiguousarray(z.imag)))
+    pairs = {(i, j): cpl(M[:, i, j]) for i in range(4) for j in range(i, 4)}
+    herm = tspatial.Herm([torch.from_numpy(np.ascontiguousarray(M[:, i, i].real))
+                          for i in range(4)], {ij: pairs[ij] for ij in tspatial.UPPER})
+    return pairs, herm
+
+
+def _assert_close_per_cell(got, want, rel=1e-6, scale=None):
+    """max |got - want| over a cell's entries within rel x `scale` there, by
+    default max |want| over the cell."""
+    got, want = np.stack(got, -1), np.stack(want, -1)
+    err = np.abs(got - want).max(-1)
+    scale = np.abs(want).max(-1) if scale is None else scale
+    assert np.all(err <= rel * scale), (err / np.maximum(scale, 1e-38)).max()
+
+
+@pytest.mark.parametrize("helper", ["trace", "square", "matvec", "rayleigh"])
+def test_hermitian_real_helpers_match_complex_pair_algebra(rng, helper):
+    """The Hermitian-real algebra (real diagonal, 6 upper entries, the kernel's
+    term order) computes what the complex-pair algebra computes, within 1e-6 of
+    each cell's scale (its largest value; |H| |v|^2 for a Rayleigh quotient), on
+    seeded PSD matrices including the zero one, which gives zero."""
+    M = _psd_cells(rng)
+    pairs, herm = _as_pairs_and_herm(M)
+    v = [tspatial._Cplx(*(torch.from_numpy(rng.standard_normal(len(M)).astype(np.float32))
+                          for _ in "ri")) for _ in range(4)]
+    if helper == "square":
+        sq, psq = herm, pairs
+        for _ in range(3):  # K1's three squarings
+            sq, psq = tspatial._square_renorm(sq), _pair_square_renorm(psq)
+            got = sq.d + [getattr(sq.o[ij], p) for ij in tspatial.UPPER for p in ("re", "im")]
+            want = ([psq[(i, i)].re for i in range(4)]
+                    + [getattr(psq[ij], p) for ij in tspatial.UPPER for p in ("re", "im")])
+            _assert_close_per_cell([g.numpy() for g in got], [w.numpy() for w in want])
+            # the complex pairs' diagonal imaginary parts are rounding noise
+            assert max(float(psq[(i, i)].im.abs().max()) for i in range(4)) <= 1e-6
+    elif helper == "trace":
+        got, want = [tspatial._trace(herm)], [_pair_trace(pairs)]
+    elif helper == "matvec":
+        got = [getattr(c, p) for c in tspatial._matvec(herm, v) for p in ("re", "im")]
+        want = [getattr(c, p) for c in _pair_matvec(pairs, v) for p in ("re", "im")]
+    else:
+        got, want = [tspatial._rayleigh(herm, v)], [_pair_rayleigh(pairs, v)]
+        # a quotient near 0 (v near H's null space) cancels: its scale is |H| |v|^2
+        v2 = sum(c.re.numpy() ** 2 + c.im.numpy() ** 2 for c in v)
+        _assert_close_per_cell([got[0].numpy()], [want[0].numpy()],
+                               scale=np.abs(M).max((1, 2)) * v2)
+    if helper in ("trace", "matvec"):
+        _assert_close_per_cell([g.numpy() for g in got], [w.numpy() for w in want])
+    for t in got:
+        assert float(t[-1].abs()) == 0.0  # the all-zero matrix
 
 
 @pytest.mark.parametrize("audio_format,n_bins,n_frames", [
@@ -271,6 +413,28 @@ def test_spatial_rejects_unsupported_input():
     with pytest.raises(ValueError):
         m = torch.ones(1, 4, 10, dtype=torch.bool, device="meta")
         tspatial.salsa_spatial(x.to("meta"), x.to("meta"), m, **kw)
+
+
+@pytest.mark.parametrize("n_hop", [1, 2, 4])
+def test_spatial_wrapper_takes_n_hop_3_only(n_hop):
+    """The kernels are compiled for n_hop = 3 alone; the wrapper refuses any other
+    window on every device, naming what is instantiated, and falls back to
+    nothing."""
+    x = torch.zeros(1, 4, 4, 10 + 2 * n_hop)
+    m = torch.ones(1, 4, 10, dtype=torch.bool)
+    with pytest.raises(NotImplementedError, match=r"n_hop in \(3,\)"):
+        tspatial.salsa_spatial(x, x, m, n_hop=n_hop, audio_format="foa", condition_number=5.0,
+                               lower_bin=1, fs=24000, n_fft=512)
+
+
+def test_spatial_wrapper_refuses_planes_past_32_bit_indices():
+    kw = dict(n_hop=H, audio_format="foa", condition_number=5.0, lower_bin=1, fs=24000,
+              n_fft=512)
+    n_t = 2**31 // (4 * 191 * 3) - 2 * H  # 3 clips of 191 bins: one element too many
+    x = torch.empty((3, 4, 191, n_t + 2 * H + 1), device="meta")
+    with pytest.raises(ValueError, match="32 bits"):
+        tspatial.salsa_spatial(x, x, torch.empty((3, 191, n_t + 1), dtype=torch.bool,
+                                                 device="meta"), **kw)
 
 
 @pytest.fixture(scope="module")
