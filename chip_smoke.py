@@ -28,7 +28,15 @@ Phases, each printing what it found; any failure raises and exits non-zero:
   7. K4, the 3x3 conv with 64 outputs, against its plain version in bf16 and f32
      at the stage-1 shape and two ragged shapes (7 and 80 channels), each at
      every rows-per-block, then the probe
-     `salsa_tpu_torch.scripts.probe_pallas_conv` at B=32.
+     `salsa_tpu_torch.scripts.probe_pallas_conv` at B=32;
+  8. the serving CLI on a `salsa_tpu` experiment written to disk: configs/seld.yml,
+     two seeded checkpoints (valSeld 0.4 and 0.6) in flax's msgpack format, the
+     scaler and six FOA wavs (four 60 s, one 20.7 s, one 30 s at 48 kHz);
+     `cli.predict` must pick the 0.4 checkpoint, launch K1 and K2 once per group
+     and write CSVs byte-identical to the in-memory pipeline's; `cli.evaluate`
+     scores them against ground truth written from each clip's source and scores
+     the ground truth against itself as ER 0, F1 1, LE 0, LR 1; then the
+     extraction bench `salsa_tpu_torch.scripts.bench_extract` (64 x 60 s).
 The second-to-last line is a JSON summary of the kernels, each with its time,
 its plain version's, its bound (the larger of its bytes over the memory rate and
 its operations over the peak rate of their type) and, where one PyTorch call
@@ -40,7 +48,10 @@ from __future__ import annotations
 import copy
 import csv
 import json
+import logging
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -51,6 +62,8 @@ import numpy as np
 import torch
 
 from salsa_tpu_torch import configs
+from salsa_tpu_torch.cli import evaluate as cli_evaluate
+from salsa_tpu_torch.cli import predict as cli_predict
 from salsa_tpu_torch.dsp.stft import stft_planes
 from salsa_tpu_torch.features.registry import make_extractor
 from salsa_tpu_torch.features.salsa import (
@@ -71,9 +84,10 @@ from salsa_tpu_torch.kernels.build import (
     ptxas_usage,
     sass_opcode_counts,
 )
+from salsa_tpu_torch.interop import torch_state_dict_to_flax
 from salsa_tpu_torch.models.seld import build_model, init_random_
 from salsa_tpu_torch.pipeline import SeldInferencePipeline
-from salsa_tpu_torch.scripts import probe_pallas_conv, probe_salsa_kernel
+from salsa_tpu_torch.scripts import bench_extract, probe_pallas_conv, probe_salsa_kernel
 from salsa_tpu_torch.scripts.probe_pallas_conv import conv3x3_64, conv3x3_64_plain, rel_err
 from salsa_tpu_torch.scripts.probe_salsa_kernel import (
     VARIANTS,
@@ -83,9 +97,13 @@ from salsa_tpu_torch.scripts.probe_salsa_kernel import (
 )
 from salsa_tpu_torch.scripts.timing import cuda_ms, smi
 from salsa_tpu_torch.submission import write_classwise_csv
+from salsa_tpu_torch.train.checkpoint import save_checkpoint
+from salsa_tpu_torch.utils.audio_io import read_wav, write_wav
+from salsa_tpu_torch.utils.config import load_config
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "golden", "reference_features.npz")
+SELD_YML = os.path.join(REPO, "configs", "seld.yml")
 SEED = 20261016
 D = configs.DATA
 FS, N_FFT, HOP = D["fs"], D["n_fft"], D["hop_len"]
@@ -750,6 +768,224 @@ def phase7(dev) -> dict:
             **times}
 
 
+# phase 8's wav directory: (name, seconds, sample rate); the four 60 s clips make
+# one group of the CLI's batch size 4, and the 48 kHz clip is resampled to 24 kHz
+SCENES = (("foa_a", 60.0, FS), ("foa_b", 60.0, FS), ("foa_c", 60.0, FS), ("foa_d", 60.0, FS),
+          ("foa_short", 20.7, FS), ("foa_48k", 30.0, 48000))
+CKPTS = (("epoch010", 10, 0.4), ("epoch020", 20, 0.6))  # (name, step, valSeld); 0.4 serves
+
+
+def foa_scene(rng: np.random.Generator, seconds: float, fs: int,
+              label_rate: int) -> tuple[np.ndarray, list[str]]:
+    """(4, n) float32 FOA audio with one directional source of a random class that
+    sounds for the first 3-7 s of every 10 s over diffuse noise, and its ground
+    truth as DCASE 2021 metadata rows `frame,class,0,azi,ele`."""
+    n = int(round(seconds * fs))
+    t = np.arange(n) / fs
+    cls, azi, ele = int(rng.integers(N_CLASSES)), int(rng.integers(-180, 180)), int(
+        rng.integers(-40, 41))
+    on_s = rng.uniform(3.0, 7.0)
+    a, e = np.deg2rad(azi), np.deg2rad(ele)
+    gains = np.array([1.0, np.sin(a) * np.cos(e), np.sin(e), np.cos(a) * np.cos(e)])
+    src = (0.1 * rng.standard_normal(n) + 0.3 * np.sin(2 * np.pi * rng.uniform(300, 3000) * t))
+    audio = 0.01 * rng.standard_normal((4, n)) + gains[:, None] * (src * (t % 10.0 < on_s))
+    rows = [f"{f},{cls},0,{azi},{ele}" for f in range(int(seconds * label_rate))
+            if (f / label_rate) % 10.0 < on_s]
+    return audio.astype(np.float32), rows
+
+
+def write_experiment(root: str, scenes=SCENES, seed: int = SEED) -> dict:
+    """A `salsa_tpu` experiment as training leaves it, made from seeds: configs/seld.yml
+    copied verbatim, the CKPTS checkpoints of seeded random models written as flax
+    msgpack with their sidecars, the scaler, 16-bit wavs and their ground truth.
+    Returns its paths and the served checkpoint's torch weights."""
+    config = os.path.join(root, "seld.yml")
+    shutil.copyfile(SELD_YML, config)
+    cfg = load_config(config)
+    group = os.path.join(root, "outputs")
+    models = os.path.join(group, cfg.mode, cfg.data.audio_format, cfg.feature_type,
+                          "seld", "models")
+    weights = {}
+    for i, (name, step, val_seld) in enumerate(CKPTS):
+        model = init_random_(
+            build_model(encoder=cfg.model.encoder.to_dict(), decoder=cfg.model.decoder.to_dict(),
+                        n_classes=cfg.data.n_classes, output_format=cfg.data.output_format),
+            torch.Generator().manual_seed(seed + i))
+        weights[name] = model.state_dict()
+        save_checkpoint(os.path.join(models, "best"), name,
+                        *torch_state_dict_to_flax(weights[name]), step,
+                        {"epoch": step, "valSeld": val_seld})
+    rng = np.random.default_rng(seed)
+    np.savez(os.path.join(models, "feature_scaler.npz"),
+             mean=rng.normal(-5.0, 1.0, (4, 1, 200)).astype(np.float32),
+             std=rng.uniform(5.0, 8.0, (4, 1, 200)).astype(np.float32))
+    wav_dir, gt_root = os.path.join(root, "wavs"), os.path.join(root, "task3")
+    os.makedirs(wav_dir)
+    os.makedirs(os.path.join(gt_root, "metadata_dev"))
+    for name, seconds, fs in scenes:
+        audio, rows = foa_scene(rng, seconds, fs, cfg.data.label_rate)
+        write_wav(os.path.join(wav_dir, f"{name}.wav"), audio, fs, bits=16)
+        with open(os.path.join(gt_root, "metadata_dev", f"{name}.csv"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    served = min(CKPTS, key=lambda c: c[2])[0]
+    return {"config": config, "group": group, "wav_dir": wav_dir, "gt_root": gt_root,
+            "log": os.path.join(os.path.dirname(models), "logs", "log.txt"), "cfg": cfg,
+            "scaler": os.path.join(models, "feature_scaler.npz"),
+            "served": os.path.join(models, "best", f"{served}.msgpack"),
+            "weights": weights[served]}
+
+
+class LogStamps(logging.Filter):
+    """The host-clock time of each record of the CLI's logger. The CLI replaces
+    its logger's handlers on every call but keeps its filters."""
+
+    def __init__(self):
+        super().__init__()
+        self.marks: list[tuple[float, str]] = []
+
+    def filter(self, record: logging.LogRecord) -> bool:
+        self.marks.append((time.perf_counter(), record.getMessage()))
+        return True
+
+    def since(self, t0: float) -> str:
+        """Each record's seconds since `t0`, by its first word (`n/m predicted`
+        whole), and forget them."""
+        marks = [(t - t0, m if m.endswith("predicted") else m.split()[0])
+                 for t, m in self.marks]
+        self.marks = []
+        return ", ".join(f"{m} {t:.3f}" for t, m in marks)
+
+
+def serve_cli(dev, exp: dict, out_dir: str, batch_size: int) -> float:
+    """One `cli.predict` call on `exp` into `out_dir`; returns its host-clock s."""
+    t0 = time.perf_counter()
+    cli_predict.predict(exp["config"], exp["wav_dir"], out_dir, exp["group"],
+                        batch_size=batch_size, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase8(dev, scenes=SCENES, batch_size: int = 4) -> dict:
+    """The serving CLI on an experiment from disk, held against the in-memory
+    pipeline, then scored. The CLI runs twice: first as a user's first call, then
+    again, warm, so the first call's extra time shows per log record. Returns the
+    launches, the CLI's served line and the host-clock times."""
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = write_experiment(tmp, scenes)
+        cfg, d = exp["cfg"], exp["cfg"].data
+        out_dir = os.path.join(tmp, "preds")
+        stamps = LogStamps()
+        cli_logger = logging.getLogger("salsa_tpu_torch")
+        cli_logger.addFilter(stamps)
+        try:
+            salsa_spatial.launches = 0
+            noise_floor_mask.launches = 0
+            t0 = time.perf_counter()
+            call_s = serve_cli(dev, exp, out_dir, batch_size)
+            launches = {"salsa_spatial": salsa_spatial.launches,
+                        "noise_floor": noise_floor_mask.launches}
+            first_marks = stamps.since(t0)
+            with open(exp["log"]) as f:
+                log_text = f.read()
+            t0 = time.perf_counter()
+            warm_s = serve_cli(dev, exp, os.path.join(tmp, "preds_warm"), batch_size)
+            warm_marks = stamps.since(t0)
+        finally:
+            cli_logger.removeFilter(stamps)
+        restored = re.findall(r"restored (\S+)", log_text)
+        served = re.findall(r"served .*realtime\)", log_text)
+        if restored != [exp["served"]]:
+            raise AssertionError(f"the CLI restored {restored}, expected {exp['served']}")
+
+        # the in-memory pipeline on the same decoded audio, grouped as the CLI groups
+        # (exact sample count, batch_size a group), from the served checkpoint's
+        # torch weights
+        model = build_model(encoder=cfg.model.encoder.to_dict(),
+                            decoder=cfg.model.decoder.to_dict(), n_classes=d.n_classes)
+        scaler = np.load(exp["scaler"])
+        pipe = SeldInferencePipeline(
+            make_extractor(cfg.feature_type, d.audio_format, fs=d.fs, n_fft=d.n_fft,
+                           hop_length=d.hop_len),
+            model, exp["weights"], (scaler["mean"], scaler["std"]),
+            model.time_downsample_ratio * d.label_rate / (d.fs / d.hop_len), d.n_classes,
+            d.output_format, device=dev)
+        groups, buckets = [], {}
+        spent = {"decode": 0.0, "requests": 0.0, "csv": 0.0}  # host clock, seconds
+        for name in sorted(os.listdir(exp["wav_dir"])):
+            t0 = time.perf_counter()
+            a, _ = read_wav(os.path.join(exp["wav_dir"], name), target_fs=d.fs)
+            spent["decode"] += time.perf_counter() - t0
+            buckets.setdefault(a.shape[1], []).append((name, a))
+            if len(buckets[a.shape[1]]) == batch_size:
+                groups.append(buckets.pop(a.shape[1]))
+        groups += [buckets[n] for n in sorted(buckets)]
+        ref_dir = os.path.join(tmp, "ref")
+        os.makedirs(ref_dir)
+        for group in groups:
+            t0 = time.perf_counter()
+            ev, doa = pipe(np.stack([a for _, a in group]))  # numpy out: synchronized
+            t1 = time.perf_counter()
+            for (name, _), e_row, d_row in zip(group, ev, doa):
+                write_classwise_csv(os.path.join(ref_dir, name[:-4] + ".csv"), e_row, d_row,
+                                    d.n_classes, sed_threshold=cfg.sed_threshold,
+                                    max_frames=e_row.shape[0], version=str(cfg.eval_version))
+            spent["requests"] += t1 - t0
+            spent["csv"] += time.perf_counter() - t1
+        want = {"salsa_spatial": len(groups), "noise_floor": len(groups)} \
+            if dev.type == "cuda" else {"salsa_spatial": 0, "noise_floor": 0}
+        log("8", f"cli.predict served {len(scenes)} wavs in {len(groups)} groups "
+                 f"{[len(g) for g in groups]} from {os.path.basename(restored[0])}; launches "
+                 f"{launches} [{CARD}]")
+        if launches != want:
+            raise AssertionError(f"expected one K1 and one K2 launch per group, got {launches}")
+        csvs = sorted(os.listdir(out_dir))
+        warm_dir = os.path.join(tmp, "preds_warm")
+        if csvs != sorted(f"{n}.csv" for n, _, _ in scenes) or csvs != sorted(
+                os.listdir(ref_dir)) or csvs != sorted(os.listdir(warm_dir)):
+            raise AssertionError(f"CSVs {csvs}, expected one per wav")
+        n_rows = 0
+        for name in csvs:
+            with open(os.path.join(out_dir, name), "rb") as f, \
+                    open(os.path.join(ref_dir, name), "rb") as g, \
+                    open(os.path.join(warm_dir, name), "rb") as h:
+                got, ref, again = f.read(), g.read(), h.read()
+            if got != ref or again != got:
+                raise AssertionError(f"{name}: the CLI's CSVs are not byte-identical to the "
+                                     "in-memory pipeline's")
+            n_rows += got.count(b"\n")
+        log("8", f"{len(csvs)} CSVs, {n_rows} event rows, byte-identical to the in-memory "
+                 "pipeline's and to the CLI's second call")
+        log("8", f"the CLI's log: {served[-1]} (host clock, wav decode included) [{CARD}]")
+        log("8", f"the CLI's first call, {call_s:.3f} s; seconds from its start to each "
+                 f"log record: {first_marks} [{CARD}]")
+        log("8", f"the CLI again, warm, {warm_s:.3f} s: {warm_marks} [{CARD}]")
+        log("8", "the same work again outside the CLI, host clock: wav decode "
+                 f"{spent['decode']:.3f} s (the 48 kHz clip's resampling included), "
+                 f"{len(groups)} pipeline calls {spent['requests']:.3f} s, CSV writing "
+                 f"{spent['csv']:.3f} s [{CARD}]")
+
+        scores = cli_evaluate.main(["--output-dir", out_dir, "--gt-meta-root-dir",
+                                    exp["gt_root"], "--n-classes", str(d.n_classes)])
+        if not all(np.isfinite(v) for v in scores.values()):
+            raise AssertionError(f"non-finite scores {scores}")
+        self_scores = cli_evaluate.main([
+            "--output-dir", os.path.join(exp["gt_root"], "metadata_dev"),
+            "--gt-meta-root-dir", exp["gt_root"], "--n-classes", str(d.n_classes)])
+        # the same (azimuth, elevation) twice: arccos of a cosine rounded to 1 - 1 ulp
+        # reads up to ~1e-6 degrees
+        if not (self_scores["ER"] == 0 and abs(self_scores["F1"] - 1) < 1e-9
+                and 0 <= self_scores["LE"] < 1e-4 and abs(self_scores["LR"] - 1) < 1e-9):
+            raise AssertionError(f"ground truth against itself: {self_scores}, expected ER 0, "
+                                 "F1 1, LE 0, LR 1")
+        log("8", "cli.evaluate, random weights against the ground truth: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in scores.items()))
+        log("8", "cli.evaluate, the ground truth against itself: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in self_scores.items()))
+    return {"launches": launches, "served": served[-1], "call_s": call_s, "warm_s": warm_s,
+            **spent}
+
+
 def main() -> None:
     card = phase0()
     dev = torch.device("cuda", 0)
@@ -764,6 +1000,10 @@ def main() -> None:
     del pipe
     k3 = phase6(dev)
     k4 = phase7(dev)
+    phase8(dev)
+    torch.cuda.empty_cache()
+    log("8", f"bench_extract, 64 x 60 s FOA clips [{CARD}]")
+    bench_extract.main()
     # library_ms: one PyTorch call computing the same function, where there is one
     # (cuDNN bf16 for K4, timed by the probe); none exists for K1-K3
     kernels = [

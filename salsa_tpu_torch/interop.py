@@ -8,6 +8,11 @@ copy of the part of `salsa_tpu.interop.torch_export` (and `torch_ckpt`'s walk of
 the encoder) that the port's models need: the PannResNet22 encoder and the
 `gru` / `bigru` decoder with its heads. LSTM and transformer decoders are refused:
 the port has no module to load them into yet.
+
+`torch_state_dict_to_flax` is its inverse (the port's counterpart of
+`salsa_tpu.interop.torch_ckpt.torch_state_dict_to_flax`, without a flax template):
+with `train.checkpoint.save_checkpoint` it writes a port model as a checkpoint
+that `salsa_tpu` restores.
 """
 from __future__ import annotations
 
@@ -124,6 +129,98 @@ def flax_to_torch_state_dict(params: dict, batch_stats: dict) -> dict[str, np.nd
     _export_encoder(params, batch_stats, out)
     _export_decoder(params, out)
     return out
+
+
+def _set(tree: dict, path: tuple[str, ...], value: np.ndarray) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def _encoder_layers(sd: dict) -> tuple[int, ...]:
+    """Basic blocks per ResNet stage, read from the state_dict's names."""
+    layers = []
+    while any(k.startswith(f"encoder.resnet.layer{len(layers) + 1}.") for k in sd):
+        stage = len(layers) + 1
+        n = 0
+        while f"encoder.resnet.layer{stage}.{n}.conv1.weight" in sd:
+            n += 1
+        layers.append(n)
+    return tuple(layers)
+
+
+def torch_state_dict_to_flax(state_dict) -> tuple[dict, dict]:
+    """Reference-named state_dict (PannResNet22 + gru/bigru decoder and heads) ->
+    flax SeldNet (params, batch_stats) as nested dicts of float32 numpy arrays:
+    the inverse of `flax_to_torch_state_dict`. The tree is built from the names
+    alone, with no flax template; `num_batches_tracked` is dropped. Raises
+    NotImplementedError on an LSTM or transformer decoder and ValueError on a
+    name it cannot place."""
+    sd = {k: np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v)
+          for k, v in state_dict.items()}
+    params: dict = {}
+    stats: dict = {}
+    used = {k for k in sd if k.endswith(".num_batches_tracked")}
+
+    def take(key: str) -> np.ndarray:
+        if key not in sd:
+            raise ValueError(f"state_dict lacks {key}")
+        used.add(key)
+        return np.ascontiguousarray(sd[key], dtype=np.float32)
+
+    # the encoder: the walk of `_export_encoder`, backwards; whether a block has a
+    # shortcut projection is read from the names
+    layers = _encoder_layers(sd)
+    paths = [(("DoubleConvBlock_0", f"ConvBnRelu_{i}", kind), f"conv_block1.{part}{i + 1}")
+             for i in range(2) for kind, part in (("Conv_0", "conv"), ("BatchNorm_0", "bn"))]
+    b = 0
+    for stage, n_blocks in enumerate(layers):
+        for i in range(n_blocks):
+            base, flax_base = (f"resnet.layer{stage + 1}.{i}",
+                               ("ResNetTrunk_0", f"ResNetBasicBlock_{b}"))
+            parts = [("Conv_0", "conv1"), ("BatchNorm_0", "bn1"), ("Conv_1", "conv2"),
+                     ("BatchNorm_1", "bn2")]
+            off = 1 if stage > 0 else 0
+            if f"encoder.{base}.downsample.{off}.weight" in sd:
+                parts += [("Conv_2", f"downsample.{off}"), ("BatchNorm_2", f"downsample.{off + 1}")]
+            paths += [(flax_base + (kind,), f"{base}.{part}") for kind, part in parts]
+            b += 1
+    for path, name in paths:
+        key = f"encoder.{name}"
+        if path[-1].startswith("Conv"):
+            _set(params, ("encoder",) + path + ("kernel",),
+                 np.ascontiguousarray(np.transpose(take(f"{key}.weight"), (2, 3, 1, 0))))
+        else:
+            _set(params, ("encoder",) + path + ("scale",), take(f"{key}.weight"))
+            _set(params, ("encoder",) + path + ("bias",), take(f"{key}.bias"))
+            _set(stats, ("encoder",) + path + ("mean",), take(f"{key}.running_mean"))
+            _set(stats, ("encoder",) + path + ("var",), take(f"{key}.running_var"))
+
+    # the decoder: GRU layers and directions, then the heads
+    unported = sorted(k for k in sd if k.startswith(("decoder.lstm.", "decoder.decoder_layer.")))
+    if unported:
+        raise NotImplementedError(f"{unported[0]}: the port has no LSTM or transformer "
+                                  "decoder yet")
+    layer = 0
+    while f"decoder.gru.weight_ih_l{layer}" in sd:
+        for sfx, direction in (("", "fwd"), ("_reverse", "bwd")):
+            if sfx and f"decoder.gru.weight_ih_l{layer}{sfx}" not in sd:
+                continue
+            key = f"decoder.gru.{{}}_l{layer}{sfx}"
+            _set(params, ("decoder", "RNNStack_0", f"l{layer}_{direction}"), {
+                "wi": np.ascontiguousarray(take(key.format("weight_ih")).T),
+                "wh": np.ascontiguousarray(take(key.format("weight_hh")).T),
+                "bi": take(key.format("bias_ih")), "bh": take(key.format("bias_hh"))})
+        layer += 1
+    for ours, theirs in _HEAD_MAP.items():
+        if f"decoder.{theirs}.weight" in sd:
+            _set(params, ("decoder", ours), {
+                "kernel": np.ascontiguousarray(take(f"decoder.{theirs}.weight").T),
+                "bias": take(f"decoder.{theirs}.bias")})
+    left = sorted(set(sd) - used)
+    if left:
+        raise ValueError(f"cannot place {left[:4]} in a PannResNet22 + gru/bigru SeldNet tree")
+    return params, stats
 
 
 def load_flax_variables(model: nn.Module, params: dict, batch_stats: dict) -> nn.Module:

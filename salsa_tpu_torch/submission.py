@@ -1,16 +1,11 @@
-"""DCASE submission CSV writing (numpy copies of
-`salsa_tpu.train.submission.write_classwise_csv` and
-`salsa_tpu.metrics.dcase_io.xyz_to_polar_deg`; importing `salsa_tpu.train`
+"""DCASE submission CSV writing (a numpy copy of
+`salsa_tpu.train.submission.write_classwise_csv`; importing `salsa_tpu.train`
 pulls in jax, which the GPU host does not have)."""
 from __future__ import annotations
 
 import numpy as np
 
-
-def xyz_to_polar_deg(x, y, z):
-    azi = np.rad2deg(np.arctan2(y, x))
-    ele = np.rad2deg(np.arctan2(z, np.sqrt(np.asarray(x) ** 2 + np.asarray(y) ** 2)))
-    return azi, ele
+from salsa_tpu_torch.metrics.dcase_io import xyz_to_polar_deg
 
 
 def write_classwise_csv(

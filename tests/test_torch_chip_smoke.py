@@ -46,3 +46,37 @@ def test_sass_mix_sorts_opcodes():
                                "STG": 3, "IMAD": 5, "LEA": 1, "ISETP": 2, "BRA": 2, "EXIT": 1})
     assert mix == {"FFMA": 10, "FMUL": 4, "FADD": 2, "MUFU": 1, "LDG": 7, "STG": 3,
                    "integer": 8, "other": 3, "total": 38}
+
+
+SHORT_SCENES = tuple((n, 1.6, chip_smoke.FS) for n in ("foa_a", "foa_b", "foa_c", "foa_d")) + (
+    ("foa_short", 1.2, chip_smoke.FS), ("foa_48k", 1.0, 48000))
+
+
+def test_phase8_serves_an_experiment_from_disk_on_the_cpu(capsys):
+    """Phase 8 at short clips on the CPU: the CLI restores the valSeld 0.4
+    checkpoint, writes CSVs byte-identical to the in-memory pipeline's in 3 groups,
+    and evaluate scores the ground truth against itself as 0 / 1 / 0 / 1. On CPU
+    tensors the kernels' wrappers run their plain versions and count nothing."""
+    result = chip_smoke.phase8(torch.device("cpu"), scenes=SHORT_SCENES)
+    assert result["launches"] == {"salsa_spatial": 0, "noise_floor": 0}
+    assert result["served"].startswith("served 9 audio-s") and "realtime" in result["served"]
+    out = capsys.readouterr().out
+    assert "3 groups [4, 1, 1] from epoch010.msgpack" in out and "byte-identical" in out
+
+
+def test_phase8_fails_when_the_cli_serves_another_checkpoint(monkeypatch):
+    monkeypatch.setattr(chip_smoke.cli_predict.ckpt, "best_checkpoint",
+                        lambda d: chip_smoke.cli_predict.ckpt.latest_checkpoint(d))
+    with pytest.raises(AssertionError, match="restored"):
+        chip_smoke.phase8(torch.device("cpu"), scenes=SHORT_SCENES[4:])
+
+
+def test_foa_scene_ground_truth_follows_its_source(rng):
+    audio, rows = chip_smoke.foa_scene(rng, 20.7, 24000, 10)
+    assert audio.shape == (4, 496800) and audio.dtype == np.float32
+    assert np.abs(audio).max() < 1.0  # 16-bit wavs hold it unclipped
+    frames = [int(r.split(",")[0]) for r in rows]
+    assert frames[0] == 0 and max(frames) < 207 and len({r.split(",", 1)[1] for r in rows}) == 1
+    on = np.array([f in set(frames) for f in range(207)])
+    active = np.abs(audio[1:]).max(axis=0).reshape(-1, 2400)[:207].mean(axis=1)
+    assert active[on].mean() > 5 * active[~on].mean()  # the source sounds where rows say

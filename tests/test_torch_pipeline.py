@@ -1,6 +1,7 @@
 """The port's serving slice against salsa_tpu's: waves -> SALSA-FOA -> scaler ->
-CRNN -> label-rate (event_prob, doa), the CSV writer, batching, and a check that
-the port imports nothing of jax, flax, yaml, h5py or salsa_tpu."""
+CRNN -> label-rate (event_prob, doa) for reg_xyz and accdoa, the CSV writer,
+batching, and a check that the port imports nothing of jax, flax, yaml, h5py,
+msgpack or salsa_tpu."""
 import os
 import subprocess
 import sys
@@ -127,6 +128,25 @@ def test_pipeline_accdoa_output(slice_setup):
     np.testing.assert_allclose(ev, want, rtol=1e-6)
 
 
+def test_accdoa_matches_jax_pipeline(slice_setup):
+    """output_format="accdoa" (event_prob = the norm of each class's DOA vector)
+    against salsa_tpu's pipeline, at test_slice_matches_jax_pipeline's bound."""
+    waves, j_pipe, t_pipe = slice_setup
+    scaler = (t_pipe.mean.numpy(), t_pipe.std.numpy())
+    j_acc = JPipeline(j_pipe.extractor, j_build_model(encoder=ENC, decoder=DEC,
+                                                      n_classes=N_CLASSES,
+                                                      output_format="accdoa"),
+                      j_pipe.variables, scaler, INTERP, N_CLASSES, output_format="accdoa")
+    t_acc = SeldInferencePipeline(t_pipe.extractor, t_pipe.model, None, scaler, INTERP,
+                                  N_CLASSES, output_format="accdoa", device="cpu")
+    (ev_j, doa_j), (ev_t, doa_t) = j_acc(waves), t_acc(waves)
+    assert ev_t.shape == ev_j.shape == (2, 16, N_CLASSES) and ev_j.std() > 0.01
+    for got, want in ((ev_t, ev_j), (doa_t, doa_j)):
+        err = np.abs(got - want)
+        assert np.mean(err <= 2e-3) >= 0.999, np.sort(err.ravel())[-10:]
+        assert err.max() <= 2e-2, err.max()
+
+
 def test_pipeline_defaults_to_the_card():
     """With no `device` the pipeline serves on the first CUDA card: on a host
     without one it raises at its first move to CUDA instead of serving on the
@@ -148,7 +168,7 @@ HYGIENE = textwrap.dedent("""
     import importlib.abc
     import sys
 
-    BLOCKED = ("jax", "flax", "yaml", "h5py", "salsa_tpu")
+    BLOCKED = ("jax", "flax", "yaml", "h5py", "msgpack", "salsa_tpu")
 
     def blocked(name):
         top = name.split(".")[0]
@@ -200,6 +220,36 @@ HYGIENE = textwrap.dedent("""
     assert k3.shape == (1, 3, 3, 10), k3.shape
     k4 = probe_conv.conv3x3_64(torch.ones(1, 3, 5, 7), torch.ones(3, 3, 7, 64))
     assert k4.shape == (1, 3, 5, 64), k4.shape
+
+    # the serving and scoring CLIs on a two-clip experiment written from seeds
+    import os
+    import tempfile
+
+    import chip_smoke
+    import salsa_tpu_torch.cli._errors
+    import salsa_tpu_torch.metrics.seld_metrics
+    import salsa_tpu_torch.scripts.bench_extract as bench_extract
+    import salsa_tpu_torch.train.threshold
+    import salsa_tpu_torch.utils.experiments
+    from salsa_tpu_torch.cli.evaluate import evaluate_seld
+    from salsa_tpu_torch.cli.predict import predict
+    from salsa_tpu_torch.train import checkpoint
+
+    assert callable(bench_extract.main)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = checkpoint.save_checkpoint(tmp, "tiny", {"w": np.arange(3.0)},
+                                          {"m": np.ones(2, np.float32)}, 5, {"valSeld": 0.1})
+        params, stats, step = checkpoint.restore_variables(path)
+        assert step == 5 and params["w"].tolist() == [0.0, 1.0, 2.0], (params, step)
+        assert checkpoint.best_checkpoint(tmp) == path
+
+        exp = chip_smoke.write_experiment(tmp, scenes=(("one", 1.2, 24000), ("two", 1.0, 48000)))
+        out = predict(exp["config"], exp["wav_dir"], os.path.join(tmp, "preds"), exp["group"],
+                      device="cpu")
+        assert sorted(os.listdir(out)) == ["one.csv", "two.csv"]
+        scores = evaluate_seld(out, exp["gt_root"])
+        assert set(scores) == {"ER", "F1", "LE", "LR", "seld_error"}, scores
+
     leaked = sorted(m for m in sys.modules if blocked(m))
     assert not leaked, leaked
     print("HYGIENE_OK")
@@ -207,9 +257,10 @@ HYGIENE = textwrap.dedent("""
 
 
 def test_port_imports_nothing_of_jax_or_salsa_tpu():
-    """Simulates the GPU host, which has no jax/flax/yaml/h5py: a fresh process
-    refuses those imports (and salsa_tpu, but not salsa_tpu_torch) and still
-    builds and runs the serving path on CPU."""
+    """Simulates the GPU host, which has no jax/flax/yaml/h5py/msgpack: a fresh
+    process refuses those imports (and salsa_tpu, but not salsa_tpu_torch) and
+    still builds and runs the serving path on CPU, reads and writes a checkpoint,
+    and serves and scores an experiment from disk through the CLIs."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", HYGIENE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
