@@ -36,7 +36,18 @@ Phases, each printing what it found; any failure raises and exits non-zero:
      and write CSVs byte-identical to the in-memory pipeline's; `cli.evaluate`
      scores them against ground truth written from each clip's source and scores
      the ground truth against itself as ER 0, F1 1, LE 0, LR 1; then the
-     extraction bench `salsa_tpu_torch.scripts.bench_extract` (64 x 60 s).
+     extraction bench `salsa_tpu_torch.scripts.bench_extract` (64 x 60 s);
+  9. training from raw wavs at full width: an experiment written from seeds
+     (configs/seld.yml with training.from_wav, four 60 s train and two 60 s val
+     FOA wavs, two epochs of 6 steps at batch 32); K2's collect_states bit-equal
+     to its plain version at (4, 191, 4801) and for clips of 1-5 frames; a batch
+     of 4 chunks against the full-clip features sliced, at K1's bound; the first
+     step's loss on the card against the CPU's plain versions within 1e-4; then
+     `cli.train` with its launch counts (K1 and K2 in every step, K2 with
+     collect_states at setup), setup times, the step split, steps/s, peak memory,
+     K2 resumed (bit-equal) and K1 (K1's bound) against their plain versions at
+     the step's shapes, their times and K2 collect_states's against their bounds,
+     validation, and the trained `best` served through `cli.predict`.
 The second-to-last line is a JSON summary of the kernels, each with its time,
 its plain version's, its bound (the larger of its bytes over the memory rate and
 its operations over the peak rate of their type) and, where one PyTorch call
@@ -64,11 +75,14 @@ import torch
 from salsa_tpu_torch import configs
 from salsa_tpu_torch.cli import evaluate as cli_evaluate
 from salsa_tpu_torch.cli import predict as cli_predict
+from salsa_tpu_torch.cli import train as cli_train
+from salsa_tpu_torch.features import chunked
 from salsa_tpu_torch.dsp.stft import stft_planes
 from salsa_tpu_torch.features.registry import make_extractor
 from salsa_tpu_torch.features.salsa import (
     SalsaParams,
     band_planes,
+    extract_salsa,
     noise_floor_mask,
     noise_floor_mask_plain,
 )
@@ -85,6 +99,7 @@ from salsa_tpu_torch.kernels.build import (
     sass_opcode_counts,
 )
 from salsa_tpu_torch.interop import torch_state_dict_to_flax
+from salsa_tpu_torch.models.layers import Dropout
 from salsa_tpu_torch.models.seld import build_model, init_random_
 from salsa_tpu_torch.pipeline import SeldInferencePipeline
 from salsa_tpu_torch.scripts import bench_extract, probe_pallas_conv, probe_salsa_kernel
@@ -99,7 +114,7 @@ from salsa_tpu_torch.scripts.timing import cuda_ms, smi
 from salsa_tpu_torch.submission import write_classwise_csv
 from salsa_tpu_torch.train.checkpoint import save_checkpoint
 from salsa_tpu_torch.utils.audio_io import read_wav, write_wav
-from salsa_tpu_torch.utils.config import load_config
+from salsa_tpu_torch.utils.config import apply_overrides, load_config, save_config
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "golden", "reference_features.npz")
@@ -213,6 +228,15 @@ def k2_bound(shape) -> tuple[float, str]:
                     FP32_FLOPS)
 
 
+def k2_states_bound(shape) -> tuple[float, str]:
+    """K2 with collect_states: k2_bound's bytes plus the per-frame state, a float
+    floor and an int32 countdown written for every cell."""
+    B, n_bins, n_padded = shape
+    rows, cells = B * n_bins, B * n_bins * (n_padded - 2 * FOA.n_hopframes)
+    return roofline(2 * rows * n_padded * 4 + cells + rows * 8 + cells * 8,
+                    cells * K2_FLOPS_PER_CELL, FP32_FLOPS)
+
+
 def k2_chain_floor_ms(n_frames: int, clk_per_step: float, sm_hz: float = 1.98e9) -> float:
     """The recurrence's own floor: n_frames dependent steps of clk_per_step each."""
     return n_frames * clk_per_step / sm_hz * 1e3
@@ -311,11 +335,13 @@ def phase1() -> dict[str, dict[str, int]]:
         raise AssertionError(f"K1 salsa_spatial_kernel: ptxas (registers, spill stores, spill "
                              f"loads) {k1}, expected one kernel without spills")
     log("1", f"K1 salsa_spatial_kernel: {k1[0][1][0]} registers, no spills")
-    k2 = [(name, u) for name, u in usage.items() if "noise_floor_kernel" in name]
-    if len(k2) != 1 or k2[0][1][1:] != (0, 0):
+    # K2: the mask-only kernel and its collect_states instantiation
+    k2 = sorted((name, u) for name, u in usage.items() if "noise_floor_kernel" in name)
+    if len(k2) != 2 or any(u[1:] != (0, 0) for _, u in k2):
         raise AssertionError(f"K2 noise_floor_kernel: ptxas (registers, spill stores, spill "
-                             f"loads) {k2}, expected one kernel without spills")
-    log("1", f"K2 noise_floor_kernel: {k2[0][1][0]} registers, no spills, tile of "
+                             f"loads) {k2}, expected two instantiations without spills")
+    log("1", f"K2 noise_floor_kernel: {k2[0][1][0]} registers (mask only), {k2[1][1][0]} "
+             f"(collect_states), no spills, tile of "
              f"{load_library().noise_floor_tile_frames()} frames")
 
     ops = sass_opcode_counts(library_sass(path))
@@ -566,6 +592,19 @@ def phase5(dev, pipe, request, sass_mixes) -> dict:
         model_ms = cuda_ms(lambda: pipe.model(feats))
     log("5", f"  of which SALSA extraction {ext_ms:.2f} ms, CRNN {model_ms:.2f} ms "
              f"(CUDA events, median of 7) [{CARD}]")
+    # the decoder's GRU a layer at a time (its training path with rnn dropout)
+    # against nn.GRU's 2-layer call (its serving path) on the same weights
+    dec = pipe.model.decoder
+    with torch.inference_mode():
+        h = pipe.model.encoder(feats).mean(dim=3).transpose(1, 2)
+        gru_err = float((dec._per_layer(h) - dec.gru(h)[0]).abs().max())
+        gru_ms = {"per layer": cuda_ms(lambda: dec._per_layer(h)),
+                  "2-layer call": cuda_ms(lambda: dec.gru(h))}
+    if gru_err > 1e-4:
+        raise AssertionError(f"decoder GRU per layer vs nn.GRU's 2-layer call: {gru_err:.3e}")
+    log("5", f"  decoder GRU on {tuple(h.shape)}, eval: per layer {gru_ms['per layer']:.3f} ms, "
+             f"nn.GRU's 2-layer call {gru_ms['2-layer call']:.3f} ms (CUDA events, median of 7), "
+             f"max abs difference {gru_err:.2e} [{CARD}]")
 
     xr, xi = stft_band(waves, FOA)
     n_t = xr.shape[-1] - 6
@@ -610,14 +649,21 @@ def phase5(dev, pipe, request, sass_mixes) -> dict:
     log("5", f"K2 plain {tuple(xr0.shape)}: {times['k2_plain']:.3f} ms [{CARD}]")
     del big
 
-    # where a request's device time goes: kernel and copy activities only (op-level
-    # rows repeat the time of the kernels they launch)
+    # where a request's device time goes
+    profile_table(lambda: pipe(request), "5", "one request")
+    return times
+
+
+def profile_table(fn, phase: str, what: str, top: int = 12) -> None:
+    """Profile one fn() on the card and print its device busy time against the host
+    wall and the `top` kernels by device time. Kernel and copy activities only:
+    op-level rows repeat the time of the kernels they launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe(request)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -627,14 +673,13 @@ def phase5(dev, pipe, request, sass_mixes) -> dict:
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
               and dev_us(e) > 0 and not e.key.startswith("Activity Buffer")]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
-    if events:
-        log("5", f"profile of one request: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms "
-                 f"wall ({1 - busy_ms / wall_ms:.1%} idle, profiler on) [{CARD}]")
-        for e in sorted(events, key=dev_us, reverse=True)[:12]:
-            log("5", f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
-    else:
-        log("5", "profile of one request: no device time recorded (not measured)")
-    return times
+    if not events:
+        log(phase, f"profile of {what}: no device time recorded (not measured)")
+        return
+    log(phase, f"profile of {what}: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
+               f"({1 - busy_ms / wall_ms:.1%} idle, profiler on) [{CARD}]")
+    for e in sorted(events, key=dev_us, reverse=True)[:top]:
+        log(phase, f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
 def phase6(dev) -> dict:
@@ -986,6 +1031,290 @@ def phase8(dev, scenes=SCENES, batch_size: int = 4) -> dict:
             **spent}
 
 
+# phase 9's experiment: four train and two val clips, configs/seld.yml trained
+# from raw wavs for two epochs; train_fraction 0.5 makes an epoch 6 steps of 32
+# chunks (4 clips x 105 chunks of 8 s at a 0.5 s hop: 420 // 32 = 13, x 0.5)
+TRAIN_CLIPS = ("tr_a", "tr_b", "tr_c", "tr_d")
+VAL_CLIPS = ("va_a", "va_b")
+TRAIN_OVERRIDES = ("training.from_wav=true", "feature_root_dir=null", "training.max_epochs=2",
+                   "data.train_fraction=0.5")
+TIMED_STEPS = 10  # steps timed after training; the median is of steps 3 onward
+
+
+def write_train_experiment(root: str, seconds: float = 60.0, seed: int = SEED,
+                           overrides=()) -> dict:
+    """A from-wav experiment made from seeds: configs/seld.yml with TRAIN_OVERRIDES
+    (and `overrides`), its ground-truth and split directories under `root`,
+    16-bit FOA wavs of one directional source each with DCASE metadata."""
+    cfg = load_config(SELD_YML)
+    task3, meta = os.path.join(root, "task3"), os.path.join(root, "meta")
+    apply_overrides(cfg, [*TRAIN_OVERRIDES, f"gt_meta_root_dir={task3}",
+                          f"split_meta_dir={meta}", *overrides])
+    wav_dir, val_dir = os.path.join(task3, "foa_dev"), os.path.join(root, "val_wavs")
+    for d in (wav_dir, val_dir, os.path.join(task3, "metadata_dev"), meta):
+        os.makedirs(d)
+    rng = np.random.default_rng(seed + 9)
+    for split, names in (("train", TRAIN_CLIPS), ("val", VAL_CLIPS)):
+        for name in names:
+            audio, rows = foa_scene(rng, seconds, FS, cfg.data.label_rate)
+            write_wav(os.path.join(wav_dir, f"{name}.wav"), audio, FS, bits=16)
+            with open(os.path.join(task3, "metadata_dev", f"{name}.csv"), "w") as f:
+                f.write("\n".join(rows) + "\n")
+            if split == "val":
+                shutil.copyfile(os.path.join(wav_dir, f"{name}.wav"),
+                                os.path.join(val_dir, f"{name}.wav"))
+        with open(os.path.join(meta, f"{split}.csv"), "w") as f:
+            f.write("filename\n" + "\n".join(names) + "\n")
+    config = os.path.join(root, "seld.yml")
+    save_config(cfg, config)
+    return {"config": config, "group": os.path.join(root, "outputs"), "cfg": cfg,
+            "val_wav_dir": val_dir, "wav_dir": wav_dir}
+
+
+def check_k2_states(xr0, xi0, n_frames: int, what: str, state0=None):
+    """K2 with collect_states against its plain version on CPU copies: mask, final
+    state and every per-frame state bit-equal."""
+    got = noise_floor_mask(xr0, xi0, n_hop=3, n_frames=n_frames, state0=state0,
+                           collect_states=True)
+    cpu_state = None if state0 is None else tuple(s.cpu() for s in state0)
+    want = noise_floor_mask_plain(xr0.cpu(), xi0.cpu(), n_hop=3, n_frames=n_frames,
+                                  state0=cpu_state, collect_states=True)
+    names = ("mask", "floor", "countdown", "floor states", "countdown states")
+    flat = lambda r: (r[0], *r[1], *r[2])  # noqa: E731
+    for name, g, w in zip(names, flat(got), flat(want)):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError(f"K2 collect_states {what} {tuple(xr0.shape)}: {name} not "
+                                 f"bit-equal to the plain tracker ({int((g.cpu() != w).sum())} "
+                                 "values differ)")
+    return got
+
+
+def check_chunks(tr, dev) -> float:
+    """4 chunks extracted on the device (first, middle and last of clip 0, first of
+    clip 1) against the device's full-clip features sliced: spectrograms within
+    5e-3, spatial channels at K1's bound. Returns the spatial max abs error."""
+    clip0 = np.flatnonzero(tr.train_data.clip_of_chunk == 0)
+    ids = np.array([clip0[0], clip0[len(clip0) // 2], clip0[-1],
+                    np.flatnonzero(tr.train_data.clip_of_chunk == 1)[0]])
+    i = torch.as_tensor(ids, device=dev)
+    got = tr.chunk_fn(tr._waves, tr._clip[i], tr._f0[i], tr._n_full[i], tr._floor_ck[i],
+                      tr._cd_ck[i], tr.wav_scale)
+    full = extract_salsa(torch.from_numpy(np.stack(tr.train_data.clip_wavs[:2])).to(dev),
+                         tr.feature_params)
+    L = tr.chunk_len
+    want = torch.stack([full[int(tr._clip[c]), :, int(tr._f0[c]):int(tr._f0[c]) + L]
+                        for c in ids])
+    np.testing.assert_allclose(got[:, :4].cpu().numpy(), want[:, :4].cpu().numpy(), atol=5e-3,
+                               rtol=5e-3, err_msg="chunk spectrograms")
+    return compare_spatial(got[:, 4:], want[:, 4:], f"4 chunks {tuple(got.shape)} vs the "
+                                                    "full-clip slices", phase="9")
+
+
+def timed_steps(tr, dev, n_steps: int) -> dict:
+    """n_steps train steps, each split into extraction, forward+backward and
+    optimizer between CUDA events (host clock on the CPU); medians of steps 3 on."""
+    order = tr._epoch_order(tr.max_epochs)
+    parts = {"extract": [], "fwd_bwd": [], "optimizer": [], "step": []}
+    for s in range(n_steps):
+        ids = order[(s * tr.batch_size) % len(order):][:tr.batch_size]
+        if dev.type == "cuda":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            batch = tr.batch(ids)
+            ev[1].record()
+            tr.forward_backward(*batch)
+            ev[2].record()
+            tr.optimizer.step()
+            ev[3].record()
+            ev[3].synchronize()
+            t = [ev[0].elapsed_time(ev[k]) for k in (1, 2, 3)]
+        else:
+            t0 = time.perf_counter()
+            batch = tr.batch(ids)
+            t1 = time.perf_counter()
+            tr.forward_backward(*batch)
+            t2 = time.perf_counter()
+            tr.optimizer.step()
+            t = [(x - t0) * 1e3 for x in (t1, t2, time.perf_counter())]
+        for key, v in zip(parts, (t[0], t[1] - t[0], t[2] - t[1], t[2])):
+            parts[key].append(v)
+    return {k: statistics.median(v[2:]) for k, v in parts.items()}
+
+
+def step_planes(tr, dev):
+    """A train step's inputs to K1 and K2: the band planes (B, 4, bins, L + 6) of its
+    chunks and their tracker checkpoints."""
+    ids = torch.as_tensor(tr._epoch_order(0)[:tr.batch_size], device=dev)
+    p = tr.feature_params
+    _, (re, im) = chunked.chunk_spectra(
+        tr._waves, tr._clip[ids], tr._f0[ids], tr._n_full[ids], tr.chunk_len, p.n_hopframes,
+        p.n_fft, p.hop_length, p.win_length or p.n_fft, tr.wav_scale)
+    xr = re[..., p.lower_bin:p.upper_bin].transpose(-1, -2).contiguous()
+    xi = im[..., p.lower_bin:p.upper_bin].transpose(-1, -2).contiguous()
+    return xr, xi, (tr._floor_ck[ids], tr._cd_ck[ids])
+
+
+def phase9(dev, seconds: float = 60.0, overrides=()) -> dict:
+    """Training from raw wavs: checks on the device, then `cli.train` as a user
+    runs it, its launches counted, then its times, validation and serving."""
+    cuda = dev.type == "cuda"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = write_train_experiment(tmp, seconds, overrides=overrides)
+        cfg = exp["cfg"]
+
+        # K2 collect_states on the card, bit-equal to its plain version
+        waves = torch.from_numpy(np.stack([read_wav(os.path.join(exp["wav_dir"], f"{n}.wav"))[0]
+                                           for n in TRAIN_CLIPS])).to(dev)
+        xr, xi = stft_band(waves, FOA)
+        xr0, xi0 = xr[:, 0].contiguous(), xi[:, 0].contiguous()
+        n_t = xr0.shape[-1] - 6
+        del waves, xr, xi
+        if cuda:
+            check_k2_states(xr0, xi0, n_t, "clip start")
+            rng = np.random.default_rng(SEED + 11)
+            for t in (1, 2, 3, 4, 5):
+                check_k2_states(*normal_planes(rng, (3, 11, t + 6), dev), t, f"33 rows T={t}")
+            st = (torch.from_numpy(rng.uniform(0.5, 1.5, (3, 11)).astype(np.float32)).to(dev),
+                  torch.from_numpy(rng.integers(-3, 4, (3, 11), dtype=np.int32)).to(dev))
+            check_k2_states(*normal_planes(rng, (3, 11, 3 + 6), dev), 3, "resumed", state0=st)
+            log("9", f"K2 collect_states {tuple(xr0.shape)} and (3, 11, T + 6) for T in 1-5, "
+                     "from the clip start and resumed: mask, final state and every per-frame "
+                     "state bit-equal to the plain tracker")
+
+        # a trainer built as cli.train builds it, for the checks
+        tr = cli_train.build_trainer(exp["config"], exp["group"], exp_suffix="_check",
+                                     device=dev)
+        out["chunk_err"] = check_chunks(tr, dev)
+        # the first step's loss with every dropout off: the card against the CPU's
+        # plain versions on copies of the same resident rows and weights
+        for m in tr.model.modules():
+            if isinstance(m, Dropout):
+                m.p, m.generator = 0.0, None
+        model_cpu = copy.deepcopy(tr.model).cpu()
+        ids = tr._epoch_order(0)[:tr.batch_size]
+        i = torch.as_tensor(ids, device=dev)
+        with torch.no_grad():
+            x, sed, doa = tr.batch(ids)
+            loss_dev = float(tr.loss(tr.model.train()(x), sed, doa)[0])
+            t0 = time.perf_counter()
+            rows = [t[i].cpu() for t in (tr._clip, tr._f0, tr._n_full, tr._floor_ck, tr._cd_ck)]
+            x_cpu = tr.normalize(tr.chunk_fn(tr._waves.cpu(), *rows, tr.wav_scale),
+                                 tr._n_valid[i].cpu())
+            loss_cpu = float(tr.loss(model_cpu.train()(x_cpu), sed.cpu(), doa.cpu())[0])
+            cpu_s = time.perf_counter() - t0
+        rel = abs(loss_dev - loss_cpu) / abs(loss_cpu)
+        log("9", f"first step's loss (batch {tr.batch_size}, dropout off): {dev.type} "
+                 f"{loss_dev:.7f}, CPU plain versions {loss_cpu:.7f} ({cpu_s:.1f} s), "
+                 f"relative difference {rel:.2e} (bound 1e-4)")
+        if not rel < 1e-4:
+            raise AssertionError(f"first step's loss: {loss_dev} on {dev} vs {loss_cpu} on the CPU")
+        del tr, model_cpu, x, x_cpu
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+        # the main path: cli.train, as a user runs it
+        salsa_spatial.launches = noise_floor_mask.launches = 0
+        noise_floor_mask.collect_launches = 0
+        t0 = time.perf_counter()
+        tr = cli_train.train(exp["config"], exp["group"], device=dev)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = {"salsa_spatial": salsa_spatial.launches,
+                    "noise_floor": noise_floor_mask.launches,
+                    "noise_floor_collect": noise_floor_mask.collect_launches}
+        n_steps = tr.steps_per_epoch * tr.max_epochs
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else float("nan")
+        log("9", f"cli.train: {len(TRAIN_CLIPS)} x {seconds:g} s train clips ({len(tr.train_data)} "
+                 f"chunks of {tr.chunk_len} frames), {len(VAL_CLIPS)} val clips, {tr.max_epochs} "
+                 f"epochs of {tr.steps_per_epoch} steps at batch {tr.batch_size}: {wall:.2f} s "
+                 f"host clock; launches {launches}; peak memory {peak:.2f} GiB [{CARD}]")
+        if cuda and not (launches["noise_floor_collect"] >= 1
+                         and launches["salsa_spatial"] >= n_steps
+                         and launches["noise_floor"] >= n_steps + launches["noise_floor_collect"]):
+            raise AssertionError(f"cli.train launched {launches}: expected K1 and K2 in each of "
+                                 f"its {n_steps} steps and K2 with collect_states at setup")
+        log("9", "setup, host clock: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in tr.setup_seconds.items()) + f" [{CARD}]")
+        exp_dir = os.path.join(exp["group"], cfg.mode, cfg.data.audio_format, cfg.feature_type,
+                               "seld")
+        ckpts = sorted(os.listdir(os.path.join(exp_dir, "models", "checkpoint")))
+        want = [f"epoch{e:03d}.{x}" for e in range(tr.max_epochs) for x in ("json", "msgpack")]
+        if ckpts != want:
+            raise AssertionError(f"{exp_dir}/models/checkpoint: {ckpts}, expected {want}")
+
+        times = timed_steps(tr, dev, TIMED_STEPS)
+        chunk_s = tr.chunk_len * cfg.data.hop_len / cfg.data.fs
+        log("9", f"train step, median of steps 3-{TIMED_STEPS}: {times['step']:.2f} ms = "
+                 f"extraction {times['extract']:.2f} + forward and backward "
+                 f"{times['fwd_bwd']:.2f} + optimizer {times['optimizer']:.2f} ms; "
+                 f"{1e3 / times['step']:.2f} steps/s, {tr.batch_size} chunks x {chunk_s:g} s = "
+                 f"{tr.batch_size * chunk_s * 1e3 / times['step']:.1f}x realtime [{CARD}]")
+        out.update(launches=launches, step=times, peak_gib=peak, wall_s=wall,
+                   setup=dict(tr.setup_seconds))
+        if cuda:
+            ids = tr._epoch_order(tr.max_epochs + 1)[:tr.batch_size]
+            profile_table(lambda: tr.train_step(ids), "9", "one train step", top=16)
+
+        if cuda:
+            # K2 resumed and K1 at the step's shapes against their plain versions on
+            # CPU copies, then timed on the same inputs
+            xr, xi, state = step_planes(tr, dev)
+            xs0, xs1 = xr[:, 0].contiguous(), xi[:, 0].contiguous()
+            mask = check_k2(xs0, xs1, tr.chunk_len, "resumed at the step's chunk starts",
+                            state0=state)[0].to(dev)
+            kw = spatial_kw(FOA)
+            out["k1_step_err"] = compare_spatial(
+                salsa_spatial(xr, xi, mask, **kw),
+                salsa_spatial_plain(xr.cpu(), xi.cpu(), mask.cpu(), **kw),
+                f"K1 at the step's shape {tuple(xr.shape)}", phase="9")
+            log("9", f"K2 resumed {tuple(xs0.shape)} from the step's tracker checkpoints: mask "
+                     "and final state bit-equal to the plain tracker")
+            out["k1_step"] = cuda_ms(lambda: salsa_spatial(xr, xi, mask, **kw), calls=CALLS)
+            out["k2_step"] = cuda_ms(lambda: noise_floor_mask(
+                xs0, xs1, n_hop=3, n_frames=tr.chunk_len, state0=state), calls=CALLS)
+            out["k1_step_bound"], out["k2_step_bound"] = k1_bound(xr.shape), k2_bound(xs0.shape)
+            out["k2_collect"] = cuda_ms(lambda: noise_floor_mask(
+                xr0, xi0, n_hop=3, n_frames=n_t, collect_states=True), calls=CALLS)
+            out["k2_collect_bound"] = k2_states_bound(xr0.shape)
+            out["k2_mask_only"] = cuda_ms(lambda: noise_floor_mask(
+                xr0, xi0, n_hop=3, n_frames=n_t), calls=CALLS)
+            for what, key, shape in (("K1", "k1_step", xr.shape), ("K2 resumed", "k2_step",
+                                                                     xs0.shape),
+                                     ("K2 collect_states", "k2_collect", xr0.shape)):
+                b_ms, b_by = out[f"{key}_bound"]
+                log("9", f"{what} {tuple(shape)}, {CALLS} calls back to back: {out[key]:.4f} ms, "
+                         f"bound {b_ms:.4f} ms ({b_by}), {b_ms / out[key]:.1%} of it [{CARD}]")
+            log("9", f"K2 mask only {tuple(xr0.shape)} in the same call: "
+                     f"{out['k2_mask_only']:.4f} ms [{CARD}]")
+            del xr, xi, mask, xs0, xs1
+
+        t0 = time.perf_counter()
+        scores = tr.validate()
+        out["val_s"] = time.perf_counter() - t0
+        if not all(np.isfinite(v) for v in scores.values()):
+            raise AssertionError(f"validation scores {scores}")
+        log("9", f"validate() on {len(VAL_CLIPS)} x {seconds:g} s: {out['val_s']:.3f} s host "
+                 "clock (val features extracted once at setup); " + ", ".join(
+                     f"{k} {v:.4f}" for k, v in scores.items()) + f" [{CARD}]")
+        out["scores"] = scores
+        del tr
+
+        preds = os.path.join(tmp, "preds")
+        cli_predict.predict(exp["config"], exp["val_wav_dir"], preds, exp["group"], device=dev)
+        csvs = sorted(os.listdir(preds))
+        with open(os.path.join(exp_dir, "logs", "log.txt")) as f:
+            restored = re.findall(r"restored (\S+)", f.read())
+        best = os.path.join(exp_dir, "models", "best", "best.msgpack")
+        if csvs != sorted(f"{n}.csv" for n in VAL_CLIPS) or restored[-1:] != [best]:
+            raise AssertionError(f"cli.predict of the trained experiment: {csvs}, {restored}")
+        log("9", f"cli.predict served the trained best.msgpack: {len(csvs)} CSVs, "
+                 f"{sum(open(os.path.join(preds, c)).read().count(chr(10)) for c in csvs)} rows")
+    return out
+
+
 def main() -> None:
     card = phase0()
     dev = torch.device("cuda", 0)
@@ -1004,21 +1333,32 @@ def main() -> None:
     torch.cuda.empty_cache()
     log("8", f"bench_extract, 64 x 60 s FOA clips [{CARD}]")
     bench_extract.main()
+    torch.cuda.empty_cache()
+    train = phase9(dev)
     # library_ms: one PyTorch call computing the same function, where there is one
-    # (cuDNN bf16 for K4, timed by the probe); none exists for K1-K3
+    # (cuDNN bf16 for K4, timed by the probe); none exists for K1-K3. `launches` is
+    # phase 4's serving run; K1's and K2's train_* keys are phase 9's cli.train
     kernels = [
         {"name": "salsa_spatial", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/salsa_spatial.cu",
          "replaces": "salsa_tpu/features/salsa_pallas.py:138",
          "launches": launches["salsa_spatial"], "max_abs_err": errs["foa"],
          "ms": times["k1"], "plain_ms": times["k1_plain"], "bound_ms": times["k1_bound"][0],
-         "bound_by": times["k1_bound"][1], "library_ms": None},
+         "bound_by": times["k1_bound"][1], "library_ms": None,
+         "train_launches": train["launches"]["salsa_spatial"], "train_step_ms": train["k1_step"],
+         "train_step_bound_ms": train["k1_step_bound"][0],
+         "train_step_max_abs_err": train["k1_step_err"]},
         {"name": "noise_floor", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/noise_floor.cu",
          "replaces": "salsa_tpu/features/salsa.py:82",
          "launches": launches["noise_floor"], "max_abs_err": errs["k2"],
          "ms": times["k2"], "plain_ms": times["k2_plain"], "bound_ms": times["k2_bound"][0],
-         "bound_by": times["k2_bound"][1], "library_ms": None},
+         "bound_by": times["k2_bound"][1], "library_ms": None,
+         "train_launches": train["launches"]["noise_floor"],
+         "train_collect_launches": train["launches"]["noise_floor_collect"],
+         "train_step_ms": train["k2_step"], "train_step_bound_ms": train["k2_step_bound"][0],
+         "collect_states_ms": train["k2_collect"],
+         "collect_states_bound_ms": train["k2_collect_bound"][0]},
         {"name": "salsa_spatial_probe", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/salsa_spatial_probe.cu",
          "replaces": "scripts/probe_salsa_kernel.py:67",

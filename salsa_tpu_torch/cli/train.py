@@ -1,0 +1,170 @@
+"""Training CLI, raw-wav fused mode (counterpart of the `training.from_wav` branch of
+`salsa_tpu.cli.train`), on the first CUDA card:
+
+    python -m salsa_tpu_torch.cli.train --exp-config configs/seld.yml \
+        --exp-group-dir ./outputs [--exp-suffix _run1] \
+        --set training.from_wav=true --set feature_root_dir=null
+
+It reads the train split's wavs, fits the feature scaler on the card (K1 and K2),
+saves it as `models/feature_scaler.npz`, extracts the val split, and trains with
+the chunks extracted inside every step (`train.trainer.SeldTrainer`), writing
+`epochNNN` and `best` checkpoints in flax's msgpack format. The experiment it
+leaves is served by `salsa_tpu_torch.cli.predict` and by `salsa_tpu.cli.predict`.
+
+A config without `training.from_wav: true` is refused (the HDF5 feature store
+needs h5py), and so is `--resume` (resuming needs the optimizer state read back,
+ROADMAP queue 1, item 10).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from salsa_tpu_torch.cli._errors import cli_entry
+from salsa_tpu_torch.data.database import SeldDatabase
+from salsa_tpu_torch.data.meta import split_filenames
+from salsa_tpu_torch.data.wav_database import (
+    MemoryFeatureStore,
+    extract_split_to_store,
+    fit_scaler_from_waves,
+    load_wav_split,
+)
+from salsa_tpu_torch.features.chunked import required_pad
+from salsa_tpu_torch.features.registry import make_extractor
+from salsa_tpu_torch.models.seld import build_model
+from salsa_tpu_torch.train.trainer import SeldTrainer, refuse_unported, resolve_device
+from salsa_tpu_torch.utils.config import apply_overrides
+from salsa_tpu_torch.utils.experiments import logger, manage_experiments
+
+
+def build_database_from_cfg(cfg, store) -> SeldDatabase:
+    return SeldDatabase(
+        feature_root_dir=cfg.get("feature_root_dir"),
+        store=store,
+        gt_meta_root_dir=cfg.gt_meta_root_dir,
+        audio_format=cfg.data.audio_format,
+        n_classes=cfg.data.n_classes,
+        fs=cfg.data.fs,
+        hop_len=cfg.data.hop_len,
+        label_rate=cfg.data.label_rate,
+        train_chunk_len_s=cfg.data.train_chunk_len_s,
+        train_chunk_hop_len_s=cfg.data.train_chunk_hop_len_s,
+        test_chunk_len_s=cfg.data.test_chunk_len_s,
+        test_chunk_hop_len_s=cfg.data.test_chunk_hop_len_s,
+        scaler_channels=4 if cfg.feature_type.startswith("salsa") else None,
+        max_file_len_s=cfg.data.get("max_file_len_s", 60.0),
+    )
+
+
+def build_trainer(exp_config: str, exp_group_dir: str = "./outputs", exp_suffix: str = "",
+                  seed: int | None = None, overrides: list[str] | None = None,
+                  device: torch.device | str = "cuda") -> SeldTrainer:
+    """Everything `train` does before the first step, on `device` (the first CUDA
+    card unless the caller asks for the CPU): returns the trainer, whose
+    `setup_seconds` holds the host-clock seconds of reading the wavs, the scaler
+    fit, the tracker checkpoints and the val extraction."""
+    device = resolve_device(device)
+    cfg = manage_experiments(exp_config, exp_group_dir, exp_suffix, is_train=True)
+    if overrides:
+        apply_overrides(cfg, overrides)
+    if not cfg.get("training", {}).get("from_wav", False):
+        raise ValueError(
+            "the port trains from raw wavs only: set training.from_wav: true (the "
+            "HDF5 feature store of salsa_tpu's other training modes needs h5py, "
+            "which this package does not use)")
+    refuse_unported(cfg)
+    seed = seed if seed is not None else cfg.get("seed", 2021)
+
+    mode = cfg.get("mode", "crossval")
+    train_split = "train" if mode == "crossval" else "dev"
+    val_split = "val" if mode == "crossval" else None
+    if mode == "eval" and "best_epoch" in cfg.training:
+        cfg.training.max_epochs = cfg.training.best_epoch
+    split_meta_dir = cfg.get("split_meta_dir")
+    d = cfg.data
+    audio_dir = cfg.get("audio_root_dir") or os.path.join(
+        cfg.gt_meta_root_dir, f"{d.audio_format}_dev")
+    extractor = make_extractor(
+        cfg.feature_type, d.audio_format, fs=d.fs, n_fft=d.n_fft, hop_length=d.hop_len,
+        win_length=d.get("win_len", d.n_fft), fmin_doa=d.get("fmin_doa", 50),
+        fmax_doa=d.get("fmax_doa", None))
+    # built before any data is read: an unported model config refuses at once
+    model = build_model(encoder=cfg.model.encoder.to_dict(), decoder=cfg.model.decoder.to_dict(),
+                        n_classes=d.n_classes, output_format=d.get("output_format", "reg_xyz"))
+
+    # the chunking geometry: no features are read through this database
+    db = build_database_from_cfg(cfg, MemoryFeatureStore({}, None))
+    db.n_fft = d.n_fft
+    seconds = {}
+    t0 = time.perf_counter()
+    train_data = load_wav_split(
+        db, train_split, audio_dir, split_meta_dir=split_meta_dir,
+        wav_dtype=cfg.training.get("wav_dtype", "float32"), n_channels=extractor.n_channels,
+        n_features=extractor.n_features, pad=required_pad(d.n_fft))
+    seconds["read"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scaler = fit_scaler_from_waves(extractor, train_data.clip_wavs, extractor.n_spec_channels,
+                                   device=device)
+    seconds["scaler_fit"] = time.perf_counter() - t0
+    # persisted for serving: a from-wav experiment has no feature store to carry it
+    scaler_path = os.path.join(os.path.dirname(cfg.dir.model.best), "feature_scaler.npz")
+    os.makedirs(os.path.dirname(scaler_path), exist_ok=True)
+    np.savez(scaler_path, mean=scaler[0], std=scaler[1])
+    logger.info("from_wav: %d train clips resident (%s, %.2f GB), scaler fit on %s -> %s",
+                len(train_data.clip_wavs), train_data.waves.dtype,
+                train_data.waves.nbytes / 1e9, device, scaler_path)
+    val_data = None
+    if val_split:
+        t0 = time.perf_counter()
+        val_store = extract_split_to_store(extractor, split_filenames(val_split, split_meta_dir),
+                                           audio_dir, d.fs, scaler, device=device)
+        val_data = build_database_from_cfg(cfg, val_store).load_split(
+            val_split, split_meta_dir=split_meta_dir, stage="inference")
+        seconds["val_extract"] = time.perf_counter() - t0
+    logger.info("train chunks: %d, val chunks: %s", len(train_data),
+                len(val_data) if val_data is not None else "-")
+
+    trainer = SeldTrainer(
+        model=model, cfg=cfg, train_data=train_data, val_data=val_data,
+        gt_meta_dir=os.path.join(cfg.gt_meta_root_dir, "metadata_dev"),
+        submission_dir=cfg.dir.output_dir.submission, seed=seed, scaler=scaler,
+        device=device)
+    trainer.setup_seconds.update(seconds)
+    return trainer
+
+
+def train(exp_config: str, exp_group_dir: str = "./outputs", exp_suffix: str = "",
+          seed: int | None = None, overrides: list[str] | None = None,
+          device: torch.device | str = "cuda") -> SeldTrainer:
+    """Train an experiment from raw wavs on `device` (the first CUDA card unless
+    the caller asks for the CPU); returns the trainer after `fit`."""
+    trainer = build_trainer(exp_config, exp_group_dir, exp_suffix, seed, overrides, device)
+    trainer.fit()
+    return trainer
+
+
+@cli_entry
+def main(argv: list[str] | None = None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--exp-config", required=True)
+    p.add_argument("--exp-group-dir", default="./outputs")
+    p.add_argument("--exp-suffix", default="")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the latest checkpoint (not ported yet)")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--set", dest="overrides", action="append", default=[],
+                   metavar="KEY=VALUE", help="dotted config overrides, repeatable")
+    a = p.parse_args(argv)
+    if a.resume:
+        raise NotImplementedError(
+            "--resume is not ported yet: restoring the optimizer state from a checkpoint "
+            "is ROADMAP queue 1, item 10")
+    return train(a.exp_config, a.exp_group_dir, a.exp_suffix, a.seed, a.overrides)
+
+
+if __name__ == "__main__":
+    main()

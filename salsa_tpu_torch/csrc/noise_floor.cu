@@ -36,8 +36,13 @@
 // - kTile and the producer-warp count were picked on an H100 with
 //   scripts/bench_noise_floor.py; the producers' copies and magnitudes, not the
 //   chain, set the pace (PERF.md).
-// The consumer holds (floor, countdown) in registers before each step, the
-// per-frame pre-state that a collect_states output would store.
+// collect_states (a second instantiation, `noise_floor_states_launch`): the
+// consumer holds (floor, countdown) in registers before each step, and stores
+// that pre-state to floor_states / countdown_states laid out (clips, n_frames,
+// n_bins). The lanes of the consumer warp hold neighbouring (clip, bin) rows, so
+// each frame's 32 stores are contiguous within a clip. Training takes the states
+// once per clip at setup to checkpoint the tracker at every chunk start; the
+// mask-only instantiation that serving launches has none of this code.
 //
 // Every product, sum, quotient and root is written with __fmul_rn / __fadd_rn /
 // __fdiv_rn / __fsqrt_rn so nvcc cannot contract them into FMAs: mask and state
@@ -175,11 +180,14 @@ __device__ __forceinline__ bool track(float x, float& floor, int& countdown, boo
 }
 
 // Consumer: the first n_valid frames of a tile for this lane's row. mag points at
-// the lane's column of mag[stage], words at its row of mask[stage].
-template <bool kRagged>
+// the lane's column of mag[stage], words at its row of mask[stage]. With kCollect,
+// sf/sc point at the tile's first frame of the lane's row in the state outputs,
+// frames `stride` apart, and `live` says whether the lane has a row.
+template <bool kRagged, bool kCollect>
 __device__ __forceinline__ void track_tile(const float* mag, uint32_t* words, int n_valid,
                                            float& floor, int& countdown, bool& slow,
-                                           const Tracker& tr) {
+                                           const Tracker& tr, float* sf, int* sc, int stride,
+                                           bool live) {
   float x[kGroup];
 #pragma unroll
   for (int s = 0; s < kGroup; ++s) x[s] = mag[s * kMagPitch];
@@ -193,8 +201,13 @@ __device__ __forceinline__ void track_tile(const float* mag, uint32_t* words, in
     uint32_t w[2] = {0u, 0u};
 #pragma unroll
     for (int s = 0; s < kGroup; ++s) {
-      if ((!kRagged || g + s < n_valid) && track(x[s], floor, countdown, slow, tr))
-        w[s >> 2] |= 1u << (8 * (s & 3));
+      if (!kRagged || g + s < n_valid) {
+        if (kCollect && live) {
+          sf[(g + s) * stride] = floor;
+          sc[(g + s) * stride] = countdown;
+        }
+        if (track(x[s], floor, countdown, slow, tr)) w[s >> 2] |= 1u << (8 * (s & 3));
+      }
     }
     words[g >> 2] = w[0];
     words[(g >> 2) + 1] = w[1];
@@ -206,12 +219,17 @@ __device__ __forceinline__ void track_tile(const float* mag, uint32_t* words, in
 // xr0, xi0: (rows, n_frames + 2*n_hop) channel-0 planes, one row per (clip, bin).
 // floor0/countdown0: entering state per row, or null for the clip-start state.
 // n_frames >= 1. mask: (rows, n_frames) bytes; floor_out/countdown_out:
-// final state per row. Warp 0 is the consumer, warps 1.. the producers.
+// final state per row. With kCollect, floor_states/countdown_states: the state
+// entering every frame, (rows / n_bins, n_frames, n_bins). Warp 0 is the
+// consumer, warps 1.. the producers.
+template <bool kCollect>
 __global__ void __launch_bounds__(kThreads) noise_floor_kernel(
     const float* __restrict__ xr0, const float* __restrict__ xi0,
     const float* __restrict__ floor0, const int* __restrict__ countdown0,
     uint8_t* __restrict__ mask, float* __restrict__ floor_out,
-    int* __restrict__ countdown_out, int rows, int n_frames, int n_hop, Tracker tr) {
+    int* __restrict__ countdown_out, float* __restrict__ floor_states,
+    int* __restrict__ countdown_states, int rows, int n_frames, int n_bins, int n_hop,
+    Tracker tr) {
   extern __shared__ __align__(16) unsigned char smem_bytes[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_bytes);
   const int warp = threadIdx.x >> 5;
@@ -229,6 +247,14 @@ __global__ void __launch_bounds__(kThreads) noise_floor_kernel(
       countdown = countdown0[row];
     }
     bool slow = countdown < 1;  // the clip start's countdown 3 keeps it false
+    float* sf = nullptr;
+    int* sc = nullptr;
+    if (kCollect && live) {
+      const long long base =
+          (long long)(row / n_bins) * n_frames * n_bins + row % n_bins;
+      sf = floor_states + base;
+      sc = countdown_states + base;
+    }
     for (int k = 0; k < n_tiles; ++k) {
       const int st = k & 1;
       bar_sync(kBarFull + st, kThreads);
@@ -242,10 +268,15 @@ __global__ void __launch_bounds__(kThreads) noise_floor_kernel(
         floor = __fmul_rn(__fdiv_rn(s, (float)n0), 0.5f);
       }
       const int n_valid = min(kTile, n_frames - k * kTile);
+      const long long t0 = (long long)k * kTile * n_bins;
+      float* tsf = kCollect && live ? sf + t0 : nullptr;
+      int* tsc = kCollect && live ? sc + t0 : nullptr;
       if (n_valid == kTile)
-        track_tile<false>(mag, sm.mask[st][lane], kTile, floor, countdown, slow, tr);
+        track_tile<false, kCollect>(mag, sm.mask[st][lane], kTile, floor, countdown, slow, tr,
+                                    tsf, tsc, n_bins, live);
       else
-        track_tile<true>(mag, sm.mask[st][lane], n_valid, floor, countdown, slow, tr);
+        track_tile<true, kCollect>(mag, sm.mask[st][lane], n_valid, floor, countdown, slow, tr,
+                                   tsf, tsc, n_bins, live);
       bar_arrive(kBarEmpty + st, kThreads);
     }
     if (live) {
@@ -277,6 +308,25 @@ __global__ void __launch_bounds__(kThreads) noise_floor_kernel(
   }
 }
 
+template <bool kCollect>
+int launch(const void* xr0, const void* xi0, const void* floor0, const void* countdown0,
+           void* mask, void* floor_out, void* countdown_out, void* floor_states,
+           void* countdown_states, int rows, int n_frames, int n_bins, int n_hop,
+           const Tracker& tr, void* stream) {
+  const int smem = static_cast<int>(sizeof(Smem));
+  const cudaError_t err = cudaFuncSetAttribute(
+      noise_floor_kernel<kCollect>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (rows + kRows - 1) / kRows;
+  noise_floor_kernel<kCollect><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xr0), static_cast<const float*>(xi0),
+      static_cast<const float*>(floor0), static_cast<const int*>(countdown0),
+      static_cast<uint8_t*>(mask), static_cast<float*>(floor_out),
+      static_cast<int*>(countdown_out), static_cast<float*>(floor_states),
+      static_cast<int*>(countdown_states), rows, n_frames, n_bins, n_hop, tr);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launches on `stream`; returns the CUDA error code (0 on success).
@@ -285,18 +335,24 @@ extern "C" int noise_floor_launch(const void* xr0, const void* xi0, const void* 
                                   void* countdown_out, int rows, int n_frames, int n_hop,
                                   float snr_ratio, float floor_up, float floor_up_slow,
                                   float floor_down, void* stream) {
-  const int smem = static_cast<int>(sizeof(Smem));
-  const cudaError_t err = cudaFuncSetAttribute(
-      noise_floor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (rows + kRows - 1) / kRows;
-  noise_floor_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xr0), static_cast<const float*>(xi0),
-      static_cast<const float*>(floor0), static_cast<const int*>(countdown0),
-      static_cast<uint8_t*>(mask), static_cast<float*>(floor_out),
-      static_cast<int*>(countdown_out), rows, n_frames, n_hop,
-      Tracker{snr_ratio, floor_up, floor_up_slow, floor_down});
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(xr0, xi0, floor0, countdown0, mask, floor_out, countdown_out, nullptr,
+                       nullptr, rows, n_frames, 1, n_hop,
+                       Tracker{snr_ratio, floor_up, floor_up_slow, floor_down}, stream);
+}
+
+// As noise_floor_launch, and also the state entering every frame: floor_states
+// (f32) and countdown_states (int32), each (rows / n_bins, n_frames, n_bins);
+// rows is a whole number of clips of n_bins rows.
+extern "C" int noise_floor_states_launch(const void* xr0, const void* xi0, const void* floor0,
+                                         const void* countdown0, void* mask, void* floor_out,
+                                         void* countdown_out, void* floor_states,
+                                         void* countdown_states, int rows, int n_frames,
+                                         int n_bins, int n_hop, float snr_ratio,
+                                         float floor_up, float floor_up_slow,
+                                         float floor_down, void* stream) {
+  return launch<true>(xr0, xi0, floor0, countdown0, mask, floor_out, countdown_out,
+                      floor_states, countdown_states, rows, n_frames, n_bins, n_hop,
+                      Tracker{snr_ratio, floor_up, floor_up_slow, floor_down}, stream);
 }
 
 // Frames per tile, so that a check can place its ragged lengths around it.

@@ -110,35 +110,46 @@ def tracker_init_state(magspec: torch.Tensor) -> tuple[torch.Tensor, torch.Tenso
 
 
 def noise_floor_scan(magspec: torch.Tensor, state0: tuple[torch.Tensor, torch.Tensor],
-                     snr_ratio: float = 1.5):
+                     snr_ratio: float = 1.5, collect_states: bool = False):
     """Up/down noise-floor tracker from an explicit entering state.
 
     magspec: (..., bins, T) tracking magnitudes; state0 = (floor f32, countdown
     int32), each (..., bins). Returns (final_state, mask) with mask (..., bins, T)
-    bool. A Python loop over frames, vectorized over the leading dims.
+    bool; with collect_states also the state entering every frame, (floor,
+    countdown) each (..., T, bins) (salsa_tpu's (T, bins) per clip). A Python loop
+    over frames, vectorized over the leading dims.
     """
     floor, countdown = state0
     up = torch.tensor(FLOOR_UP, dtype=torch.float32, device=magspec.device)
     up_slow = torch.tensor(FLOOR_UP_SLOW, dtype=torch.float32, device=magspec.device)
     down = torch.tensor(FLOOR_DOWN, dtype=torch.float32, device=magspec.device)
     frames = magspec.movedim(-1, 0).contiguous()
-    sig = []
+    sig, floors, countdowns = [], [], []
     for xf in frames:
+        if collect_states:
+            floors.append(floor)
+            countdowns.append(countdown)
         above = xf > floor
         countdown = torch.where(above, countdown - 1, N_SIG_FRAMES).to(torch.int32)
         factor = torch.where(above, torch.where(countdown < 0, up_slow, up), down)
         floor = torch.clamp(floor * factor, min=FLOOR_MIN)
         sig.append(xf > snr_ratio * floor)
-    return (floor, countdown), torch.stack(sig, dim=-1)
+    mask = torch.stack(sig, dim=-1)
+    if collect_states:
+        states = (torch.stack(floors, dim=-2), torch.stack(countdowns, dim=-2))
+        return (floor, countdown), mask, states
+    return (floor, countdown), mask
 
 
-def noise_floor_mask_plain(xr0, xi0, *, n_hop, n_frames, snr_ratio=1.5, state0=None):
-    """Plain version of K2: tracking magnitude -> (initial state) -> tracker."""
+def noise_floor_mask_plain(xr0, xi0, *, n_hop, n_frames, snr_ratio=1.5, state0=None,
+                           collect_states=False):
+    """Plain version of K2: tracking magnitude -> (initial state) -> tracker.
+    Returns (mask, final state), and with collect_states the per-frame states."""
     mag = tracking_magspec_planes(xr0, xi0, n_hop, n_frames)
     if state0 is None:
         state0 = tracker_init_state(mag)
-    final, mask = noise_floor_scan(mag, state0, snr_ratio)
-    return mask, final
+    final, mask, *states = noise_floor_scan(mag, state0, snr_ratio, collect_states)
+    return (mask, final, *states)
 
 
 # ---------------------------------------------------------------------------
@@ -146,15 +157,16 @@ def noise_floor_mask_plain(xr0, xi0, *, n_hop, n_frames, snr_ratio=1.5, state0=N
 # ---------------------------------------------------------------------------
 
 def noise_floor_mask(xr0: torch.Tensor, xi0: torch.Tensor, *, n_hop: int, n_frames: int,
-                     snr_ratio: float = 1.5, state0=None):
+                     snr_ratio: float = 1.5, state0=None, collect_states: bool = False):
     """Noise-tracker mask from channel-0 planes xr0/xi0 (B, bins, n_frames + 2*n_hop).
 
     Returns (mask (B, bins, n_frames) bool, (floor f32, countdown int32) (B, bins)),
     the state after the last frame. state0 resumes from a given entering state;
     None starts the clip (floor from the first min(5, n_frames) frames, countdown
-    3). CUDA tensors
-    launch `csrc/noise_floor.cu` once for the batch; CPU tensors run
-    `noise_floor_mask_plain`. Anything else raises.
+    3). With collect_states a third item holds the state entering every frame,
+    (floor f32, countdown int32) each (B, n_frames, bins). CUDA tensors launch
+    `csrc/noise_floor.cu` once for the batch (its collect_states instantiation
+    when asked); CPU tensors run `noise_floor_mask_plain`. Anything else raises.
     """
     if xr0.dim() != 3 or xr0.shape != xi0.shape:
         raise ValueError(f"xr0/xi0 must be matching (B, bins, T+2h) planes, got "
@@ -176,7 +188,8 @@ def noise_floor_mask(xr0: torch.Tensor, xi0: torch.Tensor, *, n_hop: int, n_fram
                              f"{(B, n_bins)} on {xr0.device}")
     if xr0.device.type == "cpu":
         return noise_floor_mask_plain(xr0, xi0, n_hop=n_hop, n_frames=n_frames,
-                                      snr_ratio=snr_ratio, state0=state0)
+                                      snr_ratio=snr_ratio, state0=state0,
+                                      collect_states=collect_states)
     if xr0.device.type != "cuda":
         raise ValueError(f"noise_floor_mask runs on cuda or cpu tensors, not {xr0.device}")
     if not (xr0.is_contiguous() and xi0.is_contiguous()
@@ -188,17 +201,30 @@ def noise_floor_mask(xr0: torch.Tensor, xi0: torch.Tensor, *, n_hop: int, n_fram
     floor = torch.empty((B, n_bins), dtype=torch.float32, device=dev)
     countdown = torch.empty((B, n_bins), dtype=torch.int32, device=dev)
     f0, c0 = (None, None) if state0 is None else (state0[0].data_ptr(), state0[1].data_ptr())
+    consts = (float(snr_ratio), FLOOR_UP, FLOOR_UP_SLOW, FLOOR_DOWN)
     with torch.cuda.device(dev):
-        err = lib.noise_floor_launch(
-            xr0.data_ptr(), xi0.data_ptr(), f0, c0, mask.data_ptr(), floor.data_ptr(),
-            countdown.data_ptr(), B * n_bins, n_frames, n_hop, float(snr_ratio),
-            FLOOR_UP, FLOOR_UP_SLOW, FLOOR_DOWN, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if collect_states:
+            floors = torch.empty((B, n_frames, n_bins), dtype=torch.float32, device=dev)
+            countdowns = torch.empty((B, n_frames, n_bins), dtype=torch.int32, device=dev)
+            err = lib.noise_floor_states_launch(
+                xr0.data_ptr(), xi0.data_ptr(), f0, c0, mask.data_ptr(), floor.data_ptr(),
+                countdown.data_ptr(), floors.data_ptr(), countdowns.data_ptr(), B * n_bins,
+                n_frames, n_bins, n_hop, *consts, stream)
+        else:
+            err = lib.noise_floor_launch(
+                xr0.data_ptr(), xi0.data_ptr(), f0, c0, mask.data_ptr(), floor.data_ptr(),
+                countdown.data_ptr(), B * n_bins, n_frames, n_hop, *consts, stream)
     check_launch("noise_floor_mask", err)
     noise_floor_mask.launches += 1
+    if collect_states:
+        noise_floor_mask.collect_launches += 1
+        return mask, (floor, countdown), (floors, countdowns)
     return mask, (floor, countdown)
 
 
-noise_floor_mask.launches = 0
+noise_floor_mask.launches = 0  # every K2 launch
+noise_floor_mask.collect_launches = 0  # those of them with collect_states
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "salsa_spatial_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F, _P),
     "noise_floor_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P),
+    "noise_floor_states_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                                  _F, _F, _P),
     "salsa_spatial_probe_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "conv3x3_64_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "noise_floor_tile_frames": (),

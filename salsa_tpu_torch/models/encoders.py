@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from salsa_tpu_torch.models.layers import DoubleConvBlock, ResNetTrunk
+from salsa_tpu_torch.models.layers import DoubleConvBlock, Dropout, ResNetTrunk
 
 
 class PannResNet22(nn.Module):
@@ -22,7 +22,7 @@ class PannResNet22(nn.Module):
             raise NotImplementedError(
                 "compute_dtype (bf16 autocast) is not ported yet: ROADMAP queue 1, slice 4")
         self.conv_block1 = DoubleConvBlock(n_input_channels, 64)
-        self.dropout = nn.Dropout(p_dropout)  # salsa_tpu's FastDropout after the stem
+        self.dropout = Dropout(p_dropout)  # salsa_tpu's FastDropout after the stem
         self.resnet = ResNetTrunk()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

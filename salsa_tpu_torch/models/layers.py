@@ -8,8 +8,13 @@ its own here: the reference flattens it into `convN`/`bnN` pairs, applied by
 `conv_bn_relu`.
 
 Reference quirks kept: pre-conv 2x2 average pool in stride-2 blocks, dropout 0.1
-inside every basic block, avgpool + 1x1 conv + BN shortcut. Flax
-BatchNorm(momentum=0.9, epsilon=1e-5) is torch momentum=0.1, eps=1e-5.
+inside every basic block, avgpool + 1x1 conv + BN shortcut.
+
+Training mode follows flax, not torch: `BatchNorm2d` moves its running statistics
+as flax's BatchNorm(momentum=0.9, epsilon=1e-5) does, with the biased batch
+variance mean(x^2) - mean(x)^2 (torch's own update takes the unbiased one), and
+`Dropout` draws its keep mask from an explicit torch.Generator (`generator`, set
+by the trainer; torch's default generator when unset).
 """
 from __future__ import annotations
 
@@ -23,8 +28,51 @@ def conv3x3(in_features: int, features: int) -> nn.Conv2d:
     return nn.Conv2d(in_features, features, 3, padding=1, bias=False)
 
 
-def batch_norm(features: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+FLAX_BN_MOMENTUM = 0.9
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d (same parameters, buffers and eval mode) whose training mode
+    normalizes by the batch statistics and then moves the running statistics as
+    flax does: ra = 0.9 ra + (1 - 0.9) batch, with the batch variance
+    max(mean(x^2) - mean(x)^2, 0) over (N, H, W)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            m = FLAX_BN_MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def batch_norm(features: int) -> BatchNorm2d:
+    return BatchNorm2d(features, eps=1e-5, momentum=0.1)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout (survivors scaled by 1 / (1 - p)) in training mode only,
+    its keep mask drawn from `generator` on the input's device."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        return torch.where(keep, x * (1.0 / (1.0 - self.p)), torch.zeros((), dtype=x.dtype,
+                                                                          device=x.device))
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
 
 
 def conv_bn_relu(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d) -> torch.Tensor:
@@ -55,7 +103,7 @@ class ResNetBasicBlock(nn.Module):
         self.stride = stride
         self.conv1 = conv3x3(in_features, features)
         self.bn1 = batch_norm(features)
-        self.dropout = nn.Dropout(0.1)
+        self.dropout = Dropout(0.1)
         self.conv2 = conv3x3(features, features)
         self.bn2 = batch_norm(features)  # zero-initialized scale in the flax module
         self.downsample = None

@@ -1,6 +1,7 @@
 """SeldNet: encoder + decoder as one module (counterpart of
 `salsa_tpu.models.seld`), `build_model` from config dicts, the index-repeat time
-interpolation to label rate, and a seeded random initialization."""
+interpolation to label rate, the training initializer `init_train_` and a seeded
+random initialization for runs without a checkpoint."""
 from __future__ import annotations
 
 from typing import Any
@@ -11,6 +12,7 @@ from torch import nn
 
 from salsa_tpu_torch.models.decoders import DECODERS
 from salsa_tpu_torch.models.encoders import ENCODERS
+from salsa_tpu_torch.models.layers import BatchNorm2d, ResNetBasicBlock
 
 
 def interpolate_index_repeat(x: torch.Tensor, ratio: float) -> torch.Tensor:
@@ -62,6 +64,43 @@ def build_model(
     enc_mod = ENCODERS[enc_name](**enc)
     dec.setdefault("n_output_channels", enc_mod.n_output_channels)
     return SeldNet(enc_mod, DECODERS[dec_name](**dec))
+
+
+@torch.no_grad()
+def init_train_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """A fresh model for training with `salsa_tpu`'s initializers: Xavier-uniform
+    convs and linears with zero biases (`layers.py:43`, `decoders.py:73-76`),
+    BatchNorm scale 1 and shift 0 with running statistics (0, 1), the scale of each
+    residual block's last BatchNorm zero (`layers.py:91-93`), and each GRU gate's
+    block uniform(+-sqrt(3 / fan_in)) but the recurrent candidate block orthogonal,
+    GRU biases zero (`rnn.py:7-38`, `:51-54`). Draws on CPU from `generator`, then
+    copies in place."""
+    def fill(t, draw):
+        t.copy_(draw(torch.empty(t.shape, dtype=t.dtype)))
+
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fill(m.weight, lambda t: nn.init.xavier_uniform_(t, generator=generator))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm2d):
+            m.reset_parameters()
+        elif isinstance(m, nn.GRU):
+            for name, p in m.named_parameters():
+                if name.startswith("bias"):
+                    p.zero_()
+                    continue
+                h = m.hidden_size
+                lim = float(np.sqrt(3.0 / p.shape[1]))  # fan_in: the gate's inputs
+                blocks = [torch.empty(h, p.shape[1]).uniform_(-lim, lim, generator=generator)
+                          for _ in range(3)]
+                if name.startswith("weight_hh"):
+                    blocks[2] = nn.init.orthogonal_(torch.empty(h, h), generator=generator)
+                p.copy_(torch.cat(blocks, dim=0))
+    for m in model.modules():
+        if isinstance(m, ResNetBasicBlock):
+            m.bn2.weight.zero_()
+    return model
 
 
 @torch.no_grad()

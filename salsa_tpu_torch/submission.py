@@ -1,11 +1,49 @@
-"""DCASE submission CSV writing (a numpy copy of
-`salsa_tpu.train.submission.write_classwise_csv`; importing `salsa_tpu.train`
-pulls in jax, which the GPU host does not have)."""
+"""Prediction post-processing: overlapping-chunk recombination and DCASE
+submission CSV writing (a numpy copy of `salsa_tpu.train.submission`; importing
+`salsa_tpu.train` pulls in jax, which the GPU host does not have)."""
 from __future__ import annotations
 
 import numpy as np
 
 from salsa_tpu_torch.metrics.dcase_io import xyz_to_polar_deg
+
+
+def combine_chunks(
+    chunk_preds: np.ndarray,
+    chunk_len: int,
+    chunk_hop: int,
+    n_frames: int = 600,
+) -> np.ndarray:
+    """(n_chunks, chunk_len, ...) -> (n_frames, ...) by stitching overlapping chunks.
+
+    The first chunk writes its full window; each later chunk averages the overlap
+    with the running value (salsa_tpu's method 'mean') then overwrites the tail, as
+    the reference recombines.
+    """
+    starts = list(range(0, n_frames - chunk_len + 1, chunk_hop))
+    if (n_frames - chunk_len) % chunk_hop != 0:
+        starts.append(n_frames - chunk_len)
+    if abs(chunk_preds.shape[0] - len(starts)) >= 2:
+        raise ValueError(f"{chunk_preds.shape[0]} chunks vs {len(starts)} expected")
+    out = np.zeros((n_frames,) + chunk_preds.shape[2:], dtype=np.float32)
+    overlap = chunk_len - chunk_hop
+    for i, s in enumerate(starts):
+        e = s + chunk_len
+        if i == 0:
+            out[s:e] = chunk_preds[i]
+        else:
+            out[s:s + overlap] = (out[s:s + overlap] + chunk_preds[i, :overlap]) / 2
+            out[s + overlap:e] = chunk_preds[i, overlap:]
+    return out
+
+
+def sed_from_accdoa(doa, n_classes: int):
+    """SED probability = norm of the ACCDOA vector per class, of a numpy array or a
+    torch tensor (`** 0.5` is a correctly rounded square root in both)."""
+    x = doa[..., :n_classes]
+    y = doa[..., n_classes:2 * n_classes]
+    z = doa[..., 2 * n_classes:]
+    return (x**2 + y**2 + z**2) ** 0.5
 
 
 def write_classwise_csv(

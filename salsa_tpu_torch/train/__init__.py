@@ -1,1 +1,2 @@
-"""Trained `salsa_tpu` experiments: msgpack checkpoints and the tuned threshold."""
+"""Training: losses, schedules, the optimizer, the trainer, msgpack checkpoints and
+the tuned threshold."""

@@ -250,14 +250,16 @@ def _numpy_tree(tree):
 
 
 def save_checkpoint(ckpt_dir: str, name: str, params: dict, batch_stats: dict, step: int,
-                    metadata: dict | None = None) -> str:
-    """Write `<ckpt_dir>/<name>.msgpack` as `salsa_tpu.train.checkpoint` does (an
-    empty `opt_state`: the port does not train) and the `.json` sidecar; returns
-    the .msgpack path."""
+                    metadata: dict | None = None, opt_state: dict | None = None) -> str:
+    """Write `<ckpt_dir>/<name>.msgpack` as `salsa_tpu.train.checkpoint` does and the
+    `.json` sidecar; returns the .msgpack path. `opt_state` is the optimizer state
+    in optax's layout (`train.state.ScheduledOptimizer.optax_state`), which
+    `salsa_tpu`'s restore needs; without it the payload's opt_state is empty."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, name)
     payload = {"step": int(step), "params": _numpy_tree(params),
-               "batch_stats": _numpy_tree(batch_stats), "opt_state": {}}
+               "batch_stats": _numpy_tree(batch_stats),
+               "opt_state": _numpy_tree(opt_state or {})}
     with open(path + ".msgpack", "wb") as f:
         f.write(packb(payload))
     meta = dict(metadata or {})

@@ -1,0 +1,80 @@
+"""SELD training losses (counterpart of `salsa_tpu.train.losses`), as functions of
+torch tensors.
+
+reg_xyz: loss = w_sed * BCE(event logits) + w_doa * (MAE_x + MAE_y + MAE_z), where
+each axis MAE is masked by SED activity and normalized by the number of active
+(frame, class) cells. accdoa: masked MSE on the DOA vector, plus, with
+silent_weight > 0, the reference's silent-region norm penalty.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
+                    row_weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean binary cross entropy with logits. With row_weights (leading-dim
+    weights, e.g. a 0/1 mask over padded batch rows), the mean runs over weighted
+    rows only."""
+    loss = (torch.clamp(logits, min=0.0) - logits * targets
+            + torch.log1p(torch.exp(-torch.abs(logits))))
+    if row_weights is None:
+        return loss.mean()
+    w = row_weights.reshape((-1,) + (1,) * (loss.dim() - 1))
+    per_row = loss.numel() // loss.shape[0]
+    return (loss * w).sum() / torch.clamp(row_weights.sum() * per_row, min=1e-8)
+
+
+def masked_reg_loss(pred, target, mask, loss_type: str = "MAE"):
+    """Masked mean regression loss normalized by the mask mass."""
+    n = min(pred.shape[1], target.shape[1])
+    pred, target, mask = pred[:, :n], target[:, :n], mask[:, :n]
+    denom = torch.clamp(mask.sum(), min=1e-8)
+    if loss_type == "MAE":
+        return (torch.abs(pred - target) * mask).sum() / denom
+    if loss_type == "MSE":
+        return ((pred - target) ** 2 * mask).sum() / denom
+    raise ValueError(f"unknown reg loss '{loss_type}'")
+
+
+def seld_loss(pred: dict, target: dict, n_classes: int, loss_weight=(0.3, 0.7)):
+    """reg_xyz loss. Returns (total, sed_loss, doa_loss)."""
+    sed_l = bce_with_logits(pred["event_frame_logit"], target["event_frame_gt"])
+    doa_pred, doa_gt = pred["doa_frame_output"], target["doa_frame_gt"]
+    mask = target["event_frame_gt"]
+    doa_l = sum(
+        masked_reg_loss(doa_pred[:, :, i * n_classes:(i + 1) * n_classes],
+                        doa_gt[:, :, i * n_classes:(i + 1) * n_classes], mask)
+        for i in range(3)
+    )
+    total = loss_weight[0] * sed_l + loss_weight[1] * doa_l
+    return total, sed_l, doa_l
+
+
+def accdoa_mse(doa_pred, doa_gt, sed_mask, n_classes: int, n_cells):
+    """Masked xyz MSE shared by the accdoa training and validation losses: the sum
+    over active (frame, class) cells of |pred - gt|^2, over n_cells."""
+    sq = (doa_pred - doa_gt) ** 2
+    xyz = sq[..., :n_classes] + sq[..., n_classes:2 * n_classes] + sq[..., 2 * n_classes:]
+    n_cells = torch.as_tensor(n_cells, dtype=xyz.dtype, device=xyz.device)
+    return (xyz * sed_mask).sum() / torch.clamp(n_cells, min=1)
+
+
+def accdoa_loss(pred: dict, target: dict, n_classes: int, silent_weight: float = 0.0):
+    """ACCDOA loss. Returns (total, sed_loss, doa_loss). silent_weight=0 is the
+    reference's effective recipe (it computes the silent-region penalty and zeroes
+    it); silent_weight > 0 adds that penalty, same formula."""
+    sed_gt = target["event_frame_gt"]
+    n_cells = sed_gt.shape[0] * sed_gt.shape[1]
+    doa_pred, doa_gt = pred["doa_frame_output"], target["doa_frame_gt"]
+    doa_l = accdoa_mse(doa_pred, doa_gt, sed_gt, n_classes, n_cells)
+    if silent_weight > 0.0:
+        sq = (doa_pred - doa_gt) ** 2
+        x, y, z = sq[..., :n_classes], sq[..., n_classes:2 * n_classes], sq[..., 2 * n_classes:]
+        # the reference's formula verbatim: "sed" = sqrt of the squared per-axis MSEs
+        sed_hat = torch.sqrt(x**2 + y**2 + z**2 + 1e-12)
+        sed_l = ((sed_hat - sed_gt) ** 2 * (1.0 - sed_gt)).sum() / n_cells
+    else:
+        sed_l = torch.zeros_like(doa_l)
+    total = doa_l + silent_weight * sed_l
+    return total, sed_l, doa_l

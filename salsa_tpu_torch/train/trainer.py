@@ -1,0 +1,397 @@
+"""SELD trainer on one device, fused raw-wav path (counterpart of the
+`training.from_wav` branch of `salsa_tpu.train.trainer`).
+
+The train split's waveforms stay resident on the card with every chunk's table
+row (clip, start frame, untrimmed frame count, valid frames, label start, tracker
+checkpoint). Each step, in eager PyTorch:
+
+  1. extract the batch's SALSA chunks (`features.chunked`: one windowed-DFT matmul,
+     K2 resumed from the chunks' tracker checkpoints, K1);
+  2. normalize the spectral channels with the train-split scaler and zero the
+     frames past each chunk's valid length (after normalization, as the feature
+     store pads);
+  3. forward the CRNN in training mode (flax's BatchNorm update, dropout from an
+     explicit generator), index-repeat to label rate, the SELD loss, backward;
+  4. one Adam/AdamW update with the scheduled lr and beta1 (`train.state`).
+
+The epoch order is `np.random.default_rng((seed, epoch))`'s shuffle, as
+`salsa_tpu`'s; `training.steps_per_dispatch` only groups steps into dispatches
+there and changes nothing here. Validation extracts the val split once per call
+of `cli.train` (K1 and K2), predicts, writes DCASE CSVs and scores them.
+Checkpoints are flax msgpack (`train.checkpoint`), with the optimizer state in
+optax's layout, so `salsa_tpu` restores them.
+
+Options of `salsa_tpu`'s trainer that this one does not port raise
+NotImplementedError naming their ROADMAP queue 1 item; none is run another way.
+"""
+from __future__ import annotations
+
+import os
+import shutil
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from salsa_tpu_torch.data.dataset import SeldChunkDataset, batch_iterator
+from salsa_tpu_torch.data.database import truncate_clips
+from salsa_tpu_torch.data.wav_database import WavSplitData, length_groups
+from salsa_tpu_torch.features.chunked import make_chunk_extractor, salsa_tracker_checkpoints_batch
+from salsa_tpu_torch.interop import torch_state_dict_to_flax
+from salsa_tpu_torch.metrics.scorer import evaluate_submissions
+from salsa_tpu_torch.models.layers import Dropout
+from salsa_tpu_torch.models.seld import init_train_, interpolate_index_repeat
+from salsa_tpu_torch.submission import combine_chunks, sed_from_accdoa, write_classwise_csv
+from salsa_tpu_torch.train import checkpoint as ckpt
+from salsa_tpu_torch.train.losses import (
+    accdoa_loss,
+    accdoa_mse,
+    bce_with_logits,
+    masked_reg_loss,
+    seld_loss,
+)
+from salsa_tpu_torch.train.state import make_optimizer
+from salsa_tpu_torch.utils.experiments import logger
+
+N_SPEC_CHANNELS = 4  # SALSA's log-spectrogram channels, the scaler's scope
+
+
+def refuse_unported(cfg) -> None:
+    """Raise NotImplementedError for every training option of `salsa_tpu` that the
+    port does not run, naming its ROADMAP queue 1 item."""
+    t = cfg.get("training", {})
+    refused = [
+        (t.get("device_data", False) and not t.get("from_wav", False),
+         "training.device_data (the feature-store resident path)", 10),
+        (t.get("device_data_shard", False), "training.device_data_shard", 11),
+        (t.get("remat", False), "training.remat", 10),
+        (t.get("device_augment", False), "training.device_augment", 10),
+        (t.get("from_wav_mode", "fused") != "fused",
+         f"training.from_wav_mode: {t.get('from_wav_mode')}", 8),
+        (int(os.environ.get("WORLD_SIZE", "1")) > 1
+         or (torch.distributed.is_available() and torch.distributed.is_initialized()),
+         "training in more than one process", 11),
+    ]
+    for part in ("encoder", "decoder"):
+        dtype = cfg.get("model", {}).get(part, {}).get("compute_dtype")
+        refused.append((dtype is not None, f"model.{part}.compute_dtype: {dtype} "
+                                           "(bf16 autocast)", 10))
+    for hit, what, item in refused:
+        if hit:
+            raise NotImplementedError(f"{what} is not ported yet: ROADMAP queue 1, item {item}")
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """`device` as a torch.device; a CUDA device on a host without one raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the trainer runs on the CUDA card by default and this host has "
+                           "none (torch.cuda.is_available() is False); pass device='cpu' "
+                           "for a CPU run")
+    return device
+
+
+class SeldTrainer:
+    def __init__(self, model, cfg, train_data, val_data, gt_meta_dir: str | None,
+                 submission_dir: str, seed: int = 2021, scaler=None,
+                 device: torch.device | str = "cuda"):
+        refuse_unported(cfg)
+        if not (cfg.training.get("from_wav", False) and isinstance(train_data, WavSplitData)):
+            raise ValueError(
+                "the port trains from raw wavs only (training.from_wav: true with a "
+                "WavSplitData train split): the HDF5 feature store needs h5py, which "
+                "this package does not use")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.n_classes = cfg.data.n_classes
+        self.output_format = cfg.data.get("output_format", "reg_xyz")
+        self.label_rate = cfg.data.get("label_rate", 10)
+        self.seed = seed
+        self.gt_meta_dir = gt_meta_dir
+        self.submission_dir = submission_dir
+        self.eval_version = str(cfg.get("eval_version", "2021"))
+        self.sed_threshold = cfg.get("sed_threshold", 0.3)
+        self.doa_threshold = cfg.get("doa_threshold", 20)
+        self.max_label_frames = int(cfg.data.get("max_file_len_s", 60) * self.label_rate)
+        self.train_data = train_data
+        self.val_data = val_data
+
+        self.batch_size = cfg.training.train_batch_size
+        if len(train_data) < self.batch_size:
+            raise ValueError(f"the train split has {len(train_data)} chunks, fewer than a batch "
+                             f"of {self.batch_size}: no step could run")
+        self.max_epochs = cfg.training.max_epochs
+        train_fraction = cfg.data.get("train_fraction", 1.0)
+        self.steps_per_epoch = max(1, int(len(train_data) // self.batch_size * train_fraction))
+        total_steps = self.steps_per_epoch * self.max_epochs
+        self.interp_ratio = model.time_downsample_ratio * self.label_rate / (
+            cfg.data.fs / cfg.data.hop_len)
+
+        self.model = init_train_(model, torch.Generator().manual_seed(seed)).to(self.device)
+        self.dropout_generator = torch.Generator(device=self.device).manual_seed(seed)
+        for m in self.model.modules():
+            if isinstance(m, Dropout):
+                m.generator = self.dropout_generator
+        sched = cfg.training.lr_scheduler
+        self.optimizer = make_optimizer(
+            self.model.parameters(), total_steps, cfg.training.get("optimizer", "adam"),
+            tuple(sched.milestones), tuple(sched.lrs), tuple(sched.moms))
+        self.loss_weight = tuple(cfg.training.get("loss_weight", (0.3, 0.7)))
+        self.accdoa_silent_weight = float(cfg.training.get("accdoa_silent_weight", 0.0))
+        n_params = sum(p.numel() for p in self.model.parameters())
+        logger.info("model parameters: %.2fM | steps/epoch: %d | interp ratio: %.1f",
+                    n_params / 1e6, self.steps_per_epoch, self.interp_ratio)
+        self.setup_seconds: dict[str, float] = {}
+        self.step_losses: list[float] = []  # per-step training loss of the last epoch
+        self._setup_from_wav(train_data, scaler)
+
+    # ------------------------------------------------------------------
+    def _setup_from_wav(self, train_data: WavSplitData, scaler) -> None:
+        """Resident waveforms, chunk tables and tracker checkpoints on the device."""
+        if scaler is None:
+            raise ValueError("training.from_wav needs a fitted scaler "
+                             "(data.wav_database.fit_scaler_from_waves)")
+        cfg, d, dev = self.cfg, self.cfg.data, self.device
+        self.chunk_len = train_data.feature_chunk_len
+        self.label_chunk_len = train_data.label_chunk_len
+        self.chunk_fn, p = make_chunk_extractor(
+            cfg.feature_type, d.audio_format, self.chunk_len, fs=d.fs, n_fft=d.n_fft,
+            hop_length=d.hop_len, win_length=d.get("win_len", None),
+            fmin_doa=d.get("fmin_doa", 50), fmax_doa=d.get("fmax_doa", None),
+            eig_method=cfg.training.get("eig_method", "auto"))
+        self.feature_params = p
+        self.wav_scale = train_data.wav_scale
+        self._waves = torch.from_numpy(train_data.waves).to(dev)
+        clip_of_chunk = train_data.clip_of_chunk
+
+        # the tracker state entering every chunk's first frame, from the dequantized
+        # RESIDENT samples (what the step's tracker reads), clips of equal length
+        # batched into K2 launches with collect_states
+        t0 = time.perf_counter()
+        n_band = p.upper_bin - p.lower_bin
+        self._floor_ck = torch.zeros((len(train_data), n_band), dtype=torch.float32, device=dev)
+        self._cd_ck = torch.zeros((len(train_data), n_band), dtype=torch.int32, device=dev)
+        for cis in length_groups(train_data.clip_wavs, lambda w: w.shape[1]):
+            s_pad = train_data.clip_wavs[cis[0]].shape[1] + 2 * train_data.wav_pad
+            group = self._waves[cis, :, :s_pad].float() * self.wav_scale
+            starts = [train_data.within_clip_start[clip_of_chunk == ci] for ci in cis]
+            for ci, (fl, cd) in zip(cis, salsa_tracker_checkpoints_batch(group, starts, p)):
+                sel = torch.from_numpy(np.flatnonzero(clip_of_chunk == ci)).to(dev)
+                self._floor_ck[sel], self._cd_ck[sel] = fl, cd
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.setup_seconds["tracker_checkpoints"] = time.perf_counter() - t0
+        logger.info("from_wav: tracker checkpoints for %d clips in %.1fs",
+                    len(train_data.clip_wavs), self.setup_seconds["tracker_checkpoints"])
+
+        as_long = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)  # noqa: E731
+        n_valid = np.minimum(train_data.clip_trimmed_frames[clip_of_chunk]
+                             - train_data.within_clip_start, self.chunk_len)
+        self._clip = as_long(clip_of_chunk)
+        self._f0 = as_long(train_data.within_clip_start)
+        self._n_full = as_long(train_data.clip_full_frames[clip_of_chunk])
+        self._n_valid = as_long(n_valid)
+        self._l_start = as_long(train_data.label_chunk_starts)
+        self._sed = torch.from_numpy(train_data.sed_targets).to(dev)
+        self._doa = torch.from_numpy(train_data.doa_targets).to(dev)
+        self.mean = torch.as_tensor(np.asarray(scaler[0], np.float32), device=dev)
+        self.std = torch.as_tensor(np.asarray(scaler[1], np.float32), device=dev)
+
+    # ------------------------------------------------------------------
+    def normalize(self, x: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+        """Chunks (B, 7, chunk_len, F) -> the spectral channels normalized by the
+        train-split scaler, and frames past each chunk's n_valid (B,) zeroed."""
+        mean, std = self.mean.to(x.device), self.std.to(x.device)
+        x = torch.cat([(x[:, :N_SPEC_CHANNELS] - mean) / std, x[:, N_SPEC_CHANNELS:]], dim=1)
+        # the short-clip pad region is true zeros in the feature-store path, which
+        # pads after normalization
+        ok = torch.arange(self.chunk_len, device=x.device) < n_valid[:, None]
+        return x * ok[:, None, :, None].to(x.dtype)
+
+    def batch(self, chunk_ids):
+        """(x, sed, doa) of the chunks `chunk_ids` (B,): normalized SALSA chunks
+        (B, 7, chunk_len, F) extracted on the device, and their label windows."""
+        i = torch.as_tensor(np.asarray(chunk_ids, np.int64), device=self.device)
+        x = self.chunk_fn(self._waves, self._clip[i], self._f0[i], self._n_full[i],
+                          self._floor_ck[i], self._cd_ck[i], self.wav_scale)
+        x = self.normalize(x, self._n_valid[i])
+        rows = self._l_start[i][:, None] + torch.arange(self.label_chunk_len, device=self.device)
+        return x, self._sed[rows], self._doa[rows]
+
+    def loss(self, out: dict[str, torch.Tensor], sed: torch.Tensor, doa: torch.Tensor):
+        """(total, sed_loss, doa_loss) of the model's framewise outputs `out` on a
+        batch's label windows."""
+        pred = {k: interpolate_index_repeat(out[k], self.interp_ratio)
+                for k in ("event_frame_logit", "doa_frame_output")}
+        target = {"event_frame_gt": sed, "doa_frame_gt": doa}
+        if self.output_format == "reg_xyz":
+            return seld_loss(pred, target, self.n_classes, self.loss_weight)
+        return accdoa_loss(pred, target, self.n_classes, silent_weight=self.accdoa_silent_weight)
+
+    def forward_backward(self, x, sed, doa) -> dict[str, torch.Tensor]:
+        """Training-mode forward, loss and backward; the gradients are left on the
+        parameters for the optimizer's step."""
+        self.model.train()
+        total, sed_l, doa_l = self.loss(self.model(x), sed, doa)
+        self.optimizer.zero_grad()
+        total.backward()
+        return {"loss": total.detach(), "sed_loss": sed_l.detach(), "doa_loss": doa_l.detach()}
+
+    def train_step(self, chunk_ids) -> dict[str, torch.Tensor]:
+        """One optimizer step on the chunks `chunk_ids`; returns its losses."""
+        metrics = self.forward_backward(*self.batch(chunk_ids))
+        self.optimizer.step()
+        return metrics
+
+    # ------------------------------------------------------------------
+    def _epoch_order(self, epoch: int) -> np.ndarray:
+        """The chunk visit order of an epoch, a pure function of (seed, epoch)."""
+        order = np.arange(len(self.train_data))
+        np.random.default_rng((self.seed, epoch)).shuffle(order)
+        return order
+
+    def train_epoch(self, epoch: int) -> dict:
+        order = self._epoch_order(epoch)
+        usable = min(self.steps_per_epoch * self.batch_size, len(order))
+        pending = [self.train_step(order[s * self.batch_size:(s + 1) * self.batch_size])
+                   for s in range(usable // self.batch_size)]
+        return self._finish_epoch(pending)
+
+    def _finish_epoch(self, pending: list[dict[str, torch.Tensor]]) -> dict:
+        """Mean losses of the epoch's steps (one device sync), lr and momentum."""
+        stacked = {k: torch.stack([m[k] for m in pending]).cpu().numpy() for k in pending[0]}
+        self.step_losses = [float(v) for v in stacked["loss"]]
+        avgs = {k: float(sum(float(x) for x in v)) / len(pending) for k, v in stacked.items()}
+        avgs["lr"] = float(self.optimizer.lr)
+        avgs["momentum"] = float(self.optimizer.b1)
+        return avgs
+
+    # ------------------------------------------------------------------
+    def save(self, ckpt_dir: str, name: str, meta: dict) -> str:
+        """Write the model and optimizer as a flax msgpack checkpoint with its
+        sidecar; returns its path."""
+        params, stats = torch_state_dict_to_flax(self.model.state_dict())
+        return ckpt.save_checkpoint(ckpt_dir, name, params, stats, self.optimizer.count, meta,
+                                    opt_state=self.optimizer.optax_state(self.model))
+
+    def fit(self):
+        best_seld = float("inf")
+        ckpt_dir, best_dir = self.cfg.dir.model.checkpoint, self.cfg.dir.model.best
+        val_interval = self.cfg.training.get("val_interval", 1)
+        t0 = time.time()
+        for epoch in range(self.max_epochs):
+            metrics = self.train_epoch(epoch)
+            if not np.isfinite(metrics.get("loss", 0.0)):
+                logger.error("Epoch %d: non-finite loss %s — stopping. Resume from "
+                             "the last checkpoint with a lower LR.", epoch, metrics)
+                raise FloatingPointError(f"training diverged at epoch {epoch}")
+            logger.info("Epoch %d/%d - loss %.4f (sed %.4f, doa %.4f) - %.1fs elapsed",
+                        epoch, self.max_epochs - 1, metrics["loss"], metrics["sed_loss"],
+                        metrics["doa_loss"], time.time() - t0)
+            meta: dict[str, Any] = {"epoch": epoch, **metrics}
+            if self.val_data is not None and (epoch + 1) % val_interval == 0:
+                scores = self.validate()
+                meta.update({f"val{k}": v for k, v in scores.items() if k != "seld_error"})
+                logger.info("Epoch %d - val SELD %.4f - ER %.4f F1 %.4f LE %.2f LR %.4f",
+                            epoch, scores["seld_error"], scores["ER"], scores["F1"],
+                            scores["LE"], scores["LR"])
+                meta["valSeld"] = scores["seld_error"]
+                if scores["seld_error"] < best_seld:
+                    best_seld = scores["seld_error"]
+                    self.save(best_dir, "best", meta)
+                    logger.info("New best valSeld %.4f saved", best_seld)
+            self.save(ckpt_dir, f"epoch{epoch:03d}", meta)
+        return self.model
+
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def eval_step(self, x: torch.Tensor):
+        """(event_prob, doa, event_logit) at label rate, the model in eval mode."""
+        self.model.eval()
+        out = self.model(x)
+        event_logit = interpolate_index_repeat(out["event_frame_logit"], self.interp_ratio)
+        doa = interpolate_index_repeat(out["doa_frame_output"], self.interp_ratio)
+        if self.output_format == "accdoa":
+            return sed_from_accdoa(doa, self.n_classes), doa, event_logit
+        return torch.sigmoid(event_logit), doa, event_logit
+
+    def val_losses(self, event_logit, doa_pred, sed_gt, doa_gt, n_real: int):
+        """Validation (total, sed, doa) losses with the training formulas:
+        prediction frames trimmed to the targets', padded rows past n_real masked
+        out of both terms."""
+        n = min(event_logit.shape[1], sed_gt.shape[1])
+        logit, tgt = event_logit[:, :n], sed_gt[:, :n]
+        row = (torch.arange(logit.shape[0], device=logit.device) < n_real).to(logit.dtype)
+        mask = tgt * row[:, None, None]
+        if self.output_format == "accdoa":
+            doa_l = accdoa_mse(doa_pred[:, :n], doa_gt[:, :n], mask, self.n_classes, n_real * n)
+            return doa_l, torch.zeros_like(doa_l), doa_l
+        sed_l = bce_with_logits(logit, tgt, row_weights=row)
+        c = self.n_classes
+        doa_l = sum(masked_reg_loss(doa_pred[:, :n, i * c:(i + 1) * c],
+                                    doa_gt[:, :n, i * c:(i + 1) * c], mask) for i in range(3))
+        total = self.loss_weight[0] * sed_l + self.loss_weight[1] * doa_l
+        return total, sed_l, doa_l
+
+    def predict_split(self, split_data, submission_dir: str) -> list[str]:
+        """Predict a val/test split (one chunk batch a call, in clip order) and write
+        one submission CSV per clip; returns the CSV names. The mean validation
+        losses go to `last_val_losses`."""
+        os.makedirs(submission_dir, exist_ok=True)
+        ds = SeldChunkDataset(split_data)
+        bs = min(max(split_data.chunks_per_clip, 8), max(1, len(ds)))
+        probs, doas = [], []
+        sums = {"val_loss": 0.0, "val_sed_loss": 0.0, "val_doa_loss": 0.0}
+        n_loss = 0
+        for x, sed_gt, doa_gt, _names, n_real in batch_iterator(ds, bs):
+            event_prob, doa, event_logit = self.eval_step(torch.from_numpy(x).to(self.device))
+            if np.any(sed_gt):
+                losses = self.val_losses(event_logit, doa,
+                                         torch.from_numpy(sed_gt).to(self.device),
+                                         torch.from_numpy(doa_gt).to(self.device), n_real)
+                for k, v in zip(sums, losses):
+                    sums[k] += float(v) * n_real  # weighted by real rows
+                n_loss += n_real
+            probs.append(event_prob.cpu().numpy()[:n_real])
+            doas.append(doa.cpu().numpy()[:n_real])
+        probs, doas = np.concatenate(probs, axis=0), np.concatenate(doas, axis=0)
+
+        counts = split_data.clip_chunk_counts
+        label_frames = np.minimum(split_data.clip_label_frames, self.max_label_frames)
+        written = []
+        i = 0
+        for ci, name in enumerate(split_data.unique_clip_names):
+            k, n_label = int(counts[ci]), int(label_frames[ci])
+            if k == 1:
+                ep, dp = probs[i][:n_label], doas[i][:n_label]
+            else:
+                ep = combine_chunks(probs[i:i + k], split_data.label_chunk_len,
+                                    split_data.label_chunk_hop, n_label)
+                dp = combine_chunks(doas[i:i + k], split_data.label_chunk_len,
+                                    split_data.label_chunk_hop, n_label)
+            fn = name + ".csv"
+            write_classwise_csv(os.path.join(submission_dir, fn), ep, dp, self.n_classes,
+                                sed_threshold=self.sed_threshold, max_frames=n_label,
+                                version=self.eval_version)
+            written.append(fn)
+            i += k
+        self.last_val_losses = {k: v / n_loss for k, v in sums.items()} if n_loss else {}
+        return written
+
+    def validate(self) -> dict:
+        tmp_dir = os.path.join(self.submission_dir, "_temp")
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+        val_data = self.val_data
+        val_fraction = float(self.cfg.data.get("val_fraction", 1.0))
+        if val_fraction < 1.0:
+            val_data = truncate_clips(
+                val_data, int(np.ceil(len(val_data.unique_clip_names) * val_fraction)))
+        written = self.predict_split(val_data, tmp_dir)
+        if self.last_val_losses:
+            logger.info("val losses: total %.4f (sed %.4f, doa %.4f)",
+                        self.last_val_losses["val_loss"], self.last_val_losses["val_sed_loss"],
+                        self.last_val_losses["val_doa_loss"])
+        return evaluate_submissions(tmp_dir, self.gt_meta_dir, version=self.eval_version,
+                                    n_classes=self.n_classes, doa_threshold=self.doa_threshold,
+                                    label_rate=self.label_rate, filenames=written)

@@ -1,5 +1,6 @@
 """Config handling (counterpart of `salsa_tpu.utils.config`): YAML -> attribute-
-accessible dict, and dotted CLI overrides.
+accessible dict, dotted CLI overrides, and `save_config`, a YAML writer for the
+subset read here (its output reads back equal here and through `yaml.safe_load`).
 
 `salsa_tpu` reads configs with PyYAML, which the GPU host does not have. This module
 reads the YAML subset that experiment configs use and that `yaml.safe_dump` writes:
@@ -367,6 +368,94 @@ def load_config(path: str) -> AttrDict:
     with open(path, "r") as f:
         cfg = parse_yaml(f.read(), path)
     return AttrDict(cfg or {})
+
+
+def _yaml_scalar(v: Any) -> str:
+    """A scalar as YAML that this reader and yaml.safe_load read back as `v`."""
+    if hasattr(v, "item") and not isinstance(v, (str, bytes)):  # a numpy scalar
+        v = v.item()
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        mant, e, exp = repr(v).partition("e")
+        if "." not in mant:  # YAML 1.1 floats need a dot: 1e-10 -> 1.0e-10
+            mant += ".0"
+        return mant + (f"e{exp}" if e else "")
+    if isinstance(v, str):
+        if not v.isprintable():
+            raise ValueError(f"save_config: {v!r} holds characters outside the YAML subset "
+                             "this package writes")
+        return "'" + v.replace("'", "''") + "'"
+    raise TypeError(f"save_config: cannot write a {type(v).__name__} ({v!r})")
+
+
+def _yaml_key(k: Any) -> str:
+    if isinstance(k, str) and re.fullmatch(r"[A-Za-z_][A-Za-z0-9_.\-]*", k) and isinstance(
+            _resolve_plain(k, "key"), str):
+        return k
+    return _yaml_scalar(k)
+
+
+def _yaml_flow(v: list | tuple) -> str:
+    return "[" + ", ".join(_yaml_flow(x) if isinstance(x, (list, tuple)) else _yaml_scalar(x)
+                           for x in v) + "]"
+
+
+def _is_flow(v: list | tuple) -> bool:
+    return all(_is_flow(x) if isinstance(x, (list, tuple)) else not isinstance(x, Mapping)
+               for x in v)
+
+
+def _yaml_lines(node: Any, indent: int, out: list[str]) -> None:
+    pad = " " * indent
+    if isinstance(node, Mapping):
+        if not node:
+            raise ValueError("save_config: an empty mapping is outside the YAML subset "
+                             "this package writes")
+        for k, v in node.items():
+            key = _yaml_key(k)
+            if isinstance(v, Mapping) or (isinstance(v, (list, tuple)) and not _is_flow(v)):
+                out.append(f"{pad}{key}:")
+                _yaml_lines(v, indent + 2, out)
+            elif isinstance(v, (list, tuple)):
+                out.append(f"{pad}{key}: {_yaml_flow(v)}")
+            else:
+                out.append(f"{pad}{key}: {_yaml_scalar(v)}")
+        return
+    for item in node:  # a block sequence
+        if isinstance(item, Mapping) or (isinstance(item, (list, tuple)) and not _is_flow(item)):
+            sub: list[str] = []
+            _yaml_lines(item, indent + 2, sub)
+            out.append(f"{pad}- {sub[0][indent + 2:]}")
+            out.extend(sub[1:])
+        elif isinstance(item, (list, tuple)):
+            out.append(f"{pad}- {_yaml_flow(item)}")
+        else:
+            out.append(f"{pad}- {_yaml_scalar(item)}")
+
+
+def dump_yaml(cfg: Mapping) -> str:
+    """YAML text of a mapping of mappings, lists and scalars (None, bool, int,
+    float, str), in the subset `parse_yaml` reads: block mappings, flow lists of
+    scalars, block lists of mappings, single-quoted strings. Raises on what the
+    subset cannot hold (an empty mapping, a non-printable string, another type)."""
+    out: list[str] = []
+    _yaml_lines(cfg.to_dict() if isinstance(cfg, AttrDict) else cfg, 0, out)
+    return "\n".join(out) + "\n"
+
+
+def save_config(cfg: Mapping, path: str) -> None:
+    """Write `cfg` as YAML (`dump_yaml`), as `salsa_tpu.utils.config.save_config`."""
+    with open(path, "w") as f:
+        f.write(dump_yaml(cfg))
 
 
 def apply_overrides(cfg: AttrDict, overrides: list[str]) -> AttrDict:

@@ -1,22 +1,25 @@
 """Experiment directory tree and logging (counterpart of
 `salsa_tpu.utils.experiments`): one folder per experiment holding the configs
 snapshot, logs, tensorboard, checkpoints (last + best) and outputs (submissions,
-predictions). The port serves trained experiments and does not train, so it never
-writes the config snapshot that training adds."""
+predictions). A training run (`is_train=True`) also saves the config it was given
+as `configs/config_<stamp>.yml`."""
 from __future__ import annotations
 
 import logging
 import os
 import sys
+import time
 
-from salsa_tpu_torch.utils.config import AttrDict, load_config
+from salsa_tpu_torch.utils.config import AttrDict, load_config, save_config
 
 logger = logging.getLogger("salsa_tpu_torch")
 
 
-def manage_experiments(exp_config: str, exp_group_dir: str, exp_suffix: str = "") -> AttrDict:
+def manage_experiments(exp_config: str, exp_group_dir: str, exp_suffix: str = "",
+                       is_train: bool = False) -> AttrDict:
     """Load `exp_config`, make `salsa_tpu`'s tree under `exp_group_dir` and set
-    `cfg.dir` and `cfg.exp_name`, as `salsa_tpu`'s with `is_train=False`."""
+    `cfg.dir` and `cfg.exp_name`, as `salsa_tpu`'s; with is_train, save the config
+    (with its `dir` and `exp_name`) into the tree's configs directory."""
     cfg = load_config(exp_config)
     exp_name = os.path.splitext(os.path.basename(exp_config))[0] + exp_suffix
     root = os.path.join(
@@ -43,6 +46,10 @@ def manage_experiments(exp_config: str, exp_group_dir: str, exp_suffix: str = ""
         os.makedirs(d, exist_ok=True)
     cfg.dir = dirs
     cfg.exp_name = exp_name
+
+    if is_train:
+        stamp = time.strftime("%Y%m%d_%H%M%S")
+        save_config(cfg, os.path.join(dirs.config_dir, f"config_{stamp}.yml"))
 
     configure_logging(dirs.log_dir)
     logger.info("Experiment directory: %s", root)

@@ -9,6 +9,17 @@ torch = pytest.importorskip("torch")
 import chip_smoke  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """The suite runs test files side by side, several workers on a few cores: two
+    intra-op threads for this file keep torch's pools from thrashing against the
+    other workers'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _mic_pair(rng):
     """(got, want) MIC feature planes (1, 3, 5, 40), valid everywhere, and the
     per-bin period; want holds one phase at the branch cut, +pi over delta * bin."""
@@ -80,3 +91,20 @@ def test_foa_scene_ground_truth_follows_its_source(rng):
     on = np.array([f in set(frames) for f in range(207)])
     active = np.abs(audio[1:]).max(axis=0).reshape(-1, 2400)[:207].mean(axis=1)
     assert active[on].mean() > 5 * active[~on].mean()  # the source sounds where rows say
+
+
+def test_phase9_trains_from_wav_on_the_cpu(capsys):
+    """Phase 9 cut down on the CPU (2 s clips, 0.4 s chunks, batch 2, a narrow
+    decoder): the chunk and first-step checks, cli.train with its checkpoints,
+    timed steps, validation and the trained experiment served through
+    cli.predict. On CPU tensors the kernels' wrappers count nothing."""
+    out = chip_smoke.phase9(torch.device("cpu"), seconds=2.0, overrides=(
+        "data.train_chunk_len_s=0.4", "data.train_chunk_hop_len_s=0.2",
+        "training.train_batch_size=2", "model.decoder.decoder_size=16",
+        "data.test_chunk_len_s=2.0", "data.test_chunk_hop_len_s=2.1",
+        "data.max_file_len_s=2.0"))
+    assert out["launches"] == {"salsa_spatial": 0, "noise_floor": 0, "noise_floor_collect": 0}
+    assert set(out["setup"]) == {"read", "scaler_fit", "tracker_checkpoints", "val_extract"}
+    assert out["step"]["step"] > 0 and all(np.isfinite(v) for v in out["scores"].values())
+    text = capsys.readouterr().out
+    assert "first step's loss" in text and "cli.predict served the trained best.msgpack" in text

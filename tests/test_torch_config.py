@@ -139,3 +139,37 @@ def test_attrdict_wraps_nested_mappings():
                                                              "z": {"y": 2}}
     with pytest.raises(AttributeError):
         cfg.missing
+
+
+def _experiment_cfg(path):
+    """A config as a training run saves it: salsa_tpu's manage_experiments adds
+    `dir` and `exp_name`."""
+    cfg = tconfig.load_config(path)
+    cfg.dir = {"exp_dir": "/x/outputs/crossval/foa/salsa/seld",
+               "model": {"checkpoint": "/x/models/checkpoint", "best": "/x/models/best"}}
+    cfg.exp_name = "seld_run1"
+    return cfg
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
+def test_save_config_reads_back_through_both_readers(tmp_path, path):
+    """save_config writes what the port's reader and yaml.safe_load both read back
+    as the config it was given, types included."""
+    cfg = _experiment_cfg(path)
+    out = str(tmp_path / "config.yml")
+    tconfig.save_config(cfg, out)
+    want = cfg.to_dict()
+    assert _same(tconfig.load_config(out).to_dict(), want)
+    assert _same(yaml.safe_load(open(out).read()), want)
+
+
+def test_save_config_scalars_and_nesting(tmp_path):
+    doc = {"tiny": 1e-10, "big": 1e16, "neg": -2.5, "inf": float("-inf"), "n": 3,
+           "flags": [True, False, None], "words": ["yes", "3", "1.0", "it's", "", "null"],
+           "nested": {"list": [{"a": 1, "b": {"c": [[1, 2], []]}}, {"d": "x y"}]},
+           "on": "off", 5: "five"}
+    text = tconfig.dump_yaml(doc)
+    assert _same(tconfig.parse_yaml(text), doc) and _same(yaml.safe_load(text), doc)
+    for bad in ({"empty": {}}, {"s": "two\nlines"}, {"o": object()}):
+        with pytest.raises((ValueError, TypeError)):
+            tconfig.dump_yaml(bad)

@@ -75,9 +75,10 @@ def test_seldnet_matches_flax(rng, decoder_type):
 ])
 def test_dropout_keys_match_flax_in_eval(rng, enc_extra, dec_extra):
     """salsa_tpu's p_dropout, head_dropout and rnn_dropout keys build the port's
-    model with those rates as nn.Dropout / nn.GRU dropout; in eval mode the
-    outputs match SeldNet.apply(train=False) at test_seldnet_matches_flax's
-    tolerance."""
+    model with those rates as its Dropout modules (the rnn rate between the GRU's
+    layers, drawn from the dropout generator, so nn.GRU's own dropout stays 0); in
+    eval mode the outputs match SeldNet.apply(train=False) at
+    test_seldnet_matches_flax's tolerance."""
     enc = {"name": "PannResNet22", "n_input_channels": 7, **enc_extra}
     dec = {"name": "SeldDecoder", "decoder_type": "bigru", "decoder_size": 16,
            "freq_pool": "avg", **dec_extra}
@@ -90,7 +91,8 @@ def test_dropout_keys_match_flax_in_eval(rng, enc_extra, dec_extra):
                                   params, stats).eval()
     assert t_model.encoder.dropout.p == enc_extra.get("p_dropout", 0.0)
     assert t_model.decoder.head_dropout.p == dec_extra.get("head_dropout", 0.2)
-    assert t_model.decoder.gru.dropout == dec_extra.get("rnn_dropout", 0.3)
+    assert t_model.decoder.rnn_dropout.p == dec_extra.get("rnn_dropout", 0.3)
+    assert t_model.decoder.gru.dropout == 0.0
     with torch.no_grad():
         got = t_model(torch.from_numpy(x))
     for k in ("event_frame_logit", "doa_frame_output"):

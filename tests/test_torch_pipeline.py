@@ -250,6 +250,28 @@ HYGIENE = textwrap.dedent("""
         scores = evaluate_seld(out, exp["gt_root"])
         assert set(scores) == {"ER", "F1", "LE", "LR", "seld_error"}, scores
 
+    # the training path: every module of cli.train, and one batch of chunks
+    import salsa_tpu_torch.cli.train as cli_train
+    import salsa_tpu_torch.data.database
+    import salsa_tpu_torch.data.dataset
+    import salsa_tpu_torch.data.feature_store
+    import salsa_tpu_torch.data.meta
+    import salsa_tpu_torch.data.wav_database
+    import salsa_tpu_torch.train.losses
+    import salsa_tpu_torch.train.schedules
+    import salsa_tpu_torch.train.state
+    import salsa_tpu_torch.train.trainer as trainer
+    from salsa_tpu_torch.features import chunked
+
+    assert callable(cli_train.main) and callable(trainer.SeldTrainer)
+    fn, p = chunked.make_chunk_extractor("salsa", "foa", 16, fs=24000, n_fft=512, hop_length=300)
+    wave = torch.from_numpy(chunked.pad_waveform(
+        np.random.default_rng(1).standard_normal((4, 9600)).astype(np.float32), 512))
+    state = chunked.salsa_tracker_checkpoints(wave, np.array([0, 9]), p)
+    x = fn(wave[None], torch.zeros(2, dtype=torch.long), torch.tensor([0, 9]),
+           torch.full((2,), 33), *state)
+    assert x.shape == (2, 7, 16, 200) and torch.isfinite(x).all(), x.shape
+
     leaked = sorted(m for m in sys.modules if blocked(m))
     assert not leaked, leaked
     print("HYGIENE_OK")

@@ -182,6 +182,54 @@ def test_tracker_scan_bit_equal_to_jax(rng, n_clips, n_bins, n_frames, resume_at
         assert m_j.any() and not m_j.all()
 
 
+@pytest.mark.parametrize("n_frames", [1, 2, 3, 4, 5, 6, 700])
+def test_tracker_collect_states_bit_equal_to_jax(rng, n_frames):
+    """collect_states: the state entering every frame, (floor, countdown) each
+    (T, bins) per clip, from one explicit entering state (countdowns on both sides
+    of 0), equals `salsa_tpu`'s noise_floor_scan(collect_states=True) bit for bit,
+    through the scan and through the K2 wrapper (plain on CPU), beside equal masks
+    and final states."""
+    n_clips, n_bins = 3, 11
+    # channel 0 of bands of n_frames + 2h frames: the frames and their context
+    bands = [make_band(rng, n_bins=n_bins, n_frames=n_frames + 2 * H)[..., 0]
+             for _ in range(n_clips)]
+    xr0 = np.stack([b.real for b in bands]).astype(np.float32)
+    xi0 = np.stack([b.imag for b in bands]).astype(np.float32)
+    rows = n_clips * n_bins
+    mag = _np_magnitudes(xr0, xi0, n_frames).reshape(rows, n_frames)
+    floor0 = (mag[:, 0] * rng.uniform(0.3, 1.7, rows)).astype(np.float32)
+    cd0 = rng.integers(-3, 4, rows, dtype=np.int32)
+    (f_j, c_j), m_j, (fs_j, cs_j) = jsalsa.noise_floor_scan(
+        jnp.asarray(mag), (jnp.asarray(floor0), jnp.asarray(cd0)), collect_states=True)
+    fs_j, cs_j = np.asarray(fs_j), np.asarray(cs_j)
+    assert fs_j.shape == (n_frames, rows) and cs_j.dtype == np.int32
+
+    st = (torch.from_numpy(floor0), torch.from_numpy(cd0))
+    (f_t, c_t), m_t, (fs_t, cs_t) = tsalsa.noise_floor_scan(torch.from_numpy(mag), st,
+                                                            collect_states=True)
+    assert fs_t.shape == (n_frames, rows) and cs_t.dtype == torch.int32
+    np.testing.assert_array_equal(fs_t.numpy(), fs_j)
+    np.testing.assert_array_equal(cs_t.numpy(), cs_j)
+    np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
+    np.testing.assert_array_equal(f_t.numpy(), np.asarray(f_j))
+
+    # the wrapper: (B, T, bins) per clip
+    st = (st[0].reshape(n_clips, n_bins), st[1].reshape(n_clips, n_bins))
+    m_w, (f_w, c_w), (fs_w, cs_w) = tsalsa.noise_floor_mask(
+        torch.from_numpy(xr0), torch.from_numpy(xi0), n_hop=H, n_frames=n_frames, state0=st,
+        collect_states=True)
+    assert fs_w.shape == (n_clips, n_frames, n_bins) and cs_w.dtype == torch.int32
+    per_clip = lambda a: np.moveaxis(a.reshape(n_frames, n_clips, n_bins), 1, 0)  # noqa: E731
+    np.testing.assert_array_equal(fs_w.numpy(), per_clip(fs_j))
+    np.testing.assert_array_equal(cs_w.numpy(), per_clip(cs_j))
+    np.testing.assert_array_equal(m_w.numpy().reshape(rows, n_frames), np.asarray(m_j))
+    np.testing.assert_array_equal(c_w.numpy().ravel(), np.asarray(c_j))
+    # the mask-only call is the same computation
+    m_o, (f_o, _) = tsalsa.noise_floor_mask(torch.from_numpy(xr0), torch.from_numpy(xi0),
+                                            n_hop=H, n_frames=n_frames, state0=st)
+    assert torch.equal(m_o, m_w) and torch.equal(f_o, f_w)
+
+
 def test_noise_floor_mask_wrapper_batches_and_resumes(rng):
     """The K2 wrapper on CPU tensors: a batch equals its rows run alone, and two
     halves chained through the returned state equal the whole clip."""
