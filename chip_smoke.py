@@ -47,7 +47,19 @@ Phases, each printing what it found; any failure raises and exits non-zero:
      collect_states at setup), setup times, the step split, steps/s, peak memory,
      K2 resumed (bit-equal) and K1 (K1's bound) against their plain versions at
      the step's shapes, their times and K2 collect_states's against their bounds,
-     validation, and the trained `best` served through `cli.predict`.
+     validation, and the trained `best` served through `cli.predict`;
+ 10. streaming serving at full width (blocks of 160 frames, 256 frames of context a
+     side, 100 ms packets): seeded FOA streams at N = 1 and 4 in ragged packets
+     against the CPU's plain versions (K1's bound), the tracker state leaving
+     every block bit-equal to K2 collect_states over the whole stream, a slot's
+     re-init bit-equal to a solo stream's start; then `cli.predict --streaming`
+     on phase 8's experiment four ways (one stream, 4 a dispatch, int16 PCM, the
+     pool with 4 slots and --max-lag-ms 400), one K1 and one K2 launch per block
+     dispatch, the pool and the 4 streams within 1e-4 of the single stream,
+     int16 bit-equal to floats, no zero-fill; a short clip against the CPU; the
+     first block cold and warm, per-block latency (the pushes that ran the CRNN)
+     and steady throughput on 160 s streams at N = 1, 4 and 16, the flush apart,
+     and K1 and K2 at the block shapes.
 The second-to-last line is a JSON summary of the kernels, each with its time,
 its plain version's, its bound (the larger of its bytes over the memory rate and
 its operations over the peak rate of their type) and, where one PyTorch call
@@ -102,6 +114,7 @@ from salsa_tpu_torch.interop import torch_state_dict_to_flax
 from salsa_tpu_torch.models.layers import Dropout
 from salsa_tpu_torch.models.seld import build_model, init_random_
 from salsa_tpu_torch.pipeline import SeldInferencePipeline
+from salsa_tpu_torch.streaming import StreamingExtractor, StreamingSeldPipeline
 from salsa_tpu_torch.scripts import bench_extract, probe_pallas_conv, probe_salsa_kernel
 from salsa_tpu_torch.scripts.probe_pallas_conv import conv3x3_64, conv3x3_64_plain, rel_err
 from salsa_tpu_torch.scripts.probe_salsa_kernel import (
@@ -248,13 +261,15 @@ def normal_planes(rng: np.random.Generator, shape, dev) -> tuple[torch.Tensor, t
                  for _ in range(2))
 
 
-def check_k2(xr0, xi0, n_frames: int, what: str, state0=None):
+def check_k2(xr0, xi0, n_frames: int, what: str, state0=None, restart=None):
     """K2 against its plain version on CPU copies (the kernel is bit-exact IEEE):
     mask, floor and countdown must be equal. Returns the plain (mask, state)."""
-    mask, (floor, cd) = noise_floor_mask(xr0, xi0, n_hop=3, n_frames=n_frames, state0=state0)
+    mask, (floor, cd) = noise_floor_mask(xr0, xi0, n_hop=3, n_frames=n_frames, state0=state0,
+                                         restart=restart)
     cpu_state = None if state0 is None else tuple(s.cpu() for s in state0)
-    p_mask, (p_floor, p_cd) = noise_floor_mask_plain(xr0.cpu(), xi0.cpu(), n_hop=3,
-                                                     n_frames=n_frames, state0=cpu_state)
+    p_mask, (p_floor, p_cd) = noise_floor_mask_plain(
+        xr0.cpu(), xi0.cpu(), n_hop=3, n_frames=n_frames, state0=cpu_state,
+        restart=None if restart is None else restart.cpu())
     if not (torch.equal(mask.cpu(), p_mask) and torch.equal(floor.cpu(), p_floor)
             and torch.equal(cd.cpu(), p_cd)):
         raise AssertionError(
@@ -682,6 +697,28 @@ def profile_table(fn, phase: str, what: str, top: int = 12) -> None:
         log(phase, f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
+def kernel_device_ms(fn, kernel: str, calls: int = CALLS) -> float | None:
+    """Mean device time per launch, in ms, of the kernels whose name holds `kernel`
+    over `calls` calls of fn() under the profiler; None where the profiler records
+    no device time. At shapes where a call's host work outlasts its kernel, this
+    is the kernel's own time and CUDA events between back-to-back calls the
+    wrapper's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel in e.key]
+    dev_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                 for e in hits)
+    launches = sum(e.count for e in hits)
+    return dev_us / 1e3 / launches if launches and dev_us > 0 else None
+
+
 def phase6(dev) -> dict:
     """K3 against its plain version; returns errors, times and the probe's launches."""
     rng = np.random.default_rng(SEED)
@@ -1089,6 +1126,27 @@ def check_k2_states(xr0, xi0, n_frames: int, what: str, state0=None):
     return got
 
 
+def stream_tracker_states(windows, p: SalsaParams, block_len: int):
+    """K2 collect_states over a whole zero-led stream, from the planes of its
+    block windows (N, 4, win_len) in order laid end to end (each block's own
+    frames, the first block's left context and the last block's right context):
+    (floors f32, countdowns i32), each (N, n_blocks * block_len, bins), the state
+    entering every frame, from K2's own clip-start init."""
+    h = p.n_hopframes
+
+    def band0(window):
+        re, im = chunked.block_spectra(window, p)
+        return tuple(x[:, 0, :, p.lower_bin:p.upper_bin].transpose(-1, -2) for x in (re, im))
+
+    planes = [band0(w) for w in windows]
+    xr, xi = (torch.cat([planes[0][i][..., :h]] + [pl[i][..., h:h + block_len] for pl in planes]
+                        + [planes[-1][i][..., h + block_len:]], dim=-1).contiguous()
+              for i in (0, 1))
+    _, _, states = noise_floor_mask(xr, xi, n_hop=h, n_frames=len(windows) * block_len,
+                                    collect_states=True)
+    return states
+
+
 def check_chunks(tr, dev) -> float:
     """4 chunks extracted on the device (first, middle and last of clip 0, first of
     clip 1) against the device's full-clip features sliced: spectrograms within
@@ -1315,6 +1373,347 @@ def phase9(dev, seconds: float = 60.0, overrides=()) -> dict:
     return out
 
 
+# phase 10: configs/seld.yml's fs and hop, blocks of 160 frames, 256 frames of
+# context a side, 100 ms packets (salsa_tpu's streaming defaults); ragged packet
+# sizes for the extraction check
+STREAM = {"block_frames": 160, "context_frames": 256, "push_ms": 100.0}
+RAGGED = (777, 1531, 4096, 50, 9000, 24000, 2400)
+
+
+def push_ragged(se, waves, sizes=RAGGED) -> np.ndarray:
+    """Push `waves` into a StreamingExtractor in irregular packets and flush; the
+    frames concatenated."""
+    blocks, i, k = [], 0, 0
+    while i < waves.shape[-1]:
+        m = sizes[k % len(sizes)]
+        k += 1
+        blocks += se.push(waves[..., i:i + m])
+        i += m
+    tail = se.flush()
+    if tail.size:
+        blocks.append(tail)
+    return np.concatenate(blocks, axis=-2)
+
+
+def record_blocks(se) -> list:
+    """Wrap `se`'s block function: record each window and the tracker state the
+    block leaves."""
+    rec, fn = [], se._block_fn
+
+    def recording(window, *args):
+        feats, state = fn(window, *args)
+        rec.append((window.clone(), state))
+        return feats, state
+
+    se._block_fn = recording
+    return rec
+
+
+def band0(window, p: SalsaParams = FOA):
+    """Channel 0's DOA-band planes (N, bins, T) of block windows, K2's input."""
+    re, im = chunked.block_spectra(window, p)
+    return tuple(x[:, 0, :, p.lower_bin:p.upper_bin].transpose(-1, -2).contiguous()
+                 for x in (re, im))
+
+
+def check_stream_extraction(dev, n_streams: int, seconds: float, rng) -> float:
+    """Streaming extraction on `dev` of n_streams seeded FOA streams in ragged
+    packets against the plain versions on the CPU, then the tracker: the state
+    leaving every block, chained through K2, bit-equal to K2 collect_states over
+    the whole zero-led stream; K2 resumed at the block shape bit-equal to its plain
+    version; a re-initialized row bit-equal to a solo stream's start and the rows
+    it does not touch carried. Returns the spatial max abs error."""
+    L = STREAM["block_frames"]
+    waves = foa_clips(rng, n_streams, seconds)
+    waves = waves[0] if n_streams == 1 else waves
+    kw = dict(fs=FS, n_fft=N_FFT, hop_length=HOP, block_frames=L, n_streams=n_streams)
+    se = StreamingExtractor("salsa", "foa", device=dev, **kw)
+    rec = record_blocks(se)
+    got = push_ragged(se, waves).reshape((-1, 7, 1 + waves.shape[-1] // HOP, FOA.freq_dim))
+    want = push_ragged(StreamingExtractor("salsa", "foa", device="cpu", **kw), waves)
+    want = want.reshape(got.shape)
+    what = f"streamed features, {n_streams} x {seconds:g} s in {len(rec)} blocks"
+    np.testing.assert_allclose(got[:, :4], want[:, :4], atol=2e-2, rtol=1e-3, err_msg=what)
+    nb = FOA.upper_bin - FOA.lower_bin
+    planes = lambda x: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(x[:, 4:, :, :nb].transpose(0, 1, 3, 2)))
+    err = compare_spatial(planes(got), planes(want), what, phase="10")
+
+    floors, countdowns = stream_tracker_states([w for w, _ in rec], FOA, L)
+    for k, (_, (fl, cd)) in enumerate(rec[:-1]):
+        if not (torch.equal(fl, floors[:, (k + 1) * L]) and torch.equal(cd, countdowns[:, (k + 1)
+                                                                                       * L])):
+            raise AssertionError(f"{what}: the tracker state leaving block {k} differs from K2 "
+                                 "collect_states over the whole stream")
+    xr0, xi0 = band0(rec[1][0])
+    check_k2(xr0, xi0, L, f"resumed at the block shape {tuple(xr0.shape)}", state0=rec[0][1])
+    # a slot starting its stream at block 1 (K2's restart flag) while the others
+    # carry theirs: the block function's state, that of K2's restart launch held
+    # against its plain version, and of a solo stream starting with that window
+    row = n_streams - 1
+    restart = torch.zeros(n_streams, dtype=torch.bool, device=xr0.device)
+    restart[row] = True
+    check_k2(xr0, xi0, L, f"restarting row {row} at the block shape", state0=rec[0][1],
+             restart=restart)
+    _, (fl, cd) = chunked.make_salsa_block_fn(FOA, L)(rec[1][0], rec[0][1], [row])
+    _, (fl_solo, cd_solo) = noise_floor_mask(xr0[row:row + 1].contiguous(),
+                                             xi0[row:row + 1].contiguous(), n_hop=3, n_frames=L)
+    keep = [r for r in range(n_streams) if r != row]
+    if not (torch.equal(fl[row], fl_solo[0]) and torch.equal(cd[row], cd_solo[0])
+            and torch.equal(fl[keep], rec[1][1][0][keep])
+            and torch.equal(cd[keep], rec[1][1][1][keep])):
+        raise AssertionError(f"{what}: a re-initialized row is not a solo stream's start")
+    log("10", f"{what}: the state leaving each block, chained through K2, bit-equal to K2 "
+              f"collect_states over the whole stream; K2 resumed at {tuple(xr0.shape)} and K2 "
+              f"restarting row {row} bit-equal to their plain versions; the restarted row "
+              "bit-equal to a solo stream's start (K2's own init), the other rows carried")
+    return err
+
+
+def streaming_pipeline(dev, exp: dict, n_streams: int) -> StreamingSeldPipeline:
+    """The served checkpoint's model, as the CLI builds it, in a streaming pipeline
+    at phase 10's geometry on `dev`."""
+    cfg, d = exp["cfg"], exp["cfg"].data
+    scaler = np.load(exp["scaler"])
+    se = StreamingExtractor("salsa", d.audio_format, fs=d.fs, n_fft=d.n_fft, hop_length=d.hop_len,
+                            block_frames=STREAM["block_frames"], n_streams=n_streams, device=dev)
+    model = build_model(encoder=cfg.model.encoder.to_dict(), decoder=cfg.model.decoder.to_dict(),
+                        n_classes=d.n_classes, output_format=d.output_format)
+    return StreamingSeldPipeline(se, model, exp["weights"], (scaler["mean"], scaler["std"]),
+                                 INTERP, d.n_classes, d.output_format,
+                                 left_context=STREAM["context_frames"],
+                                 right_context=STREAM["context_frames"])
+
+
+def stream_push(pipe, waves, push: int):
+    """Push waves in packets of `push` samples and flush; returns the outputs
+    concatenated and the host-clock times, the card synchronized after every push
+    that dispatched a block: `crnn`, the ms of each push that returned a
+    prediction; `extract`, of each push that dispatched a block and predicted
+    nothing (the blocks before the first window is complete); `ingest`, of each
+    push that dispatched nothing (buffering and the mirror's upload);
+    `steady_s` and `steady_samples`, the seconds and the samples a stream of the
+    pushes after the first prediction; `flush_ms`."""
+    sync = torch.cuda.synchronize if pipe.device.type == "cuda" else (lambda: None)
+    outs, t = [], {"crnn": [], "extract": [], "ingest": [], "steady_samples": 0}
+    t_first = None
+    for i in range(0, waves.shape[-1], push):
+        n0, t0 = StreamingSeldPipeline.dispatches, time.perf_counter()
+        got = pipe.push(waves[..., i:i + push])
+        dispatched = StreamingSeldPipeline.dispatches > n0
+        if dispatched:
+            sync()
+        t["crnn" if got else "extract" if dispatched else "ingest"].append(
+            (time.perf_counter() - t0) * 1e3)
+        if t_first is not None:
+            t["steady_samples"] += waves[..., i:i + push].shape[-1]
+        elif got:
+            t_first = time.perf_counter()
+        outs += got
+    sync()
+    t["steady_s"] = 0.0 if t_first is None else time.perf_counter() - t_first
+    t0 = time.perf_counter()
+    outs += pipe.flush()
+    sync()
+    t["flush_ms"] = (time.perf_counter() - t0) * 1e3
+    return (np.concatenate([o[0] for o in outs], axis=-2),
+            np.concatenate([o[1] for o in outs], axis=-2)), t
+
+
+def serve_stream_cli(dev, exp: dict, out_dir: str, **kw) -> dict:
+    """One `cli.predict --streaming` call on `exp` with the kernels' launches and
+    the block dispatches counted from 0, each CSV's arrays recorded; returns them,
+    its host-clock seconds and its log line."""
+    arrays, write = {}, cli_predict.write_classwise_csv
+
+    def recording(path, ev, doa, *args, **kwargs):
+        arrays[os.path.basename(path)[:-4]] = (ev, doa)
+        return write(path, ev, doa, *args, **kwargs)
+
+    cli_predict.write_classwise_csv = recording
+    try:
+        salsa_spatial.launches = noise_floor_mask.launches = 0
+        StreamingSeldPipeline.dispatches = 0
+        t0 = time.perf_counter()
+        cli_predict.predict(exp["config"], exp["wav_dir"], out_dir, exp["group"], device=dev,
+                            streaming=True, **STREAM, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {"salsa_spatial": salsa_spatial.launches, "noise_floor": noise_floor_mask.launches,
+                  "dispatches": StreamingSeldPipeline.dispatches}
+    finally:
+        cli_predict.write_classwise_csv = write
+    with open(exp["log"]) as f:
+        line = re.findall(r"(?:pool-)?streamed .*", f.read())[-1]
+    return {"arrays": arrays, "counts": counts, "secs": secs, "line": line}
+
+
+def phase10(dev, scenes=SCENES, n_streams: int = 4, check_seconds: float = 9.7,
+            timing=((1, 160.0), (4, 160.0), (16, 160.0)), cpu_clip_s: float = 4.0) -> dict:
+    """Streaming serving: the extraction and tracker checks at N = 1 and
+    n_streams, then `cli.predict --streaming` on phase 8's experiment four ways
+    (one stream, n_streams streams a dispatch, int16 PCM, the pool with n_streams
+    slots and --max-lag-ms 400) with the launches counted against the block
+    dispatches, the outputs held against each other, a short clip on `dev`
+    against the CPU's plain versions, then the per-block latencies, the first
+    block cold and warm, and K1 and K2 at the block shapes."""
+    cuda = dev.type == "cuda"
+    L = STREAM["block_frames"]
+    rng = np.random.default_rng(SEED + 10)
+    out = {"k1_err": max(check_stream_extraction(dev, n, check_seconds, rng)
+                         for n in sorted({1, n_streams}))}
+    push = int(STREAM["push_ms"] * FS / 1000)
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = write_experiment(tmp, scenes)
+
+        # the first predicted block of a new pipeline (the first CRNN call at its
+        # shapes in this process), then of the same pipeline reset: the blocks
+        # before it are pushed first, the push that completes its window is timed
+        pipe = streaming_pipeline(dev, exp, 1)
+        first = foa_clips(rng, 1, (pipe._d * L + 8) * HOP / FS)[0]
+        sync = torch.cuda.synchronize if cuda else (lambda: None)
+        cold_warm = []
+        for _ in range(2):
+            pipe.reset()
+            lead = pipe.push(first[..., :(pipe._d - 1) * L * HOP])
+            sync()
+            t0 = time.perf_counter()
+            got = pipe.push(first[..., (pipe._d - 1) * L * HOP:])
+            sync()
+            cold_warm.append((time.perf_counter() - t0) * 1e3)
+            if lead or len(got) != 1:
+                raise AssertionError(f"expected the first prediction from the timed push, got "
+                                     f"{len(lead)} before and {len(got)} from it")
+        out["first_block_ms"] = cold_warm
+        log("10", f"first predicted block of a new pipeline (the push completing its window), "
+                  f"host clock: cold {cold_warm[0]:.2f} ms, after reset() {cold_warm[1]:.2f} ms "
+                  f"[{CARD}]")
+
+        # the main path: cli.predict --streaming, four ways
+        runs = {}
+        for name, kw in (("solo", {}), ("streams", {"streams": n_streams}),
+                         ("pcm16", {"pcm16": True}),
+                         ("pool", {"pool": True, "streams": n_streams, "max_lag_ms": 400.0})):
+            runs[name] = serve_stream_cli(dev, exp, os.path.join(tmp, name), **kw)
+            r = runs[name]
+            csvs = sorted(os.listdir(os.path.join(tmp, name)))
+            log("10", f"cli.predict --streaming {' '.join(f'--{k} {v}' for k, v in kw.items())}: "
+                      f"{len(csvs)} CSVs in {r['secs']:.3f} s; launches {r['counts']} [{CARD}]")
+            log("10", f"  its log: {r['line']} [{CARD}]")
+            if csvs != sorted(f"{n}.csv" for n, _, _ in scenes):
+                raise AssertionError(f"{name}: CSVs {csvs}, expected one per wav")
+            c = r["counts"]
+            want = c["dispatches"] if cuda else 0
+            if not (c["dispatches"] > 0 and c["salsa_spatial"] == c["noise_floor"] == want):
+                raise AssertionError(f"{name}: expected one K1 and one K2 launch per block "
+                                     f"dispatch, got {c}")
+        with open(exp["log"]) as f:
+            if "zero-filled" in f.read():
+                raise AssertionError("the pool zero-filled a stream on file replay")
+        solo = runs["solo"]["arrays"]
+        for name in ("streams", "pool"):
+            d = max(float(np.abs(a - b).max()) for clip, pair in runs[name]["arrays"].items()
+                    for a, b in zip(pair, solo[clip]))
+            log("10", f"{name}: every clip's outputs within {d:.3e} of the single stream's "
+                      "(bound 1e-4)")
+            if d > 1e-4:
+                raise AssertionError(f"{name}: a clip differs from its single stream by {d:.3e}")
+        exact = [n for n, _, fs in scenes if fs == FS]
+        if not all(np.array_equal(a, b) for n in exact
+                   for a, b in zip(runs["pcm16"]["arrays"][n], solo[n])):
+            raise AssertionError("--pcm16 is not bit-equal to the float push")
+        log("10", f"--pcm16 bit-equal to the float push for the {len(exact)} 24 kHz 16-bit wavs; "
+                  "the pool zero-filled nothing")
+        out["launches"] = {k: sum(r["counts"][k] for r in runs.values())
+                           for k in ("salsa_spatial", "noise_floor", "dispatches")}
+        out["cli"] = {name: {"secs": r["secs"], "line": r["line"]} for name, r in runs.items()}
+
+        # a short clip on the card against the CPU's plain versions (phase 4's bound)
+        clip, _ = foa_scene(rng, cpu_clip_s, FS, exp["cfg"].data.label_rate)
+        pipe.reset()
+        (ev_g, doa_g), _ = stream_push(pipe, clip, push)
+        t0 = time.perf_counter()
+        (ev_c, doa_c), _ = stream_push(streaming_pipeline(torch.device("cpu"), exp, 1), clip, push)
+        cpu_s = time.perf_counter() - t0
+        for name, g, c in (("event_prob", ev_g, ev_c), ("doa", doa_g, doa_c)):
+            err = np.abs(g - c)
+            share = float(np.mean(err <= 2e-3))
+            log("10", f"{cpu_clip_s:g} s clip streamed, {dev.type} vs CPU plain {name}: "
+                      f"max abs err {err.max():.3e}, share within 2e-3 {share:.5f} "
+                      f"(CPU {cpu_s:.1f} s)")
+            if share < 0.999 or err.max() > 2e-2:
+                raise AssertionError(f"streamed {name}, {dev.type} vs CPU: {share}, {err.max()}")
+
+        # per-block latency and throughput, N synchronized streams in memory: the
+        # pushes that ran the CRNN, the steady window after the first prediction
+        # and the flush apart
+        out["latency"] = {}
+        for n, seconds in timing:
+            pipe = streaming_pipeline(dev, exp, n)
+            waves = foa_clips(rng, n, seconds)
+            waves = waves[0] if n == 1 else waves
+            stream_push(pipe, waves[..., :2 * L * HOP], push)  # warm-up
+            pipe.reset()
+            t0 = time.perf_counter()
+            _, t = stream_push(pipe, waves, push)
+            wall = time.perf_counter() - t0
+            lat, ingest = t["crnn"], t["ingest"]
+            p50, p95 = np.percentile(lat, 50), np.percentile(lat, 95)
+            steady_x = n * t["steady_samples"] / FS / t["steady_s"]
+            out["latency"][n] = {
+                "p50_ms": float(p50), "p95_ms": float(p95), "max_ms": float(np.max(lat)),
+                "blocks": len(lat), "extract_only_ms": t["extract"],
+                "steady_x_realtime": steady_x, "x_realtime_with_flush": n * seconds / wall,
+                "flush_ms": t["flush_ms"], "ingest_p50_ms": float(np.percentile(ingest, 50)),
+                "ingest_ms_per_block": float(np.sum(ingest)) / len(lat)}
+            log("10", f"{n} stream(s) x {seconds:g} s: per-block latency p50 {p50:.2f} / p95 "
+                      f"{p95:.2f} / max {np.max(lat):.2f} ms over the {len(lat)} pushes that ran "
+                      f"the CRNN; the {len(t['extract'])} that only extracted "
+                      f"{', '.join(f'{x:.2f}' for x in t['extract'])} ms; steady "
+                      f"{steady_x:.1f}x realtime aggregate over {t['steady_s']:.3f} s after the "
+                      f"first prediction; flush {t['flush_ms']:.2f} ms; "
+                      f"{n * seconds / wall:.1f}x realtime with the start and the flush (host "
+                      f"clock, packets of {STREAM['push_ms']:g} ms); the {len(ingest)} pushes "
+                      f"that only buffer: p50 {out['latency'][n]['ingest_p50_ms']:.3f} ms, "
+                      f"{out['latency'][n]['ingest_ms_per_block']:.2f} ms a block [{CARD}]")
+            if cuda and n == n_streams:
+                pipe.reset()
+                pipe.push(waves[..., :3 * L * HOP])
+                profile_table(lambda: pipe.push(waves[..., 3 * L * HOP:4 * L * HOP]), "10",
+                              f"a push completing a block at N = {n}")
+            del pipe
+
+    # K1 and K2 at the block shapes, 10 calls back to back
+    if cuda:
+        out["kernels"] = {}
+        win = chunked.block_window_len(L, 3, N_FFT, HOP)
+        for n, _ in timing:
+            window = torch.from_numpy(foa_clips(rng, n, win / FS + 0.01)[..., :win]).to(dev)
+            re, im = chunked.block_spectra(window, FOA)
+            xr, xi = (x[..., FOA.lower_bin:FOA.upper_bin].transpose(-1, -2).contiguous()
+                      for x in (re, im))
+            xr0, xi0 = xr[:, 0].contiguous(), xi[:, 0].contiguous()
+            mask, state = noise_floor_mask(xr0, xi0, n_hop=3, n_frames=L)
+            kw = spatial_kw(FOA)
+            k1 = lambda: salsa_spatial(xr, xi, mask, **kw)  # noqa: E731
+            k2 = lambda: noise_floor_mask(xr0, xi0, n_hop=3, n_frames=L, state0=state)  # noqa: E731
+            t = {"k1_call": cuda_ms(k1, calls=CALLS), "k2_call": cuda_ms(k2, calls=CALLS),
+                 "k1": kernel_device_ms(k1, "salsa_spatial_kernel"),
+                 "k2": kernel_device_ms(k2, "noise_floor_kernel"),
+                 "k1_bound": k1_bound(xr.shape), "k2_bound": k2_bound(xr0.shape)}
+            out["kernels"][n] = t
+            for k, shape in (("k1", xr.shape), ("k2", xr0.shape)):
+                b_ms, b_by = t[f"{k}_bound"]
+                dev_ms = "not measured" if t[k] is None else \
+                    f"{t[k]:.4f} ms, {b_ms / t[k]:.1%} of the bound"
+                log("10", f"{k.upper()} at the block shape {tuple(shape)}: {CALLS} wrapper calls "
+                          f"back to back {t[k + '_call']:.4f} ms a call (CUDA events); the kernel "
+                          f"alone {dev_ms} (profiler device time a launch); bound {b_ms:.4f} ms "
+                          f"({b_by}) [{CARD}]")
+    return out
+
+
 def main() -> None:
     card = phase0()
     dev = torch.device("cuda", 0)
@@ -1335,9 +1734,14 @@ def main() -> None:
     bench_extract.main()
     torch.cuda.empty_cache()
     train = phase9(dev)
+    torch.cuda.empty_cache()
+    stream = phase10(dev)
     # library_ms: one PyTorch call computing the same function, where there is one
     # (cuDNN bf16 for K4, timed by the probe); none exists for K1-K3. `launches` is
-    # phase 4's serving run; K1's and K2's train_* keys are phase 9's cli.train
+    # phase 4's serving run; K1's and K2's train_* keys are phase 9's cli.train,
+    # their stream_* keys phase 10's streaming CLI runs and the block shape at N = 4
+    # (stream_block_ms the kernel's device time a launch, stream_block_call_ms a
+    # wrapper call's, 10 back to back)
     kernels = [
         {"name": "salsa_spatial", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/salsa_spatial.cu",
@@ -1347,7 +1751,12 @@ def main() -> None:
          "bound_by": times["k1_bound"][1], "library_ms": None,
          "train_launches": train["launches"]["salsa_spatial"], "train_step_ms": train["k1_step"],
          "train_step_bound_ms": train["k1_step_bound"][0],
-         "train_step_max_abs_err": train["k1_step_err"]},
+         "train_step_max_abs_err": train["k1_step_err"],
+         "stream_launches": stream["launches"]["salsa_spatial"],
+         "stream_block_ms": stream["kernels"][4]["k1"],
+         "stream_block_call_ms": stream["kernels"][4]["k1_call"],
+         "stream_block_bound_ms": stream["kernels"][4]["k1_bound"][0],
+         "stream_max_abs_err": stream["k1_err"]},
         {"name": "noise_floor", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/noise_floor.cu",
          "replaces": "salsa_tpu/features/salsa.py:82",
@@ -1358,7 +1767,11 @@ def main() -> None:
          "train_collect_launches": train["launches"]["noise_floor_collect"],
          "train_step_ms": train["k2_step"], "train_step_bound_ms": train["k2_step_bound"][0],
          "collect_states_ms": train["k2_collect"],
-         "collect_states_bound_ms": train["k2_collect_bound"][0]},
+         "collect_states_bound_ms": train["k2_collect_bound"][0],
+         "stream_launches": stream["launches"]["noise_floor"],
+         "stream_block_ms": stream["kernels"][4]["k2"],
+         "stream_block_call_ms": stream["kernels"][4]["k2_call"],
+         "stream_block_bound_ms": stream["kernels"][4]["k2_bound"][0]},
         {"name": "salsa_spatial_probe", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/salsa_spatial_probe.cu",
          "replaces": "scripts/probe_salsa_kernel.py:67",

@@ -36,6 +36,11 @@
 // - kTile and the producer-warp count were picked on an H100 with
 //   scripts/bench_noise_floor.py; the producers' copies and magnitudes, not the
 //   chain, set the pace (PERF.md).
+// restart (`noise_floor_launch`'s, for streaming): a byte per clip; the rows
+// of a flagged clip take the clip-start floor from this launch's first frames and
+// countdown 3, as with no entering state, while the other rows resume from theirs.
+// A stream pool starts a slot's new stream this way in the launch that carries
+// the other slots' streams on.
 // collect_states (a second instantiation, `noise_floor_states_launch`): the
 // consumer holds (floor, countdown) in registers before each step, and stores
 // that pre-state to floor_states / countdown_states laid out (clips, n_frames,
@@ -218,7 +223,8 @@ __device__ __forceinline__ void track_tile(const float* mag, uint32_t* words, in
 
 // xr0, xi0: (rows, n_frames + 2*n_hop) channel-0 planes, one row per (clip, bin).
 // floor0/countdown0: entering state per row, or null for the clip-start state.
-// n_frames >= 1. mask: (rows, n_frames) bytes; floor_out/countdown_out:
+// restart: null, or a byte per clip of n_bins rows; a nonzero byte gives its rows
+// the clip-start state whatever floor0 holds. n_frames >= 1. mask: (rows, n_frames) bytes; floor_out/countdown_out:
 // final state per row. With kCollect, floor_states/countdown_states: the state
 // entering every frame, (rows / n_bins, n_frames, n_bins). Warp 0 is the
 // consumer, warps 1.. the producers.
@@ -226,7 +232,7 @@ template <bool kCollect>
 __global__ void __launch_bounds__(kThreads) noise_floor_kernel(
     const float* __restrict__ xr0, const float* __restrict__ xi0,
     const float* __restrict__ floor0, const int* __restrict__ countdown0,
-    uint8_t* __restrict__ mask, float* __restrict__ floor_out,
+    const uint8_t* __restrict__ restart, uint8_t* __restrict__ mask, float* __restrict__ floor_out,
     int* __restrict__ countdown_out, float* __restrict__ floor_states,
     int* __restrict__ countdown_states, int rows, int n_frames, int n_bins, int n_hop,
     Tracker tr) {
@@ -240,9 +246,11 @@ __global__ void __launch_bounds__(kThreads) noise_floor_kernel(
   if (warp == 0) {
     const int row = row0 + lane;
     const bool live = row < rows;
+    bool start = floor0 == nullptr;
+    if (!start && restart != nullptr && live) start = restart[row / n_bins] != 0;
     float floor = 0.0f;
     int countdown = 3;
-    if (floor0 != nullptr && live) {
+    if (!start && live) {
       floor = floor0[row];
       countdown = countdown0[row];
     }
@@ -259,7 +267,7 @@ __global__ void __launch_bounds__(kThreads) noise_floor_kernel(
       const int st = k & 1;
       bar_sync(kBarFull + st, kThreads);
       const float* mag = &sm.mag[st][0][lane];
-      if (k == 0 && floor0 == nullptr) {
+      if (k == 0 && start) {
         // 0.5 * mean of the first min(5, n_frames) frames, summed in frame
         // order; frames past n_frames in the tile hold no data
         const int n0 = min(5, n_frames);
@@ -310,7 +318,7 @@ __global__ void __launch_bounds__(kThreads) noise_floor_kernel(
 
 template <bool kCollect>
 int launch(const void* xr0, const void* xi0, const void* floor0, const void* countdown0,
-           void* mask, void* floor_out, void* countdown_out, void* floor_states,
+           const void* restart, void* mask, void* floor_out, void* countdown_out, void* floor_states,
            void* countdown_states, int rows, int n_frames, int n_bins, int n_hop,
            const Tracker& tr, void* stream) {
   const int smem = static_cast<int>(sizeof(Smem));
@@ -321,7 +329,7 @@ int launch(const void* xr0, const void* xi0, const void* floor0, const void* cou
   noise_floor_kernel<kCollect><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xr0), static_cast<const float*>(xi0),
       static_cast<const float*>(floor0), static_cast<const int*>(countdown0),
-      static_cast<uint8_t*>(mask), static_cast<float*>(floor_out),
+      static_cast<const uint8_t*>(restart), static_cast<uint8_t*>(mask), static_cast<float*>(floor_out),
       static_cast<int*>(countdown_out), static_cast<float*>(floor_states),
       static_cast<int*>(countdown_states), rows, n_frames, n_bins, n_hop, tr);
   return static_cast<int>(cudaGetLastError());
@@ -329,14 +337,17 @@ int launch(const void* xr0, const void* xi0, const void* floor0, const void* cou
 
 }  // namespace
 
-// Launches on `stream`; returns the CUDA error code (0 on success).
+// Launches on `stream`; returns the CUDA error code (0 on success). restart: null,
+// or a byte per clip of n_bins rows (rows is then a whole number of clips); the
+// rows of a clip whose byte is nonzero start the clip at this launch's first frame
+// instead of resuming from floor0/countdown0.
 extern "C" int noise_floor_launch(const void* xr0, const void* xi0, const void* floor0,
-                                  const void* countdown0, void* mask, void* floor_out,
-                                  void* countdown_out, int rows, int n_frames, int n_hop,
-                                  float snr_ratio, float floor_up, float floor_up_slow,
-                                  float floor_down, void* stream) {
-  return launch<false>(xr0, xi0, floor0, countdown0, mask, floor_out, countdown_out, nullptr,
-                       nullptr, rows, n_frames, 1, n_hop,
+                                  const void* countdown0, const void* restart, void* mask,
+                                  void* floor_out, void* countdown_out, int rows, int n_frames,
+                                  int n_bins, int n_hop, float snr_ratio, float floor_up,
+                                  float floor_up_slow, float floor_down, void* stream) {
+  return launch<false>(xr0, xi0, floor0, countdown0, restart, mask, floor_out, countdown_out,
+                       nullptr, nullptr, rows, n_frames, n_bins, n_hop,
                        Tracker{snr_ratio, floor_up, floor_up_slow, floor_down}, stream);
 }
 
@@ -350,7 +361,7 @@ extern "C" int noise_floor_states_launch(const void* xr0, const void* xi0, const
                                          int n_bins, int n_hop, float snr_ratio,
                                          float floor_up, float floor_up_slow,
                                          float floor_down, void* stream) {
-  return launch<true>(xr0, xi0, floor0, countdown0, mask, floor_out, countdown_out,
+  return launch<true>(xr0, xi0, floor0, countdown0, nullptr, mask, floor_out, countdown_out,
                       floor_states, countdown_states, rows, n_frames, n_bins, n_hop,
                       Tracker{snr_ratio, floor_up, floor_up_slow, floor_down}, stream);
 }

@@ -26,6 +26,11 @@ frames past the clip's final STFT frame; the full-clip map wraps those to the cl
 start while a chunk reads the zero-padded tail. Clips at least a chunk long are
 exact.
 
+Streaming serving (`salsa_tpu_torch.streaming`) uses the block form,
+`make_salsa_block_fn`: a contiguous (N, C, win_len) sample window per stream whose
+frames need no wrap (the modulus is the window's own frame count), the tracker
+state carried in and out, one DFT matmul, one K2 launch and one K1 launch a block.
+
 Only `salsa` is ported; the other fused feature types of `salsa_tpu` raise
 NotImplementedError (ROADMAP queue 1, item 7).
 """
@@ -105,6 +110,24 @@ def chunk_spectra(waves: torch.Tensor, clips: torch.Tensor, f0: torch.Tensor,
     return (re, im), (pad(re_c, re), pad(im_c, im))
 
 
+def _salsa_from_spectra(re, im, re_pad, im_pad, p: SalsaParams, n_frames: int, state0,
+                        restart=None):
+    """SALSA features of n_frames frames from their spectra (B, C, n_frames, bins)
+    and the spectra with n_hopframes context frames a side (B, C, n_frames + 2h,
+    bins): log-linear spectrogram, then K2 from `state0` (None: the clip-start
+    state; `restart` (B,) bool: these clips start here) and K1. Returns (features
+    (B, 7, n_frames, freq_dim), the tracker state after the last frame)."""
+    h, n_band = p.n_hopframes, p.upper_bin - p.lower_bin
+    W = _compression_matrix(p.n_fft, p.compress_high_freq, re.device)
+    log_spec = power_to_db((re * re + im * im) @ W.T)        # (B, 4, L, F)
+    xr = re_pad[..., p.lower_bin:p.upper_bin].transpose(-1, -2).contiguous()
+    xi = im_pad[..., p.lower_bin:p.upper_bin].transpose(-1, -2).contiguous()
+    mask, state = noise_floor_mask(xr[:, 0].contiguous(), xi[:, 0].contiguous(), n_hop=h,
+                                   n_frames=n_frames, state0=state0, restart=restart)
+    eig = eig_features_from_planes(xr, xi, mask, p).transpose(-1, -2)  # (B, 3, L, nb)
+    return torch.cat([log_spec, F.pad(eig, (0, p.freq_dim - n_band))], dim=1), state
+
+
 def make_salsa_chunk_fn(p: SalsaParams, chunk_len: int):
     """Chunk extractor for SALSA (FOA and MIC).
 
@@ -117,20 +140,63 @@ def make_salsa_chunk_fn(p: SalsaParams, chunk_len: int):
     """
     h = p.n_hopframes
     win_length = p.win_length or p.n_fft
-    n_band = p.upper_bin - p.lower_bin
 
     def fn(waves, clips, f0, n_full, floor0, countdown0, wav_scale: float = 1.0):
         (re, im), (re_pad, im_pad) = chunk_spectra(
             waves, clips, f0, n_full, chunk_len, h, p.n_fft, p.hop_length, win_length,
             wav_scale)
-        W = _compression_matrix(p.n_fft, p.compress_high_freq, waves.device)
-        log_spec = power_to_db((re * re + im * im) @ W.T)        # (B, 4, L, F)
-        xr = re_pad[..., p.lower_bin:p.upper_bin].transpose(-1, -2).contiguous()
-        xi = im_pad[..., p.lower_bin:p.upper_bin].transpose(-1, -2).contiguous()
-        mask, _ = noise_floor_mask(xr[:, 0].contiguous(), xi[:, 0].contiguous(), n_hop=h,
-                                   n_frames=chunk_len, state0=(floor0, countdown0))
-        eig = eig_features_from_planes(xr, xi, mask, p).transpose(-1, -2)  # (B, 3, L, nb)
-        return torch.cat([log_spec, F.pad(eig, (0, p.freq_dim - n_band))], dim=1)
+        return _salsa_from_spectra(re, im, re_pad, im_pad, p, chunk_len, (floor0, countdown0))[0]
+
+    return fn
+
+
+def block_window_len(block_len: int, n_hop: int, n_fft: int, hop: int) -> int:
+    """Samples of a block's window: block_len frames and n_hop context frames a
+    side, each n_fft long, hop apart."""
+    return (block_len + 2 * n_hop - 1) * hop + n_fft
+
+
+def block_spectra(window: torch.Tensor, p: SalsaParams):
+    """STFT of every frame of block windows (N, C, win_len), float32 or int16 PCM
+    (decoded on its device as x / 32768, exact): (re, im), each (N, C, n_frames,
+    bins), frame j starting at sample j * hop."""
+    if window.dtype == torch.int16:
+        window = window.float() * (1.0 / 32768.0)
+    cos_mat, sin_mat = _windowed_dft_matrices(p.n_fft, p.win_length or p.n_fft, window.device)
+    frames = window.unfold(-1, p.n_fft, p.hop_length)          # (N, C, n_frames, n_fft)
+    return frames @ cos_mat, frames @ sin_mat
+
+
+def make_salsa_block_fn(p: SalsaParams, block_len: int):
+    """Block extractor for streaming: the contiguous form of the chunk function.
+
+    Returns fn(window, state0=None, reinit=None) -> (features (N, 7, block_len,
+    freq_dim), (floor, countdown) (N, bins_band)). window: (N, 4, win_len) samples
+    of N streams (`block_spectra`'s dtypes), win_len = block_window_len(...):
+    frames -h .. block_len + h - 1 of the block, so the context frames are the
+    window's own and the wrap modulus block_len + 2h is the identity. state0: the
+    tracker state entering the block (None: every row starts its clip here, K2's
+    own init); the state returned leaves its last frame. reinit: rows that start
+    their clip at this block while the others carry their state; K2 gives them the
+    clip-start state of this window in the same launch (its `restart` flags), the
+    state it computes for a stream that starts here. One DFT matmul, one K2 launch
+    and one K1 launch.
+    """
+    h = p.n_hopframes
+    win_len = block_window_len(block_len, h, p.n_fft, p.hop_length)
+    main = slice(h, h + block_len)
+
+    def fn(window: torch.Tensor, state0=None, reinit=None):
+        if window.dim() != 3 or window.shape[-1] != win_len:
+            raise ValueError(f"block window must be (N, C, {win_len}), got {tuple(window.shape)}")
+        re_pad, im_pad = block_spectra(window, p)
+        restart = None
+        if reinit and state0 is not None:
+            flags = np.zeros(window.shape[0], bool)
+            flags[list(reinit)] = True
+            restart = torch.from_numpy(flags).to(window.device)
+        return _salsa_from_spectra(re_pad[:, :, main], im_pad[:, :, main], re_pad, im_pad, p,
+                                   block_len, state0, restart)
 
     return fn
 

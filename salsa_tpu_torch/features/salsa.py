@@ -142,12 +142,15 @@ def noise_floor_scan(magspec: torch.Tensor, state0: tuple[torch.Tensor, torch.Te
 
 
 def noise_floor_mask_plain(xr0, xi0, *, n_hop, n_frames, snr_ratio=1.5, state0=None,
-                           collect_states=False):
+                           restart=None, collect_states=False):
     """Plain version of K2: tracking magnitude -> (initial state) -> tracker.
     Returns (mask, final state), and with collect_states the per-frame states."""
     mag = tracking_magspec_planes(xr0, xi0, n_hop, n_frames)
     if state0 is None:
         state0 = tracker_init_state(mag)
+    elif restart is not None:
+        start, sel = tracker_init_state(mag), restart[:, None]
+        state0 = (torch.where(sel, start[0], state0[0]), torch.where(sel, start[1], state0[1]))
     final, mask, *states = noise_floor_scan(mag, state0, snr_ratio, collect_states)
     return (mask, final, *states)
 
@@ -157,14 +160,17 @@ def noise_floor_mask_plain(xr0, xi0, *, n_hop, n_frames, snr_ratio=1.5, state0=N
 # ---------------------------------------------------------------------------
 
 def noise_floor_mask(xr0: torch.Tensor, xi0: torch.Tensor, *, n_hop: int, n_frames: int,
-                     snr_ratio: float = 1.5, state0=None, collect_states: bool = False):
+                     snr_ratio: float = 1.5, state0=None, restart: torch.Tensor | None = None,
+                     collect_states: bool = False):
     """Noise-tracker mask from channel-0 planes xr0/xi0 (B, bins, n_frames + 2*n_hop).
 
     Returns (mask (B, bins, n_frames) bool, (floor f32, countdown int32) (B, bins)),
     the state after the last frame. state0 resumes from a given entering state;
     None starts the clip (floor from the first min(5, n_frames) frames, countdown
-    3). With collect_states a third item holds the state entering every frame,
-    (floor f32, countdown int32) each (B, n_frames, bins). CUDA tensors launch
+    3). restart, a (B,) bool tensor beside state0, starts the flagged clips here
+    while the others resume (a stream pool's new stream in one slot). With
+    collect_states a third item holds the state entering every frame, (floor f32,
+    countdown int32) each (B, n_frames, bins). CUDA tensors launch
     `csrc/noise_floor.cu` once for the batch (its collect_states instantiation
     when asked); CPU tensors run `noise_floor_mask_plain`. Anything else raises.
     """
@@ -186,14 +192,20 @@ def noise_floor_mask(xr0: torch.Tensor, xi0: torch.Tensor, *, n_hop: int, n_fram
                 or floor0.device != xr0.device or countdown0.device != xr0.device):
             raise ValueError("state0 must be (floor f32, countdown int32), each "
                              f"{(B, n_bins)} on {xr0.device}")
+    if restart is not None:
+        if state0 is None or collect_states:
+            raise ValueError("restart goes with state0, and not with collect_states")
+        if restart.shape != (B,) or restart.dtype != torch.bool or restart.device != xr0.device:
+            raise ValueError(f"restart must be a ({B},) bool tensor on {xr0.device}")
     if xr0.device.type == "cpu":
         return noise_floor_mask_plain(xr0, xi0, n_hop=n_hop, n_frames=n_frames,
-                                      snr_ratio=snr_ratio, state0=state0,
+                                      snr_ratio=snr_ratio, state0=state0, restart=restart,
                                       collect_states=collect_states)
     if xr0.device.type != "cuda":
         raise ValueError(f"noise_floor_mask runs on cuda or cpu tensors, not {xr0.device}")
     if not (xr0.is_contiguous() and xi0.is_contiguous()
-            and (state0 is None or all(s.is_contiguous() for s in state0))):
+            and (state0 is None or all(s.is_contiguous() for s in state0))
+            and (restart is None or restart.is_contiguous())):
         raise ValueError("noise_floor_mask needs contiguous planes and state")
     lib = load_library()
     dev = xr0.device
@@ -213,8 +225,10 @@ def noise_floor_mask(xr0: torch.Tensor, xi0: torch.Tensor, *, n_hop: int, n_fram
                 n_frames, n_bins, n_hop, *consts, stream)
         else:
             err = lib.noise_floor_launch(
-                xr0.data_ptr(), xi0.data_ptr(), f0, c0, mask.data_ptr(), floor.data_ptr(),
-                countdown.data_ptr(), B * n_bins, n_frames, n_hop, *consts, stream)
+                xr0.data_ptr(), xi0.data_ptr(), f0, c0,
+                None if restart is None else restart.data_ptr(), mask.data_ptr(),
+                floor.data_ptr(), countdown.data_ptr(), B * n_bins, n_frames, n_bins, n_hop,
+                *consts, stream)
     check_launch("noise_floor_mask", err)
     noise_floor_mask.launches += 1
     if collect_states:

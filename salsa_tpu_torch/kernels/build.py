@@ -34,7 +34,7 @@ _F = ctypes.c_float
 # (argtypes) of every C entry point; each launcher returns its CUDA error code
 _SIGNATURES = {
     "salsa_spatial_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F, _P),
-    "noise_floor_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P),
+    "noise_floor_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P),
     "noise_floor_states_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                                   _F, _F, _P),
     "salsa_spatial_probe_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),

@@ -15,6 +15,37 @@ from salsa_tpu_torch.interop import load_flax_variables
 from salsa_tpu_torch.models.seld import interpolate_index_repeat
 
 
+def load_weights(model: nn.Module, state_dict: Mapping | None) -> nn.Module:
+    """Load a torch state_dict (strictly) or flax variables {'params',
+    'batch_stats'} (through `interop`) into `model`; None keeps its weights."""
+    if state_dict is not None and "params" in state_dict:
+        load_flax_variables(model, state_dict["params"], state_dict["batch_stats"])
+    elif state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    return model
+
+
+def normalize(feat: torch.Tensor, mean: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
+    """Scale the leading mean.shape[0] channels of (B, C, T, F) features; the
+    others (SALSA's spatial channels) pass as they are."""
+    n_sc = mean.shape[0]
+    return torch.cat([(feat[:, :n_sc] - mean) / std, feat[:, n_sc:]], dim=1)
+
+
+def heads(event_logit: torch.Tensor, doa: torch.Tensor, interp_ratio: float, n_classes: int,
+          output_format: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Encoder-rate outputs (B, T, n) and (B, T, 3n) -> (event_prob, doa) at label
+    rate: sigmoid of the event logits, or for accdoa the norm of each class's
+    DOA vector."""
+    event_logit = interpolate_index_repeat(event_logit, interp_ratio)
+    doa = interpolate_index_repeat(doa, interp_ratio)
+    if output_format == "accdoa":
+        n = n_classes
+        x, y, z = doa[..., :n], doa[..., n:2 * n], doa[..., 2 * n:]
+        return torch.sqrt(x**2 + y**2 + z**2), doa
+    return torch.sigmoid(event_logit), doa
+
+
 class SeldInferencePipeline:
     """waveform (n_ch, n_samples) or batch (B, n_ch, n_samples) -> predictions.
 
@@ -37,12 +68,8 @@ class SeldInferencePipeline:
         if output_format not in ("reg_xyz", "accdoa"):
             raise ValueError(f"unknown output format '{output_format}'")
         self.device = torch.device(device)
-        if state_dict is not None and "params" in state_dict:
-            load_flax_variables(model, state_dict["params"], state_dict["batch_stats"])
-        elif state_dict is not None:
-            model.load_state_dict(state_dict, strict=True)
         self.extractor = extractor
-        self.model = model.to(self.device).eval()
+        self.model = load_weights(model, state_dict).to(self.device).eval()
         mean, std = scaler
         self.mean = torch.as_tensor(np.asarray(mean, np.float32), device=self.device)
         self.std = torch.as_tensor(np.asarray(std, np.float32), device=self.device)
@@ -51,21 +78,14 @@ class SeldInferencePipeline:
         self.output_format = output_format
 
     def _normalize(self, feat: torch.Tensor) -> torch.Tensor:
-        n_sc = self.mean.shape[0]
-        head = (feat[:, :n_sc] - self.mean) / self.std
-        return torch.cat([head, feat[:, n_sc:]], dim=1)
+        return normalize(feat, self.mean, self.std)
 
     @torch.inference_mode()
     def forward(self, waves: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """(B, n_ch, n_samples) tensor on `device` -> (event_prob, doa) tensors."""
         out = self.model(self._normalize(self.extractor(waves)))
-        event_logit = interpolate_index_repeat(out["event_frame_logit"], self.interp_ratio)
-        doa = interpolate_index_repeat(out["doa_frame_output"], self.interp_ratio)
-        if self.output_format == "accdoa":
-            n = self.n_classes
-            x, y, z = doa[..., :n], doa[..., n:2 * n], doa[..., 2 * n:]
-            return torch.sqrt(x**2 + y**2 + z**2), doa
-        return torch.sigmoid(event_logit), doa
+        return heads(out["event_frame_logit"], out["doa_frame_output"], self.interp_ratio,
+                     self.n_classes, self.output_format)
 
     def __call__(self, waves) -> tuple[np.ndarray, np.ndarray]:
         """Returns (event_prob, doa_xyz) at label rate, as numpy arrays."""

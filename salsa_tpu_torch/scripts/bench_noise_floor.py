@@ -1,6 +1,8 @@
 """K2 builds side by side on one card: this tree's `csrc/noise_floor.cu` with other
 settings of its NF_* macros (frame tile, producer warps), and any other
-`noise_floor.cu` (an older commit's, unpacked with `git archive`).
+`noise_floor.cu` (an older commit's, unpacked with `git archive`) whose
+`noise_floor_launch` takes this tree's arguments (the restart pointer and n_bins
+among them).
 
     python -m salsa_tpu_torch.scripts.bench_noise_floor \
         [--variant NAME=MACRO=VALUE[,MACRO=VALUE] ...] [--source NAME=PATH ...]
@@ -68,9 +70,10 @@ def launch(lib: ctypes.CDLL, xr0: torch.Tensor, xi0: torch.Tensor, n_frames: int
     mask = torch.empty((B, n_bins, n_frames), dtype=torch.bool, device=xr0.device)
     floor = torch.empty((B, n_bins), dtype=torch.float32, device=xr0.device)
     countdown = torch.empty((B, n_bins), dtype=torch.int32, device=xr0.device)
-    err = lib.noise_floor_launch(xr0.data_ptr(), xi0.data_ptr(), None, None, mask.data_ptr(),
-                                 floor.data_ptr(), countdown.data_ptr(), B * n_bins, n_frames,
-                                 N_HOP, 1.5, FLOOR_UP, FLOOR_UP_SLOW, FLOOR_DOWN,
+    err = lib.noise_floor_launch(xr0.data_ptr(), xi0.data_ptr(), None, None, None,
+                                 mask.data_ptr(), floor.data_ptr(), countdown.data_ptr(),
+                                 B * n_bins, n_frames, n_bins, N_HOP, 1.5, FLOOR_UP,
+                                 FLOOR_UP_SLOW, FLOOR_DOWN,
                                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"noise_floor_launch: CUDA error {err}")

@@ -1,6 +1,7 @@
 """chip_smoke.py's CPU-side pieces: the K1 comparison that phase 2 holds the
-kernel to (validity masks, feature tolerance, MIC phases read on the circle) and
-the SASS instruction mix it prints."""
+kernel to (validity masks, feature tolerance, MIC phases read on the circle), the
+SASS instruction mix it prints, and phases 8, 9 and 10 cut down to run on the
+CPU."""
 import numpy as np
 import pytest
 
@@ -108,3 +109,25 @@ def test_phase9_trains_from_wav_on_the_cpu(capsys):
     assert out["step"]["step"] > 0 and all(np.isfinite(v) for v in out["scores"].values())
     text = capsys.readouterr().out
     assert "first step's loss" in text and "cli.predict served the trained best.msgpack" in text
+
+
+def test_phase10_streams_on_the_cpu(capsys):
+    """Phase 10 cut down on the CPU (one 1.2 s wav, 2 streams a dispatch and 2 pool
+    slots, 2.5 s streams for the checks, 8.5 s for the latencies): the extraction
+    and tracker checks, the four streaming CLI runs with their block dispatches
+    counted and their outputs held against each other, the latency split into
+    the pushes that ran the CRNN, those that only extracted and the flush. On CPU
+    tensors the kernels' wrappers run their plain versions and count nothing."""
+    out = chip_smoke.phase10(torch.device("cpu"), scenes=(("foa_one", 1.2, chip_smoke.FS),),
+                             n_streams=2, check_seconds=2.5, timing=((2, 8.5),),
+                             cpu_clip_s=1.0)
+    assert out["launches"]["salsa_spatial"] == out["launches"]["noise_floor"] == 0
+    assert out["launches"]["dispatches"] == 4  # one block a run, its flush on pad blocks
+    assert set(out["cli"]) == {"solo", "streams", "pcm16", "pool"}
+    lat = out["latency"][2]
+    # 681 frames: blocks 0-3 dispatch in the pushes, 2 and 3 predict, 4 in the flush
+    assert lat["blocks"] == 2 and len(lat["extract_only_ms"]) == 2
+    assert lat["flush_ms"] > 0 and lat["steady_x_realtime"] > 0 and "kernels" not in out
+    text = capsys.readouterr().out
+    assert "bit-equal to K2 collect_states over the whole stream" in text
+    assert "--pcm16 bit-equal to the float push" in text

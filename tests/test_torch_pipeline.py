@@ -272,6 +272,15 @@ HYGIENE = textwrap.dedent("""
            torch.full((2,), 33), *state)
     assert x.shape == (2, 7, 16, 200) and torch.isfinite(x).all(), x.shape
 
+    # streaming serving: the extractor, the pipeline and the pool
+    import salsa_tpu_torch.stream_pool as stream_pool
+    import salsa_tpu_torch.streaming as streaming
+
+    se = streaming.StreamingExtractor("salsa", "foa", block_frames=16, device="cpu")
+    blocks = se.push(np.random.default_rng(2).standard_normal((4, 9600)).astype(np.float32))
+    assert len(blocks) == 1 and blocks[0].shape == (7, 16, 200), [b.shape for b in blocks]
+    assert callable(stream_pool.SeldStreamPool) and callable(streaming.StreamingSeldPipeline)
+
     leaked = sorted(m for m in sys.modules if blocked(m))
     assert not leaked, leaked
     print("HYGIENE_OK")
