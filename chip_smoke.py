@@ -59,7 +59,18 @@ Phases, each printing what it found; any failure raises and exits non-zero:
      int16 bit-equal to floats, no zero-fill; a short clip against the CPU; the
      first block cold and warm, per-block latency (the pushes that ran the CRNN)
      and steady throughput on 160 s streams at N = 1, 4 and 16, the flush apart,
-     and K1 and K2 at the block shapes.
+     and K1 and K2 at the block shapes;
+ 11. the rest of the feature bank: every feature type, SALSA without tracking and
+     on the XLA power branch on seeded 4 x 60 s clips (FOA or a MIC array with
+     inter-mic delays) against the CPU's run and, at the golden's 1 s, against the
+     fixture (SALSA's exact eigensolver there only), K1 and K2 counted for each;
+     then configs/seld_salsa_lite.yml at full width: three requests through
+     SeldInferencePipeline (card vs CPU), `cli.predict` from disk (CSVs
+     byte-identical to the in-memory pipeline's), `cli.predict --streaming
+     --streams 4` and 4 streams' per-block latency, `cli.train` from wav (6 steps
+     at batch 32 x 8 s, the first step's loss against the CPU's), with K1 and K2
+     launching 0 times on every salsa_lite run; then the per-type extraction bench
+     `salsa_tpu_torch.scripts.bench_features` (8 x 60 s).
 The second-to-last line is a JSON summary of the kernels, each with its time,
 its plain version's, its bound (the larger of its bytes over the memory rate and
 its operations over the peak rate of their type) and, where one PyTorch call
@@ -91,6 +102,7 @@ from salsa_tpu_torch.cli import train as cli_train
 from salsa_tpu_torch.features import chunked
 from salsa_tpu_torch.dsp.stft import stft_planes
 from salsa_tpu_torch.features.registry import make_extractor
+from salsa_tpu_torch.features.salsa_lite import phase_scale
 from salsa_tpu_torch.features.salsa import (
     SalsaParams,
     band_planes,
@@ -115,7 +127,12 @@ from salsa_tpu_torch.models.layers import Dropout
 from salsa_tpu_torch.models.seld import build_model, init_random_
 from salsa_tpu_torch.pipeline import SeldInferencePipeline
 from salsa_tpu_torch.streaming import StreamingExtractor, StreamingSeldPipeline
-from salsa_tpu_torch.scripts import bench_extract, probe_pallas_conv, probe_salsa_kernel
+from salsa_tpu_torch.scripts import (
+    bench_extract,
+    bench_features,
+    probe_pallas_conv,
+    probe_salsa_kernel,
+)
 from salsa_tpu_torch.scripts.probe_pallas_conv import conv3x3_64, conv3x3_64_plain, rel_err
 from salsa_tpu_torch.scripts.probe_salsa_kernel import (
     VARIANTS,
@@ -857,11 +874,12 @@ SCENES = (("foa_a", 60.0, FS), ("foa_b", 60.0, FS), ("foa_c", 60.0, FS), ("foa_d
 CKPTS = (("epoch010", 10, 0.4), ("epoch020", 20, 0.6))  # (name, step, valSeld); 0.4 serves
 
 
-def foa_scene(rng: np.random.Generator, seconds: float, fs: int,
-              label_rate: int) -> tuple[np.ndarray, list[str]]:
-    """(4, n) float32 FOA audio with one directional source of a random class that
+def foa_scene(rng: np.random.Generator, seconds: float, fs: int, label_rate: int,
+              audio_format: str = "foa") -> tuple[np.ndarray, list[str]]:
+    """(4, n) float32 audio with one directional source of a random class that
     sounds for the first 3-7 s of every 10 s over diffuse noise, and its ground
-    truth as DCASE 2021 metadata rows `frame,class,0,azi,ele`."""
+    truth as DCASE 2021 metadata rows `frame,class,0,azi,ele`. FOA: first-order
+    ambisonic gains; MIC: four mics that hear the source 0-4 samples apart."""
     n = int(round(seconds * fs))
     t = np.arange(n) / fs
     cls, azi, ele = int(rng.integers(N_CLASSES)), int(rng.integers(-180, 180)), int(
@@ -870,51 +888,62 @@ def foa_scene(rng: np.random.Generator, seconds: float, fs: int,
     a, e = np.deg2rad(azi), np.deg2rad(ele)
     gains = np.array([1.0, np.sin(a) * np.cos(e), np.sin(e), np.cos(a) * np.cos(e)])
     src = (0.1 * rng.standard_normal(n) + 0.3 * np.sin(2 * np.pi * rng.uniform(300, 3000) * t))
-    audio = 0.01 * rng.standard_normal((4, n)) + gains[:, None] * (src * (t % 10.0 < on_s))
+    src = src * (t % 10.0 < on_s)
+    audio = 0.01 * rng.standard_normal((4, n))
+    if audio_format == "mic":
+        for m, d in enumerate(rng.integers(0, 5, 4)):
+            audio[m, d:] += src[:n - d]
+    else:
+        audio += gains[:, None] * src
     rows = [f"{f},{cls},0,{azi},{ele}" for f in range(int(seconds * label_rate))
             if (f / label_rate) % 10.0 < on_s]
     return audio.astype(np.float32), rows
 
 
-def write_experiment(root: str, scenes=SCENES, seed: int = SEED) -> dict:
-    """A `salsa_tpu` experiment as training leaves it, made from seeds: configs/seld.yml
-    copied verbatim, the CKPTS checkpoints of seeded random models written as flax
-    msgpack with their sidecars, the scaler, 16-bit wavs and their ground truth.
-    Returns its paths and the served checkpoint's torch weights."""
-    config = os.path.join(root, "seld.yml")
-    shutil.copyfile(SELD_YML, config)
+def write_experiment(root: str, scenes=SCENES, seed: int = SEED, config: str = SELD_YML) -> dict:
+    """A `salsa_tpu` experiment as training leaves it, made from seeds: `config`
+    (configs/seld.yml by default) copied verbatim, the CKPTS checkpoints of seeded
+    random models written as flax msgpack with their sidecars, the scaler (the
+    feature type's scaler channels and width), 16-bit wavs of the config's audio
+    format and their ground truth. Returns its paths and the served checkpoint's
+    torch weights."""
+    name = os.path.splitext(os.path.basename(config))[0]
+    config = shutil.copyfile(config, os.path.join(root, os.path.basename(config)))
     cfg = load_config(config)
     group = os.path.join(root, "outputs")
-    models = os.path.join(group, cfg.mode, cfg.data.audio_format, cfg.feature_type,
-                          "seld", "models")
+    models = os.path.join(group, cfg.mode, cfg.data.audio_format, cfg.feature_type, name,
+                          "models")
     weights = {}
-    for i, (name, step, val_seld) in enumerate(CKPTS):
+    for i, (ck, step, val_seld) in enumerate(CKPTS):
         model = init_random_(
             build_model(encoder=cfg.model.encoder.to_dict(), decoder=cfg.model.decoder.to_dict(),
                         n_classes=cfg.data.n_classes, output_format=cfg.data.output_format),
             torch.Generator().manual_seed(seed + i))
-        weights[name] = model.state_dict()
-        save_checkpoint(os.path.join(models, "best"), name,
-                        *torch_state_dict_to_flax(weights[name]), step,
+        weights[ck] = model.state_dict()
+        save_checkpoint(os.path.join(models, "best"), ck,
+                        *torch_state_dict_to_flax(weights[ck]), step,
                         {"epoch": step, "valSeld": val_seld})
+    ex = make_extractor(cfg.feature_type, cfg.data.audio_format,
+                        **cli_predict.feature_kwargs(cfg.data))
     rng = np.random.default_rng(seed)
+    shape = (ex.n_spec_channels, 1, ex.n_features)
     np.savez(os.path.join(models, "feature_scaler.npz"),
-             mean=rng.normal(-5.0, 1.0, (4, 1, 200)).astype(np.float32),
-             std=rng.uniform(5.0, 8.0, (4, 1, 200)).astype(np.float32))
+             mean=rng.normal(-5.0, 1.0, shape).astype(np.float32),
+             std=rng.uniform(5.0, 8.0, shape).astype(np.float32))
     wav_dir, gt_root = os.path.join(root, "wavs"), os.path.join(root, "task3")
     os.makedirs(wav_dir)
     os.makedirs(os.path.join(gt_root, "metadata_dev"))
-    for name, seconds, fs in scenes:
-        audio, rows = foa_scene(rng, seconds, fs, cfg.data.label_rate)
-        write_wav(os.path.join(wav_dir, f"{name}.wav"), audio, fs, bits=16)
-        with open(os.path.join(gt_root, "metadata_dev", f"{name}.csv"), "w") as f:
+    for wav, seconds, fs in scenes:
+        audio, rows = foa_scene(rng, seconds, fs, cfg.data.label_rate, cfg.data.audio_format)
+        write_wav(os.path.join(wav_dir, f"{wav}.wav"), audio, fs, bits=16)
+        with open(os.path.join(gt_root, "metadata_dev", f"{wav}.csv"), "w") as f:
             f.write("\n".join(rows) + "\n")
     served = min(CKPTS, key=lambda c: c[2])[0]
     return {"config": config, "group": group, "wav_dir": wav_dir, "gt_root": gt_root,
             "log": os.path.join(os.path.dirname(models), "logs", "log.txt"), "cfg": cfg,
             "scaler": os.path.join(models, "feature_scaler.npz"),
             "served": os.path.join(models, "best", f"{served}.msgpack"),
-            "weights": weights[served]}
+            "weights": weights[served], "scenes": scenes}
 
 
 class LogStamps(logging.Filter):
@@ -949,121 +978,129 @@ def serve_cli(dev, exp: dict, out_dir: str, batch_size: int) -> float:
 
 
 def phase8(dev, scenes=SCENES, batch_size: int = 4) -> dict:
-    """The serving CLI on an experiment from disk, held against the in-memory
-    pipeline, then scored. The CLI runs twice: first as a user's first call, then
-    again, warm, so the first call's extra time shows per log record. Returns the
-    launches, the CLI's served line and the host-clock times."""
+    """The serving CLI on an experiment from disk (configs/seld.yml), held against
+    the in-memory pipeline, then scored (`serve_from_disk`)."""
     with tempfile.TemporaryDirectory() as tmp:
-        exp = write_experiment(tmp, scenes)
-        cfg, d = exp["cfg"], exp["cfg"].data
-        out_dir = os.path.join(tmp, "preds")
-        stamps = LogStamps()
-        cli_logger = logging.getLogger("salsa_tpu_torch")
-        cli_logger.addFilter(stamps)
-        try:
-            salsa_spatial.launches = 0
-            noise_floor_mask.launches = 0
-            t0 = time.perf_counter()
-            call_s = serve_cli(dev, exp, out_dir, batch_size)
-            launches = {"salsa_spatial": salsa_spatial.launches,
-                        "noise_floor": noise_floor_mask.launches}
-            first_marks = stamps.since(t0)
-            with open(exp["log"]) as f:
-                log_text = f.read()
-            t0 = time.perf_counter()
-            warm_s = serve_cli(dev, exp, os.path.join(tmp, "preds_warm"), batch_size)
-            warm_marks = stamps.since(t0)
-        finally:
-            cli_logger.removeFilter(stamps)
-        restored = re.findall(r"restored (\S+)", log_text)
-        served = re.findall(r"served .*realtime\)", log_text)
-        if restored != [exp["served"]]:
-            raise AssertionError(f"the CLI restored {restored}, expected {exp['served']}")
+        return serve_from_disk(dev, write_experiment(tmp, scenes), tmp, batch_size, "8")
 
-        # the in-memory pipeline on the same decoded audio, grouped as the CLI groups
-        # (exact sample count, batch_size a group), from the served checkpoint's
-        # torch weights
-        model = build_model(encoder=cfg.model.encoder.to_dict(),
-                            decoder=cfg.model.decoder.to_dict(), n_classes=d.n_classes)
-        scaler = np.load(exp["scaler"])
-        pipe = SeldInferencePipeline(
-            make_extractor(cfg.feature_type, d.audio_format, fs=d.fs, n_fft=d.n_fft,
-                           hop_length=d.hop_len),
-            model, exp["weights"], (scaler["mean"], scaler["std"]),
-            model.time_downsample_ratio * d.label_rate / (d.fs / d.hop_len), d.n_classes,
-            d.output_format, device=dev)
-        groups, buckets = [], {}
-        spent = {"decode": 0.0, "requests": 0.0, "csv": 0.0}  # host clock, seconds
-        for name in sorted(os.listdir(exp["wav_dir"])):
-            t0 = time.perf_counter()
-            a, _ = read_wav(os.path.join(exp["wav_dir"], name), target_fs=d.fs)
-            spent["decode"] += time.perf_counter() - t0
-            buckets.setdefault(a.shape[1], []).append((name, a))
-            if len(buckets[a.shape[1]]) == batch_size:
-                groups.append(buckets.pop(a.shape[1]))
-        groups += [buckets[n] for n in sorted(buckets)]
-        ref_dir = os.path.join(tmp, "ref")
-        os.makedirs(ref_dir)
-        for group in groups:
-            t0 = time.perf_counter()
-            ev, doa = pipe(np.stack([a for _, a in group]))  # numpy out: synchronized
-            t1 = time.perf_counter()
-            for (name, _), e_row, d_row in zip(group, ev, doa):
-                write_classwise_csv(os.path.join(ref_dir, name[:-4] + ".csv"), e_row, d_row,
-                                    d.n_classes, sed_threshold=cfg.sed_threshold,
-                                    max_frames=e_row.shape[0], version=str(cfg.eval_version))
-            spent["requests"] += t1 - t0
-            spent["csv"] += time.perf_counter() - t1
-        want = {"salsa_spatial": len(groups), "noise_floor": len(groups)} \
-            if dev.type == "cuda" else {"salsa_spatial": 0, "noise_floor": 0}
-        log("8", f"cli.predict served {len(scenes)} wavs in {len(groups)} groups "
-                 f"{[len(g) for g in groups]} from {os.path.basename(restored[0])}; launches "
-                 f"{launches} [{CARD}]")
-        if launches != want:
-            raise AssertionError(f"expected one K1 and one K2 launch per group, got {launches}")
-        csvs = sorted(os.listdir(out_dir))
-        warm_dir = os.path.join(tmp, "preds_warm")
-        if csvs != sorted(f"{n}.csv" for n, _, _ in scenes) or csvs != sorted(
-                os.listdir(ref_dir)) or csvs != sorted(os.listdir(warm_dir)):
-            raise AssertionError(f"CSVs {csvs}, expected one per wav")
-        n_rows = 0
-        for name in csvs:
-            with open(os.path.join(out_dir, name), "rb") as f, \
-                    open(os.path.join(ref_dir, name), "rb") as g, \
-                    open(os.path.join(warm_dir, name), "rb") as h:
-                got, ref, again = f.read(), g.read(), h.read()
-            if got != ref or again != got:
-                raise AssertionError(f"{name}: the CLI's CSVs are not byte-identical to the "
-                                     "in-memory pipeline's")
-            n_rows += got.count(b"\n")
-        log("8", f"{len(csvs)} CSVs, {n_rows} event rows, byte-identical to the in-memory "
-                 "pipeline's and to the CLI's second call")
-        log("8", f"the CLI's log: {served[-1]} (host clock, wav decode included) [{CARD}]")
-        log("8", f"the CLI's first call, {call_s:.3f} s; seconds from its start to each "
-                 f"log record: {first_marks} [{CARD}]")
-        log("8", f"the CLI again, warm, {warm_s:.3f} s: {warm_marks} [{CARD}]")
-        log("8", "the same work again outside the CLI, host clock: wav decode "
-                 f"{spent['decode']:.3f} s (the 48 kHz clip's resampling included), "
-                 f"{len(groups)} pipeline calls {spent['requests']:.3f} s, CSV writing "
-                 f"{spent['csv']:.3f} s [{CARD}]")
 
-        scores = cli_evaluate.main(["--output-dir", out_dir, "--gt-meta-root-dir",
-                                    exp["gt_root"], "--n-classes", str(d.n_classes)])
-        if not all(np.isfinite(v) for v in scores.values()):
-            raise AssertionError(f"non-finite scores {scores}")
-        self_scores = cli_evaluate.main([
-            "--output-dir", os.path.join(exp["gt_root"], "metadata_dev"),
-            "--gt-meta-root-dir", exp["gt_root"], "--n-classes", str(d.n_classes)])
-        # the same (azimuth, elevation) twice: arccos of a cosine rounded to 1 - 1 ulp
-        # reads up to ~1e-6 degrees
-        if not (self_scores["ER"] == 0 and abs(self_scores["F1"] - 1) < 1e-9
-                and 0 <= self_scores["LE"] < 1e-4 and abs(self_scores["LR"] - 1) < 1e-9):
-            raise AssertionError(f"ground truth against itself: {self_scores}, expected ER 0, "
-                                 "F1 1, LE 0, LR 1")
-        log("8", "cli.evaluate, random weights against the ground truth: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in scores.items()))
-        log("8", "cli.evaluate, the ground truth against itself: " + ", ".join(
-            f"{k} {v:.3g}" for k, v in self_scores.items()))
+def serve_from_disk(dev, exp: dict, tmp: str, batch_size: int = 4, tag: str = "8") -> dict:
+    """The serving CLI on the experiment `exp` (written under `tmp`), held against
+    the in-memory pipeline, then scored. The CLI runs twice: first as a user's
+    first call, then again, warm, so the first call's extra time shows per log
+    record. On the card a SALSA experiment launches K1 and K2 once per group and
+    every other feature type neither. Returns the launches, the CLI's served line
+    and the host-clock times."""
+    scenes = exp["scenes"]
+    cfg, d = exp["cfg"], exp["cfg"].data
+    out_dir = os.path.join(tmp, "preds")
+    stamps = LogStamps()
+    cli_logger = logging.getLogger("salsa_tpu_torch")
+    cli_logger.addFilter(stamps)
+    try:
+        salsa_spatial.launches = 0
+        noise_floor_mask.launches = 0
+        t0 = time.perf_counter()
+        call_s = serve_cli(dev, exp, out_dir, batch_size)
+        launches = {"salsa_spatial": salsa_spatial.launches,
+                    "noise_floor": noise_floor_mask.launches}
+        first_marks = stamps.since(t0)
+        with open(exp["log"]) as f:
+            log_text = f.read()
+        t0 = time.perf_counter()
+        warm_s = serve_cli(dev, exp, os.path.join(tmp, "preds_warm"), batch_size)
+        warm_marks = stamps.since(t0)
+    finally:
+        cli_logger.removeFilter(stamps)
+    restored = re.findall(r"restored (\S+)", log_text)
+    served = re.findall(r"served .*realtime\)", log_text)
+    if restored != [exp["served"]]:
+        raise AssertionError(f"the CLI restored {restored}, expected {exp['served']}")
+
+    # the in-memory pipeline on the same decoded audio, grouped as the CLI groups
+    # (exact sample count, batch_size a group), from the served checkpoint's
+    # torch weights
+    model = build_model(encoder=cfg.model.encoder.to_dict(),
+                        decoder=cfg.model.decoder.to_dict(), n_classes=d.n_classes)
+    scaler = np.load(exp["scaler"])
+    pipe = SeldInferencePipeline(
+        make_extractor(cfg.feature_type, d.audio_format, **cli_predict.feature_kwargs(d)),
+        model, exp["weights"], (scaler["mean"], scaler["std"]),
+        model.time_downsample_ratio * d.label_rate / (d.fs / d.hop_len), d.n_classes,
+        d.output_format, device=dev)
+    groups, buckets = [], {}
+    spent = {"decode": 0.0, "requests": 0.0, "csv": 0.0}  # host clock, seconds
+    for name in sorted(os.listdir(exp["wav_dir"])):
+        t0 = time.perf_counter()
+        a, _ = read_wav(os.path.join(exp["wav_dir"], name), target_fs=d.fs)
+        spent["decode"] += time.perf_counter() - t0
+        buckets.setdefault(a.shape[1], []).append((name, a))
+        if len(buckets[a.shape[1]]) == batch_size:
+            groups.append(buckets.pop(a.shape[1]))
+    groups += [buckets[n] for n in sorted(buckets)]
+    ref_dir = os.path.join(tmp, "ref")
+    os.makedirs(ref_dir)
+    for group in groups:
+        t0 = time.perf_counter()
+        ev, doa = pipe(np.stack([a for _, a in group]))  # numpy out: synchronized
+        t1 = time.perf_counter()
+        for (name, _), e_row, d_row in zip(group, ev, doa):
+            write_classwise_csv(os.path.join(ref_dir, name[:-4] + ".csv"), e_row, d_row,
+                                d.n_classes, sed_threshold=cfg.sed_threshold,
+                                max_frames=e_row.shape[0], version=str(cfg.eval_version))
+        spent["requests"] += t1 - t0
+        spent["csv"] += time.perf_counter() - t1
+    k = len(groups) if dev.type == "cuda" and cfg.feature_type == "salsa" else 0
+    want = {"salsa_spatial": k, "noise_floor": k}
+    log(tag, f"cli.predict served {len(scenes)} wavs in {len(groups)} groups "
+             f"{[len(g) for g in groups]} from {os.path.basename(restored[0])}; launches "
+             f"{launches} [{CARD}]")
+    if launches != want:
+        raise AssertionError(f"expected {want} K1 and K2 launches ({cfg.feature_type}, "
+                             f"{len(groups)} groups), got {launches}")
+    csvs = sorted(os.listdir(out_dir))
+    warm_dir = os.path.join(tmp, "preds_warm")
+    if csvs != sorted(f"{n}.csv" for n, _, _ in scenes) or csvs != sorted(
+            os.listdir(ref_dir)) or csvs != sorted(os.listdir(warm_dir)):
+        raise AssertionError(f"CSVs {csvs}, expected one per wav")
+    n_rows = 0
+    for name in csvs:
+        with open(os.path.join(out_dir, name), "rb") as f, \
+                open(os.path.join(ref_dir, name), "rb") as g, \
+                open(os.path.join(warm_dir, name), "rb") as h:
+            got, ref, again = f.read(), g.read(), h.read()
+        if got != ref or again != got:
+            raise AssertionError(f"{name}: the CLI's CSVs are not byte-identical to the "
+                                 "in-memory pipeline's")
+        n_rows += got.count(b"\n")
+    log(tag, f"{len(csvs)} CSVs, {n_rows} event rows, byte-identical to the in-memory "
+             "pipeline's and to the CLI's second call")
+    log(tag, f"the CLI's log: {served[-1]} (host clock, wav decode included) [{CARD}]")
+    log(tag, f"the CLI's first call, {call_s:.3f} s; seconds from its start to each "
+             f"log record: {first_marks} [{CARD}]")
+    log(tag, f"the CLI again, warm, {warm_s:.3f} s: {warm_marks} [{CARD}]")
+    log(tag, "the same work again outside the CLI, host clock: wav decode "
+             f"{spent['decode']:.3f} s (the 48 kHz clip's resampling included), "
+             f"{len(groups)} pipeline calls {spent['requests']:.3f} s, CSV writing "
+             f"{spent['csv']:.3f} s [{CARD}]")
+
+    scores = cli_evaluate.main(["--output-dir", out_dir, "--gt-meta-root-dir",
+                                exp["gt_root"], "--n-classes", str(d.n_classes)])
+    if not all(np.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"non-finite scores {scores}")
+    self_scores = cli_evaluate.main([
+        "--output-dir", os.path.join(exp["gt_root"], "metadata_dev"),
+        "--gt-meta-root-dir", exp["gt_root"], "--n-classes", str(d.n_classes)])
+    # the same (azimuth, elevation) twice: arccos of a cosine rounded to 1 - 1 ulp
+    # reads up to ~1e-6 degrees
+    if not (self_scores["ER"] == 0 and abs(self_scores["F1"] - 1) < 1e-9
+            and 0 <= self_scores["LE"] < 1e-4 and abs(self_scores["LR"] - 1) < 1e-9):
+        raise AssertionError(f"ground truth against itself: {self_scores}, expected ER 0, "
+                             "F1 1, LE 0, LR 1")
+    log(tag, "cli.evaluate, random weights against the ground truth: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in scores.items()))
+    log(tag, "cli.evaluate, the ground truth against itself: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in self_scores.items()))
     return {"launches": launches, "served": served[-1], "call_s": call_s, "warm_s": warm_s,
             **spent}
 
@@ -1079,21 +1116,23 @@ TIMED_STEPS = 10  # steps timed after training; the median is of steps 3 onward
 
 
 def write_train_experiment(root: str, seconds: float = 60.0, seed: int = SEED,
-                           overrides=()) -> dict:
-    """A from-wav experiment made from seeds: configs/seld.yml with TRAIN_OVERRIDES
-    (and `overrides`), its ground-truth and split directories under `root`,
-    16-bit FOA wavs of one directional source each with DCASE metadata."""
-    cfg = load_config(SELD_YML)
+                           overrides=(), config: str = SELD_YML) -> dict:
+    """A from-wav experiment made from seeds: `config` (configs/seld.yml by default)
+    with TRAIN_OVERRIDES (and `overrides`), its ground-truth and split directories
+    under `root`, 16-bit wavs of the config's audio format, one directional
+    source each, with DCASE metadata."""
+    cfg = load_config(config)
     task3, meta = os.path.join(root, "task3"), os.path.join(root, "meta")
     apply_overrides(cfg, [*TRAIN_OVERRIDES, f"gt_meta_root_dir={task3}",
                           f"split_meta_dir={meta}", *overrides])
-    wav_dir, val_dir = os.path.join(task3, "foa_dev"), os.path.join(root, "val_wavs")
+    fmt = cfg.data.audio_format
+    wav_dir, val_dir = os.path.join(task3, f"{fmt}_dev"), os.path.join(root, "val_wavs")
     for d in (wav_dir, val_dir, os.path.join(task3, "metadata_dev"), meta):
         os.makedirs(d)
     rng = np.random.default_rng(seed + 9)
     for split, names in (("train", TRAIN_CLIPS), ("val", VAL_CLIPS)):
         for name in names:
-            audio, rows = foa_scene(rng, seconds, FS, cfg.data.label_rate)
+            audio, rows = foa_scene(rng, seconds, FS, cfg.data.label_rate, fmt)
             write_wav(os.path.join(wav_dir, f"{name}.wav"), audio, FS, bits=16)
             with open(os.path.join(task3, "metadata_dev", f"{name}.csv"), "w") as f:
                 f.write("\n".join(rows) + "\n")
@@ -1102,10 +1141,42 @@ def write_train_experiment(root: str, seconds: float = 60.0, seed: int = SEED,
                                 os.path.join(val_dir, f"{name}.wav"))
         with open(os.path.join(meta, f"{split}.csv"), "w") as f:
             f.write("filename\n" + "\n".join(names) + "\n")
-    config = os.path.join(root, "seld.yml")
-    save_config(cfg, config)
-    return {"config": config, "group": os.path.join(root, "outputs"), "cfg": cfg,
-            "val_wav_dir": val_dir, "wav_dir": wav_dir}
+    path = os.path.join(root, os.path.basename(config))
+    save_config(cfg, path)
+    name = os.path.splitext(os.path.basename(config))[0]
+    return {"config": path, "group": os.path.join(root, "outputs"), "cfg": cfg,
+            "val_wav_dir": val_dir, "wav_dir": wav_dir,
+            "exp_dir": os.path.join(root, "outputs", cfg.mode, fmt, cfg.feature_type, name)}
+
+
+def first_step_loss(tr, dev, tag: str) -> float:
+    """The first step's loss with every dropout off: the device against the CPU's
+    plain versions on copies of the same resident rows and weights; raises beyond
+    1e-4 relative. Returns the relative difference."""
+    for m in tr.model.modules():
+        if isinstance(m, Dropout):
+            m.p, m.generator = 0.0, None
+    model_cpu = copy.deepcopy(tr.model).cpu()
+    ids = tr._epoch_order(0)[:tr.batch_size]
+    i = torch.as_tensor(ids, device=dev)
+    with torch.no_grad():
+        x, sed, doa = tr.batch(ids)
+        loss_dev = float(tr.loss(tr.model.train()(x), sed, doa)[0])
+        t0 = time.perf_counter()
+        rows = [t[i].cpu() for t in (tr._clip, tr._f0, tr._n_full)]
+        state = ((None, None) if tr._floor_ck is None
+                 else (tr._floor_ck[i].cpu(), tr._cd_ck[i].cpu()))
+        x_cpu = tr.normalize(tr.chunk_fn(tr._waves.cpu(), *rows, *state, tr.wav_scale),
+                             tr._n_valid[i].cpu())
+        loss_cpu = float(tr.loss(model_cpu.train()(x_cpu), sed.cpu(), doa.cpu())[0])
+        cpu_s = time.perf_counter() - t0
+    rel = abs(loss_dev - loss_cpu) / abs(loss_cpu)
+    log(tag, f"first step's loss (batch {tr.batch_size}, dropout off): {dev.type} "
+             f"{loss_dev:.7f}, CPU plain versions {loss_cpu:.7f} ({cpu_s:.1f} s), "
+             f"relative difference {rel:.2e} (bound 1e-4)")
+    if not rel < 1e-4:
+        raise AssertionError(f"first step's loss: {loss_dev} on {dev} vs {loss_cpu} on the CPU")
+    return rel
 
 
 def check_k2_states(xr0, xi0, n_frames: int, what: str, state0=None):
@@ -1244,30 +1315,8 @@ def phase9(dev, seconds: float = 60.0, overrides=()) -> dict:
         tr = cli_train.build_trainer(exp["config"], exp["group"], exp_suffix="_check",
                                      device=dev)
         out["chunk_err"] = check_chunks(tr, dev)
-        # the first step's loss with every dropout off: the card against the CPU's
-        # plain versions on copies of the same resident rows and weights
-        for m in tr.model.modules():
-            if isinstance(m, Dropout):
-                m.p, m.generator = 0.0, None
-        model_cpu = copy.deepcopy(tr.model).cpu()
-        ids = tr._epoch_order(0)[:tr.batch_size]
-        i = torch.as_tensor(ids, device=dev)
-        with torch.no_grad():
-            x, sed, doa = tr.batch(ids)
-            loss_dev = float(tr.loss(tr.model.train()(x), sed, doa)[0])
-            t0 = time.perf_counter()
-            rows = [t[i].cpu() for t in (tr._clip, tr._f0, tr._n_full, tr._floor_ck, tr._cd_ck)]
-            x_cpu = tr.normalize(tr.chunk_fn(tr._waves.cpu(), *rows, tr.wav_scale),
-                                 tr._n_valid[i].cpu())
-            loss_cpu = float(tr.loss(model_cpu.train()(x_cpu), sed.cpu(), doa.cpu())[0])
-            cpu_s = time.perf_counter() - t0
-        rel = abs(loss_dev - loss_cpu) / abs(loss_cpu)
-        log("9", f"first step's loss (batch {tr.batch_size}, dropout off): {dev.type} "
-                 f"{loss_dev:.7f}, CPU plain versions {loss_cpu:.7f} ({cpu_s:.1f} s), "
-                 f"relative difference {rel:.2e} (bound 1e-4)")
-        if not rel < 1e-4:
-            raise AssertionError(f"first step's loss: {loss_dev} on {dev} vs {loss_cpu} on the CPU")
-        del tr, model_cpu, x, x_cpu
+        first_step_loss(tr, dev, "9")
+        del tr
         if cuda:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -1296,8 +1345,7 @@ def phase9(dev, seconds: float = 60.0, overrides=()) -> dict:
                                  f"its {n_steps} steps and K2 with collect_states at setup")
         log("9", "setup, host clock: " + ", ".join(
             f"{k} {v:.3f} s" for k, v in tr.setup_seconds.items()) + f" [{CARD}]")
-        exp_dir = os.path.join(exp["group"], cfg.mode, cfg.data.audio_format, cfg.feature_type,
-                               "seld")
+        exp_dir = exp["exp_dir"]
         ckpts = sorted(os.listdir(os.path.join(exp_dir, "models", "checkpoint")))
         want = [f"epoch{e:03d}.{x}" for e in range(tr.max_epochs) for x in ("json", "msgpack")]
         if ckpts != want:
@@ -1471,12 +1519,12 @@ def check_stream_extraction(dev, n_streams: int, seconds: float, rng) -> float:
 
 
 def streaming_pipeline(dev, exp: dict, n_streams: int) -> StreamingSeldPipeline:
-    """The served checkpoint's model, as the CLI builds it, in a streaming pipeline
-    at phase 10's geometry on `dev`."""
+    """The served checkpoint's model and the experiment's feature type, as the CLI
+    builds them, in a streaming pipeline at phase 10's geometry on `dev`."""
     cfg, d = exp["cfg"], exp["cfg"].data
     scaler = np.load(exp["scaler"])
-    se = StreamingExtractor("salsa", d.audio_format, fs=d.fs, n_fft=d.n_fft, hop_length=d.hop_len,
-                            block_frames=STREAM["block_frames"], n_streams=n_streams, device=dev)
+    se = StreamingExtractor(cfg.feature_type, d.audio_format, block_frames=STREAM["block_frames"],
+                            n_streams=n_streams, device=dev, **cli_predict.feature_kwargs(d))
     model = build_model(encoder=cfg.model.encoder.to_dict(), decoder=cfg.model.decoder.to_dict(),
                         n_classes=d.n_classes, output_format=d.output_format)
     return StreamingSeldPipeline(se, model, exp["weights"], (scaler["mean"], scaler["std"]),
@@ -1714,6 +1762,360 @@ def phase10(dev, scenes=SCENES, n_streams: int = 4, check_seconds: float = 9.7,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the rest of the feature bank, and configs/seld_salsa_lite.yml
+
+LITE_YML = os.path.join(REPO, "configs", "seld_salsa_lite.yml")
+# (feature_type, audio_format, options) on seeded 4 x 60 s clips: the 7 frame-local
+# types, SALSA through K1 and K2, SALSA without tracking and on the XLA power branch
+BANK = (("salsa_lite", "mic", {}), ("salsa_ipd", "mic", {}), ("linspeciv", "foa", {}),
+        ("melspeciv", "foa", {}), ("linspecgcc", "mic", {}), ("melspecgcc", "mic", {}),
+        ("melspec", "foa", {}), ("salsa", "foa", {}), ("salsa", "mic", {"is_tracking": False}),
+        ("salsa", "foa", {"eig_method": "power"}))
+# tests/test_golden_features.py's cases and bounds: (golden key, type, format,
+# options, spectrogram atol, other channels' atol); SALSA on the exact eigensolver,
+# which runs at the golden's 1 s only
+GOLDEN_BANK = (("melspec", "melspec", "foa", {"n_mels": 128}, None),
+               ("melspeciv", "melspeciv", "foa", {"n_mels": 128}, 1e-3),
+               ("melspecgcc", "melspecgcc", "mic", {"n_mels": 128}, 2e-3),
+               ("linspeciv", "linspeciv", "foa", {}, 1e-3),
+               ("linspecgcc", "linspecgcc", "mic", {}, 2e-3),
+               ("salsa_foa", "salsa", "foa", {"eig_method": "eigh"}, None),
+               ("salsa_mic", "salsa", "mic", {"eig_method": "eigh"}, None))
+# against the CPU: at least 99.99 % of cells within atol 2e-4, rtol 1e-4, and every
+# cell within (atol, rtol) of its group: the golden bounds of the spectrograms, IVs
+# and GCCs, K1's spatial bound for the IPDs. In a bin near a spectral null the power
+# is a small difference of large terms, so the two devices' DFT sums, taken in
+# other orders, part there by more than the first bound (tests/test_torch_features.py)
+ALL_CELLS = {"spec": (2e-2, 1e-3), "iv": (1e-3, 1e-2), "gcc": (2e-3, 1e-2), "ipd": (5e-3, 1e-2)}
+LITE_SCENES = tuple((f"mic_{c}", 60.0, FS) for c in "abcd") + (
+    ("mic_short", 20.7, FS), ("mic_48k", 30.0, 48000))
+
+
+def mic_clips(rng: np.random.Generator, n_clips: int, seconds: float) -> np.ndarray:
+    """(n_clips, 4, n) float32 MIC-array clips: diffuse noise and, per clip, a
+    broadband burst plus a tone that four mics hear 0-4 samples apart."""
+    n = int(round(seconds * FS))
+    t = np.arange(n) / FS
+    out = 0.02 * rng.standard_normal((n_clips, 4, n))
+    for b in range(n_clips):
+        on = (t % 10.0) < rng.uniform(3.0, 7.0)
+        src = (0.2 * rng.standard_normal(n) + np.sin(2 * np.pi * rng.uniform(300, 3000) * t)) * on
+        for m, d in enumerate(rng.integers(0, 5, 4)):
+            out[b, m, d:] += src[:n - d]
+    return out.astype(np.float32)
+
+
+def close_cells(got: np.ndarray, want: np.ndarray, group: str, what: str) -> float:
+    """ALL_CELLS's bound for one channel group; returns the max abs error."""
+    share = float(np.isclose(got, want, atol=2e-4, rtol=1e-4).mean())
+    if share < 0.9999:
+        raise AssertionError(f"{what} {group}: {share:.6f} of cells within 2e-4 / 1e-4")
+    atol, rtol = ALL_CELLS[group]
+    np.testing.assert_allclose(got, want, atol=atol, rtol=rtol, err_msg=f"{what} {group}")
+    return float(np.abs(got - want).max())
+
+
+def compare_feature(got: torch.Tensor, want: torch.Tensor, ft: str, ex, what: str,
+                    tag: str = "11") -> float:
+    """A feature map (B, C, T, F) on one device against the same on another: the
+    spectrograms, IVs, GCCs and the IPDs (on their circle) by `close_cells`,
+    SALSA's spatial channels by `compare_spatial` (MIC phases on their circle).
+    Returns the max abs error over the channels after the spectrograms."""
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{what}: shape {got.shape} vs {want.shape} or non-finite")
+    spec = close_cells(got[:, :4], want[:, :4], "spec", what)
+    if ft in ("salsa_lite", "salsa_ipd"):
+        p = ex.fn.params
+        period = (2 * np.pi / phase_scale(p).astype(np.float64))[p.lower_bin:p.cutoff_bin]
+        g, w = got[:, 4:], want[:, 4:]
+        rest = close_cells(g - np.round((g - w) / period) * period, w, "ipd", what)
+    elif ft == "salsa":
+        p = ex.fn.keywords["params"]
+        nb = p.upper_bin - p.lower_bin
+        if got[:, 4:, :, nb:].any():
+            raise AssertionError(f"{what}: spatial features above the DOA band")
+        rest = compare_spatial(*(torch.from_numpy(np.ascontiguousarray(
+            x[:, 4:, :, :nb].transpose(0, 1, 3, 2))) for x in (got, want)), what, phase=tag,
+            period=mic_period(p, nb) if p.audio_format == "mic" else None)
+    elif got.shape[1] > 4:
+        rest = close_cells(got[:, 4:], want[:, 4:], "gcc" if ft.endswith("gcc") else "iv", what)
+    else:
+        rest = 0.0
+    log(tag, f"{what}: spectrogram max abs err {spec:.3e} dB, the other channels "
+             f"{rest:.3e}")
+    return rest
+
+
+def bank_on_clips(dev, seconds: float, n_clips: int, rng) -> dict:
+    """Every case of BANK on seeded clips (FOA clips for the FOA types, a MIC
+    array for the MIC types) on `dev`, with K1's and K2's launches counted, held
+    against the port's CPU run: of every clip for the frame-local types, of the
+    first for SALSA (its plain tracker loops over frames on the CPU); timed."""
+    cuda = dev.type == "cuda"
+    clips = {"foa": foa_clips(rng, n_clips, seconds), "mic": mic_clips(rng, n_clips, seconds)}
+    out = {}
+    for ft, fmt, opts in BANK:
+        ex = make_extractor(ft, fmt, fs=FS, n_fft=N_FFT, hop_length=HOP, **opts)
+        name = "-".join([ft, fmt] + [f"{k}={v}" for k, v in opts.items()])
+        waves = torch.from_numpy(clips[fmt]).to(dev)
+        salsa_spatial.launches = noise_floor_mask.launches = 0
+        with torch.inference_mode():
+            got = ex(waves)
+            if cuda:
+                torch.cuda.synchronize()
+            launches = {"salsa_spatial": salsa_spatial.launches,
+                        "noise_floor": noise_floor_mask.launches}
+            p = ex.fn.keywords["params"] if ft == "salsa" else None
+            want = {"salsa_spatial": int(cuda and p is not None and p.uses_k1),
+                    "noise_floor": int(cuda and p is not None and p.is_tracking)}
+            if launches != want:
+                raise AssertionError(f"{name}: launches {launches}, expected {want}")
+            ms = cuda_ms(lambda: ex(waves)) if cuda else float("nan")
+            n_cpu = 1 if ft == "salsa" else n_clips
+            t0 = time.perf_counter()
+            ref = ex(torch.from_numpy(clips[fmt][:n_cpu]))
+            cpu_s = time.perf_counter() - t0
+        err = compare_feature(got[:n_cpu], ref, ft, ex,
+                              f"{name} {tuple(got.shape)} on {dev.type} vs the CPU's "
+                              f"{n_cpu} clip(s)")
+        out[name] = {"ms": ms, "launches": launches, "err": err, "cpu_s": cpu_s}
+        log("11", f"{name}: {n_clips} x {seconds:g} s in {ms:.3f} ms (CUDA events, median of "
+                  f"7), {ms / n_clips:.3f} ms a clip; launches {launches}; the CPU's "
+                  f"{n_cpu} clip(s) {cpu_s:.2f} s [{CARD}]")
+    return out
+
+
+def bank_on_golden(dev) -> None:
+    """GOLDEN_BANK on `dev` against tests/golden/reference_features.npz."""
+    golden = np.load(GOLDEN)
+    audio = torch.from_numpy(golden["audio"])[None].to(dev)
+    for key, ft, fmt, opts, rest_atol in GOLDEN_BANK:
+        ex = make_extractor(ft, fmt, fs=int(golden["fs"]), n_fft=int(golden["n_fft"]),
+                            hop_length=int(golden["hop"]), **opts)
+        with torch.inference_mode():
+            got = ex(audio)[0].cpu().numpy()
+        want = golden[key]
+        if got.shape != want.shape:
+            raise AssertionError(f"golden {key}: shape {got.shape} vs {want.shape}")
+        np.testing.assert_allclose(got[:4], want[:4], atol=2e-2, rtol=1e-3, err_msg=key)
+        msg = f"golden {key} ({ft} {fmt} {opts}) {got.shape}: spec max err " \
+              f"{np.abs(got[:4] - want[:4]).max():.3e} dB"
+        if ft == "salsa":
+            ref_mask, got_mask = np.any(want[4:] != 0, axis=0), np.any(got[4:] != 0, axis=0)
+            disagree = float(np.mean(ref_mask != got_mask))
+            if disagree >= 0.01:
+                raise AssertionError(f"golden {key}: masks disagree on {disagree:.3%}")
+            both = ref_mask & got_mask
+            np.testing.assert_allclose(got[4:][:, both], want[4:][:, both], atol=5e-3,
+                                       rtol=1e-2, err_msg=key)
+            msg += f", mask disagreement {disagree:.4%}"
+        elif rest_atol is not None:
+            np.testing.assert_allclose(got[4:], want[4:], atol=rest_atol, rtol=1e-2, err_msg=key)
+            msg += f", other channels max err {np.abs(got[4:] - want[4:]).max():.3e}"
+        log("11", msg + " (tests/test_golden_features.py's bounds)")
+
+
+def lite_requests(dev, rng, request_seconds=(60.0, 60.0, 20.7)) -> dict:
+    """configs/seld_salsa_lite.yml at full width, random seeded weights: three
+    requests (4, 2 and 1 MIC clips) through SeldInferencePipeline with K1 and K2
+    counted (0), each clip equal to its solo run, one clip on the device against
+    the CPU's run, and the request's times."""
+    cuda = dev.type == "cuda"
+    cfg = load_config(LITE_YML)
+    d = cfg.data
+    model = init_random_(build_model(encoder=cfg.model.encoder.to_dict(),
+                                     decoder=cfg.model.decoder.to_dict(), n_classes=d.n_classes,
+                                     output_format=d.output_format),
+                         torch.Generator().manual_seed(SEED + 30))
+    ex = make_extractor(cfg.feature_type, d.audio_format, **cli_predict.feature_kwargs(d))
+    scaler = (rng.normal(-5.0, 1.0, (4, 1, ex.n_features)).astype(np.float32),
+              rng.uniform(5.0, 8.0, (4, 1, ex.n_features)).astype(np.float32))
+    pipe = SeldInferencePipeline(ex, model, None, scaler, INTERP, d.n_classes, d.output_format,
+                                 device=dev)
+    requests = [mic_clips(rng, n, s) for n, s in zip((4, 2, 1), request_seconds)]
+    salsa_spatial.launches = noise_floor_mask.launches = 0
+    outs = [pipe(w) for w in requests]
+    launches = {"salsa_spatial": salsa_spatial.launches, "noise_floor": noise_floor_mask.launches}
+    log("11", f"seld_salsa_lite: served {len(requests)} requests {[w.shape for w in requests]}; "
+              f"launches {launches}")
+    if launches != {"salsa_spatial": 0, "noise_floor": 0}:
+        raise AssertionError(f"seld_salsa_lite launched K1 or K2: {launches}")
+    for w, (ev, doa) in zip(requests, outs):
+        n_labels = int(round(((1 + w.shape[-1] // HOP) // 16) * INTERP))
+        check_outputs(ev, doa, w.shape[0], n_labels, f"seld_salsa_lite request {w.shape}")
+        for b in range(w.shape[0]):
+            ev1, doa1 = pipe(w[b:b + 1])
+            diff = max(np.abs(ev1[0] - ev[b]).max(), np.abs(doa1[0] - doa[b]).max())
+            if diff > 1e-4:
+                raise AssertionError(f"seld_salsa_lite {w.shape} clip {b}: solo differs by {diff}")
+    clip = requests[0][:1]
+    cpu_pipe = SeldInferencePipeline(ex, copy.deepcopy(pipe.model).cpu(), None, scaler, INTERP,
+                                     d.n_classes, d.output_format, device="cpu")
+    ev_c, doa_c = cpu_pipe(clip)
+    out = {"launches": launches}
+    for name, g, c in (("event_prob", outs[0][0][:1], ev_c), ("doa", outs[0][1][:1], doa_c)):
+        err = np.abs(g - c)
+        share = float(np.mean(err <= 2e-3))
+        log("11", f"seld_salsa_lite {dev.type} vs CPU {name}: max abs err {err.max():.3e}, "
+                  f"share within 2e-3 {share:.5f}")
+        if share < 0.999 or err.max() > 2e-2:
+            raise AssertionError(f"seld_salsa_lite {name}: share {share}, max {err.max()}")
+        out[f"{name}_err"] = float(err.max())
+    if cuda:
+        req = requests[0]
+        times = []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            pipe(req)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["request_ms"] = statistics.median(times[1:])
+        waves = torch.from_numpy(req).to(dev)
+        with torch.inference_mode():
+            feats = pipe._normalize(ex(waves))
+            out["extract_ms"] = cuda_ms(lambda: ex(waves))
+            out["crnn_ms"] = cuda_ms(lambda: pipe.model(feats))
+        secs = req.shape[0] * req.shape[-1] / FS
+        log("11", f"seld_salsa_lite request {req.shape}: {out['request_ms']:.2f} ms median of 7 "
+                  f"(host clock), {secs / out['request_ms'] * 1e3:.1f}x realtime; extraction "
+                  f"{out['extract_ms']:.3f} ms, CRNN {out['crnn_ms']:.2f} ms (CUDA events) "
+                  f"[{CARD}]")
+        profile_table(lambda: pipe(req), "11", "one seld_salsa_lite request")
+    return out
+
+
+def lite_train(dev, seconds: float = 60.0, overrides=()) -> dict:
+    """configs/seld_salsa_lite.yml trained from raw wavs: 4 chunks on the device
+    against the full-clip slices, the first step's loss against the CPU's, then
+    `cli.train` for one epoch of 6 steps with K1 and K2 counted (0), the steps
+    timed, validation and the trained experiment served."""
+    cuda = dev.type == "cuda"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = write_train_experiment(tmp, seconds, overrides=("training.max_epochs=1",
+                                                              *overrides), config=LITE_YML)
+        tr = cli_train.build_trainer(exp["config"], exp["group"], exp_suffix="_check",
+                                     device=dev)
+        clip0 = np.flatnonzero(tr.train_data.clip_of_chunk == 0)
+        ids = np.array([clip0[0], clip0[len(clip0) // 2], clip0[-1],
+                        np.flatnonzero(tr.train_data.clip_of_chunk == 1)[0]])
+        i = torch.as_tensor(ids, device=dev)
+        d = exp["cfg"].data
+        ex = make_extractor(exp["cfg"].feature_type, d.audio_format, **cli_predict.feature_kwargs(d))
+        with torch.inference_mode():
+            got = tr.chunk_fn(tr._waves, tr._clip[i], tr._f0[i], tr._n_full[i], None, None,
+                              tr.wav_scale)
+            full = ex(torch.from_numpy(np.stack(tr.train_data.clip_wavs[:2])).to(dev))
+            L = tr.chunk_len
+            want = torch.stack([full[int(tr._clip[c]), :, int(tr._f0[c]):int(tr._f0[c]) + L]
+                                for c in ids])
+        out["chunk_err"] = compare_feature(got, want, "salsa_lite", ex,
+                                           f"seld_salsa_lite: 4 chunks {tuple(got.shape)} vs "
+                                           "the full-clip slices")
+        out["first_step_rel"] = first_step_loss(tr, dev, "11")
+        del tr
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        salsa_spatial.launches = noise_floor_mask.launches = 0
+        noise_floor_mask.collect_launches = 0
+        t0 = time.perf_counter()
+        tr = cli_train.train(exp["config"], exp["group"], device=dev)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = {"salsa_spatial": salsa_spatial.launches,
+                    "noise_floor": noise_floor_mask.launches,
+                    "noise_floor_collect": noise_floor_mask.collect_launches}
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else float("nan")
+        n_steps = tr.steps_per_epoch * tr.max_epochs
+        log("11", f"seld_salsa_lite cli.train: {len(TRAIN_CLIPS)} x {seconds:g} s MIC train "
+                  f"clips, {n_steps} steps at batch {tr.batch_size}: {wall:.2f} s host clock; "
+                  f"launches {launches}; peak memory {peak:.2f} GiB; setup " + ", ".join(
+                      f"{k} {v:.3f} s" for k, v in tr.setup_seconds.items()) + f" [{CARD}]")
+        if any(launches.values()) or "tracker_checkpoints" in tr.setup_seconds:
+            raise AssertionError(f"seld_salsa_lite training launched K1 or K2: {launches}")
+        times = timed_steps(tr, dev, TIMED_STEPS)
+        chunk_s = tr.chunk_len * d.hop_len / d.fs
+        log("11", f"seld_salsa_lite train step, median of steps 3-{TIMED_STEPS}: "
+                  f"{times['step']:.2f} ms = extraction {times['extract']:.2f} + forward and "
+                  f"backward {times['fwd_bwd']:.2f} + optimizer {times['optimizer']:.2f} ms; "
+                  f"{1e3 / times['step']:.2f} steps/s, "
+                  f"{tr.batch_size * chunk_s * 1e3 / times['step']:.1f}x realtime [{CARD}]")
+        scores = tr.validate()
+        if not all(np.isfinite(v) for v in scores.values()):
+            raise AssertionError(f"seld_salsa_lite validation scores {scores}")
+        out.update(launches=launches, step=times, peak_gib=peak, wall_s=wall, scores=scores,
+                   n_steps=n_steps)
+    return out
+
+
+def phase11(dev, seconds: float = 60.0, n_clips: int = 4, scenes=LITE_SCENES,
+            request_seconds=(60.0, 60.0, 20.7), train_seconds: float = 60.0,
+            train_overrides=(), stream_seconds: float = 60.0, n_streams: int = 4) -> dict:
+    """The rest of the feature bank on `dev`: every type on seeded clips against
+    its CPU run, at the golden's 1 s against the fixture; then
+    configs/seld_salsa_lite.yml at full width served in memory, from disk by
+    `cli.predict` (CSVs byte-identical to the in-memory pipeline's), trained from
+    wav by `cli.train`, and streamed by `cli.predict --streaming --streams N`, with
+    K1 and K2 counted on every salsa_lite run (0); then the per-type extraction
+    bench on the card."""
+    cuda = dev.type == "cuda"
+    if cuda:  # a card that slows down mid-run shows here (SM clock, power, temperature)
+        log("11", f"card: {smi('clocks.sm,power.draw,temperature.gpu')}")
+    rng = np.random.default_rng(SEED + 20)
+    out = {"bank": bank_on_clips(dev, seconds, n_clips, rng)}
+    bank_on_golden(dev)
+    out["requests"] = lite_requests(dev, rng, request_seconds)
+    lite = [out["requests"]["launches"]]
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = write_experiment(tmp, scenes, config=LITE_YML)
+        out["disk"] = serve_from_disk(dev, exp, tmp, tag="11")
+        lite.append(out["disk"]["launches"])
+        r = serve_stream_cli(dev, exp, os.path.join(tmp, "streams"), streams=n_streams)
+        csvs = sorted(os.listdir(os.path.join(tmp, "streams")))
+        log("11", f"seld_salsa_lite cli.predict --streaming --streams {n_streams}: {len(csvs)} "
+                  f"CSVs in {r['secs']:.3f} s; launches {r['counts']} [{CARD}]")
+        log("11", f"  its log: {r['line']} [{CARD}]")
+        if csvs != sorted(f"{n}.csv" for n, _, _ in scenes) or r["counts"]["dispatches"] < 1:
+            raise AssertionError(f"seld_salsa_lite streaming: CSVs {csvs}, {r['counts']}")
+        lite.append({k: r["counts"][k] for k in ("salsa_spatial", "noise_floor")})
+        out["stream_cli"] = {"secs": r["secs"], "line": r["line"], "counts": r["counts"]}
+        # per-block latency at N streams in memory, as phase 10 reads it
+        pipe = streaming_pipeline(dev, exp, n_streams)
+        waves = mic_clips(rng, n_streams, stream_seconds)
+        push = int(STREAM["push_ms"] * FS / 1000)
+        stream_push(pipe, waves[..., :2 * STREAM["block_frames"] * HOP], push)  # warm-up
+        pipe.reset()
+        salsa_spatial.launches = noise_floor_mask.launches = 0
+        _, t = stream_push(pipe, waves, push)
+        lite.append({"salsa_spatial": salsa_spatial.launches,
+                     "noise_floor": noise_floor_mask.launches})
+        lat = t["crnn"]
+        out["stream"] = {"p50_ms": float(np.percentile(lat, 50)),
+                         "p95_ms": float(np.percentile(lat, 95)), "blocks": len(lat),
+                         "steady_x_realtime": n_streams * t["steady_samples"] / FS / t["steady_s"]}
+        log("11", f"seld_salsa_lite {n_streams} streams x {stream_seconds:g} s: per-block "
+                  f"latency p50 {out['stream']['p50_ms']:.2f} / p95 {out['stream']['p95_ms']:.2f} "
+                  f"ms over the {len(lat)} pushes that ran the CRNN; steady "
+                  f"{out['stream']['steady_x_realtime']:.1f}x realtime aggregate [{CARD}]")
+        del pipe
+    out["train"] = train = lite_train(dev, train_seconds, train_overrides)
+    lite.append({k: train["launches"][k] for k in ("salsa_spatial", "noise_floor")})
+    out["lite_launches"] = {k: sum(c[k] for c in lite) for k in ("salsa_spatial", "noise_floor")}
+    log("11", f"K1 and K2 launches over every seld_salsa_lite run: {out['lite_launches']}")
+    if any(out["lite_launches"].values()):
+        raise AssertionError(f"seld_salsa_lite launched K1 or K2: {out['lite_launches']}")
+    if cuda:
+        torch.cuda.empty_cache()
+        log("11", f"card: {smi('clocks.sm,power.draw,temperature.gpu')}")
+        log("11", f"bench_features, 8 x 60 s clips a call, 5 calls [{CARD}]")
+        out["bench"] = bench_features.main([])
+    return out
+
+
 def main() -> None:
     card = phase0()
     dev = torch.device("cuda", 0)
@@ -1736,12 +2138,15 @@ def main() -> None:
     train = phase9(dev)
     torch.cuda.empty_cache()
     stream = phase10(dev)
+    torch.cuda.empty_cache()
+    bank = phase11(dev)
     # library_ms: one PyTorch call computing the same function, where there is one
     # (cuDNN bf16 for K4, timed by the probe); none exists for K1-K3. `launches` is
     # phase 4's serving run; K1's and K2's train_* keys are phase 9's cli.train,
     # their stream_* keys phase 10's streaming CLI runs and the block shape at N = 4
     # (stream_block_ms the kernel's device time a launch, stream_block_call_ms a
-    # wrapper call's, 10 back to back)
+    # wrapper call's, 10 back to back), salsa_lite_launches phase 11's
+    # configs/seld_salsa_lite.yml runs (0)
     kernels = [
         {"name": "salsa_spatial", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/salsa_spatial.cu",
@@ -1756,7 +2161,8 @@ def main() -> None:
          "stream_block_ms": stream["kernels"][4]["k1"],
          "stream_block_call_ms": stream["kernels"][4]["k1_call"],
          "stream_block_bound_ms": stream["kernels"][4]["k1_bound"][0],
-         "stream_max_abs_err": stream["k1_err"]},
+         "stream_max_abs_err": stream["k1_err"],
+         "salsa_lite_launches": bank["lite_launches"]["salsa_spatial"]},
         {"name": "noise_floor", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/noise_floor.cu",
          "replaces": "salsa_tpu/features/salsa.py:82",
@@ -1771,7 +2177,8 @@ def main() -> None:
          "stream_launches": stream["launches"]["noise_floor"],
          "stream_block_ms": stream["kernels"][4]["k2"],
          "stream_block_call_ms": stream["kernels"][4]["k2_call"],
-         "stream_block_bound_ms": stream["kernels"][4]["k2_bound"][0]},
+         "stream_block_bound_ms": stream["kernels"][4]["k2_bound"][0],
+         "salsa_lite_launches": bank["lite_launches"]["noise_floor"]},
         {"name": "salsa_spatial_probe", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/salsa_spatial_probe.cu",
          "replaces": "scripts/probe_salsa_kernel.py:67",

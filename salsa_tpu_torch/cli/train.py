@@ -5,9 +5,10 @@
         --exp-group-dir ./outputs [--exp-suffix _run1] \
         --set training.from_wav=true --set feature_root_dir=null
 
-It reads the train split's wavs, fits the feature scaler on the card (K1 and K2),
-saves it as `models/feature_scaler.npz`, extracts the val split, and trains with
-the chunks extracted inside every step (`train.trainer.SeldTrainer`), writing
+It reads the train split's wavs, fits the feature scaler on the card (for SALSA
+with K1 and K2; every feature type of `salsa_tpu` is taken), saves it as
+`models/feature_scaler.npz`, extracts the val split, and trains with the chunks
+extracted inside every step (`train.trainer.SeldTrainer`), writing
 `epochNNN` and `best` checkpoints in flax's msgpack format. The experiment it
 leaves is served by `salsa_tpu_torch.cli.predict` and by `salsa_tpu.cli.predict`.
 
@@ -90,8 +91,9 @@ def build_trainer(exp_config: str, exp_group_dir: str = "./outputs", exp_suffix:
         cfg.gt_meta_root_dir, f"{d.audio_format}_dev")
     extractor = make_extractor(
         cfg.feature_type, d.audio_format, fs=d.fs, n_fft=d.n_fft, hop_length=d.hop_len,
-        win_length=d.get("win_len", d.n_fft), fmin_doa=d.get("fmin_doa", 50),
-        fmax_doa=d.get("fmax_doa", None))
+        win_length=d.get("win_len", d.n_fft), n_mels=d.get("n_mels", 128),
+        fmin=d.get("fmin", 50), fmax=d.get("fmax", None), fmin_doa=d.get("fmin_doa", 50),
+        fmax_doa=d.get("fmax_doa", None), eig_method=cfg.training.get("eig_method", "auto"))
     # built before any data is read: an unported model config refuses at once
     model = build_model(encoder=cfg.model.encoder.to_dict(), decoder=cfg.model.decoder.to_dict(),
                         n_classes=d.n_classes, output_format=d.get("output_format", "reg_xyz"))
@@ -104,7 +106,7 @@ def build_trainer(exp_config: str, exp_group_dir: str = "./outputs", exp_suffix:
     train_data = load_wav_split(
         db, train_split, audio_dir, split_meta_dir=split_meta_dir,
         wav_dtype=cfg.training.get("wav_dtype", "float32"), n_channels=extractor.n_channels,
-        n_features=extractor.n_features, pad=required_pad(d.n_fft))
+        n_features=extractor.n_features, pad=required_pad(cfg.feature_type, d.n_fft))
     seconds["read"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     scaler = fit_scaler_from_waves(extractor, train_data.clip_wavs, extractor.n_spec_channels,

@@ -197,14 +197,6 @@ def length_groups(items: list, length_of) -> list[list[int]]:
     return list(groups.values())
 
 
-def _extractor_hop(extractor) -> int:
-    """The hop length of a FeatureExtractor (its partial-bound SalsaParams)."""
-    p = getattr(extractor.fn, "keywords", {}).get("params")
-    if p is None:
-        raise ValueError("cannot determine the extractor's hop length")
-    return p.hop_length
-
-
 def _batches(waves: list[np.ndarray], batch_size: int):
     """(indices, stacked waves) per batch of up to batch_size equal-length clips."""
     for group in length_groups(waves, lambda w: w.shape[1]):
@@ -216,13 +208,14 @@ def _batches(waves: list[np.ndarray], batch_size: int):
 def fit_scaler_from_waves(extractor, clip_wavs: list[np.ndarray], n_spec_channels: int,
                           batch_size: int = 8,
                           device: torch.device | str = "cuda") -> tuple[np.ndarray, np.ndarray]:
-    """Extract each train clip once on `device` (K1 and K2 on the card) and fit the
-    normalization scaler: the reference's compute_scaler without the HDF5 round
+    """Extract each train clip once on `device` (for SALSA K1 and K2 on the card)
+    and fit the normalization scaler over the leading n_spec_channels (the feature
+    type's scaler scope): the reference's compute_scaler without the HDF5 round
     trip. Clips of equal length batch per call; each batch's (C, F) sums over clips
     and frames are taken in float64 on the device and accumulated in float64, the
     frame count 1 + S // hop a clip."""
     scaler = StreamingScaler(n_spec_channels)
-    hop = _extractor_hop(extractor)
+    hop = extractor.hop_length
     for idx, stacked in _batches(clip_wavs, batch_size):
         feats = extractor(torch.from_numpy(stacked).to(device))[:, :n_spec_channels]
         s = torch.sum(feats, dim=(0, 2), dtype=torch.float64).cpu().numpy()

@@ -81,6 +81,33 @@ def stft(
     return torch.complex(*stft_planes(x, n_fft, hop_length, win_length))
 
 
+@functools.lru_cache(maxsize=8)
+def _irfft_selected_bases(n_fft: int, out_idx: tuple,
+                          device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Real/imag inverse-DFT bases evaluating irfft only at the `out_idx` samples,
+    (n_fft//2 + 1, len(out_idx)) float32 on `device`:
+    irfft(X, n)[t] = X_re @ C[:, t] + X_im @ S[:, t]."""
+    n_bins = n_fft // 2 + 1
+    t = np.asarray(out_idx, dtype=np.float64)[None, :]
+    k = np.arange(n_bins, dtype=np.float64)[:, None]
+    angle = 2.0 * np.pi * k * t / n_fft
+    w = np.full((n_bins, 1), 2.0 / n_fft)
+    w[0] = 1.0 / n_fft
+    if n_fft % 2 == 0:
+        w[-1] = 1.0 / n_fft
+    C = (np.cos(angle) * w).astype(np.float32)
+    S = (-np.sin(angle) * w).astype(np.float32)
+    return torch.from_numpy(C).to(device), torch.from_numpy(S).to(device)
+
+
+def irfft_selected(re: torch.Tensor, im: torch.Tensor, n_fft: int,
+                   out_idx: tuple) -> torch.Tensor:
+    """Inverse rFFT of the spectrum re + i im, (..., n_fft//2 + 1), evaluated only at
+    the output samples `out_idx`: two matmuls, (..., len(out_idx))."""
+    C, S = _irfft_selected_bases(n_fft, tuple(int(i) for i in out_idx), re.device)
+    return re @ C + im @ S
+
+
 def cabs2(z: torch.Tensor) -> torch.Tensor:
     """|z|^2 as re^2 + im^2."""
     return torch.square(z.real) + torch.square(z.imag)

@@ -1,5 +1,5 @@
-"""Per-chunk SALSA extraction for raw-waveform training (counterpart of the SALSA
-part of `salsa_tpu.features.chunked`).
+"""Per-chunk feature extraction for raw-waveform training and its block form for
+streaming (counterpart of `salsa_tpu.features.chunked`).
 
 The train step extracts each 8 s chunk's features from the resident waveforms, and
 they must equal the slice of the full-clip feature map. Two clip-global
@@ -26,13 +26,18 @@ frames past the clip's final STFT frame; the full-clip map wraps those to the cl
 start while a chunk reads the zero-padded tail. Clips at least a chunk long are
 exact.
 
-Streaming serving (`salsa_tpu_torch.streaming`) uses the block form,
-`make_salsa_block_fn`: a contiguous (N, C, win_len) sample window per stream whose
-frames need no wrap (the modulus is the window's own frame count), the tracker
-state carried in and out, one DFT matmul, one K2 launch and one K1 launch a block.
+The other feature types are frame-local (`registry.FrameFeature`): a chunk is the
+STFT of its own frames and nothing else, one matmul for each FFT length. The GCC
+types frame a double-length FFT as well, so their resident waveforms carry
+big_n_fft // 2 of center pad (`required_pad`) and the n_fft frames are read at a
+pad offset. `make_frame_chunk_fn` is `salsa_tpu`'s make_salsa_lite_chunk_fn,
+make_projected_chunk_fn and make_gcc_chunk_fn in one.
 
-Only `salsa` is ported; the other fused feature types of `salsa_tpu` raise
-NotImplementedError (ROADMAP queue 1, item 7).
+Streaming serving (`salsa_tpu_torch.streaming`) uses the block form,
+`make_block_fn`: a contiguous (N, C, win_len) sample window per stream whose
+frames need no wrap (the modulus is the window's own frame count). For SALSA the
+tracker state is carried in and out, with one DFT matmul, one K2 launch and one
+K1 launch a block; the frame-local types carry no state and launch neither.
 """
 from __future__ import annotations
 
@@ -41,12 +46,15 @@ import torch
 import torch.nn.functional as F
 
 from salsa_tpu_torch.dsp.stft import _windowed_dft_matrices, power_to_db
+from salsa_tpu_torch.features.registry import FrameFeature, frame_feature, salsa_params
 from salsa_tpu_torch.features.salsa import (
     SalsaParams,
     _compression_matrix,
     eig_features_from_planes,
     noise_floor_mask,
+    tracker_mask,
 )
+from salsa_tpu_torch.features.specs import big_fft_len
 
 FUSED_FEATURE_TYPES = ("salsa", "salsa_lite", "salsa_ipd", "melspec",
                        "melspeciv", "linspeciv", "linspecgcc", "melspecgcc")
@@ -59,9 +67,11 @@ def pad_waveform(wave: np.ndarray, n_fft: int, pad: int | None = None) -> np.nda
     return np.pad(wave, ((0, 0), (pad, pad)), mode="reflect")
 
 
-def required_pad(n_fft: int) -> int:
-    """Center pad the resident waveform must carry for SALSA: n_fft // 2 (the GCC
-    feature types' wider pad comes with their extractors, ROADMAP queue 1, item 7)."""
+def required_pad(feature_type: str, n_fft: int) -> int:
+    """Center pad the resident waveform must carry for this feature type: n_fft //
+    2, or big_n_fft // 2 for the GCC types, which frame a double-length FFT."""
+    if feature_type.endswith("gcc"):
+        return big_fft_len(n_fft) // 2
     return n_fft // 2
 
 
@@ -84,19 +94,21 @@ def _gather_samples(waves: torch.Tensor, clips: torch.Tensor, starts: torch.Tens
 
 def chunk_spectra(waves: torch.Tensor, clips: torch.Tensor, f0: torch.Tensor,
                   n_full: torch.Tensor, chunk_len: int, n_ctx: int, n_fft: int, hop: int,
-                  win_length: int, wav_scale: float = 1.0):
+                  win_length: int, wav_scale: float = 1.0, pad_off: int = 0):
     """STFT of chunk frames f0 .. f0 + chunk_len - 1 and n_ctx context frames a side.
 
     waves: (n_clips, C, S) center-padded resident waveforms (float32, or int16
     dequantized by wav_scale); clips, f0, n_full: (B,) int64 tensors on its device
     (clip index, chunk start frame, untrimmed frame count, the wrap modulus).
+    pad_off: center pad the waves carry beyond this FFT's n_fft // 2 (frame t then
+    starts at pad_off + t * hop).
     Returns (re_main, im_main) (B, C, chunk_len, bins) and (re_pad, im_pad) (B, C,
     chunk_len + 2 n_ctx, bins), the latter with the wrap-corrected context frames.
     """
     main_sz = (chunk_len - 1) * hop + n_fft
-    if waves.shape[-1] < main_sz:  # the zero tail every clip would have
-        waves = F.pad(waves, (0, main_sz - waves.shape[-1]))
-    main = _gather_samples(waves, clips, (f0 * hop)[:, None], main_sz)[:, :, 0]
+    if waves.shape[-1] < pad_off + main_sz:  # the zero tail every clip would have
+        waves = F.pad(waves, (0, pad_off + main_sz - waves.shape[-1]))
+    main = _gather_samples(waves, clips, (pad_off + f0 * hop)[:, None], main_sz)[:, :, 0]
     cos_mat, sin_mat = _windowed_dft_matrices(n_fft, win_length, waves.device)
     frames = (main.float() * wav_scale).unfold(-1, n_fft, hop)  # (B, C, L, n_fft)
     re, im = frames @ cos_mat, frames @ sin_mat
@@ -104,7 +116,7 @@ def chunk_spectra(waves: torch.Tensor, clips: torch.Tensor, f0: torch.Tensor,
         return (re, im), (re, im)
     offs = torch.cat([torch.arange(-n_ctx, 0), chunk_len + torch.arange(n_ctx)]).to(f0.device)
     ctx_idx = torch.remainder(f0[:, None] + offs, n_full[:, None])  # wrap as the clip map
-    ctx = _gather_samples(waves, clips, ctx_idx * hop, n_fft).float() * wav_scale
+    ctx = _gather_samples(waves, clips, pad_off + ctx_idx * hop, n_fft).float() * wav_scale
     re_c, im_c = ctx @ cos_mat, ctx @ sin_mat                    # (B, C, 2 n_ctx, bins)
     pad = lambda c, m: torch.cat([c[:, :, :n_ctx], m, c[:, :, n_ctx:]], dim=2)  # noqa: E731
     return (re, im), (pad(re_c, re), pad(im_c, im))
@@ -115,15 +127,16 @@ def _salsa_from_spectra(re, im, re_pad, im_pad, p: SalsaParams, n_frames: int, s
     """SALSA features of n_frames frames from their spectra (B, C, n_frames, bins)
     and the spectra with n_hopframes context frames a side (B, C, n_frames + 2h,
     bins): log-linear spectrogram, then K2 from `state0` (None: the clip-start
-    state; `restart` (B,) bool: these clips start here) and K1. Returns (features
-    (B, 7, n_frames, freq_dim), the tracker state after the last frame)."""
-    h, n_band = p.n_hopframes, p.upper_bin - p.lower_bin
+    state; `restart` (B,) bool: these clips start here) and the spatial stage (K1,
+    or `salsa_tpu`'s XLA branch). Without tracking K2 does not run and `state0`
+    passes through. Returns (features (B, 7, n_frames, freq_dim), the tracker
+    state after the last frame)."""
+    n_band = p.upper_bin - p.lower_bin
     W = _compression_matrix(p.n_fft, p.compress_high_freq, re.device)
     log_spec = power_to_db((re * re + im * im) @ W.T)        # (B, 4, L, F)
     xr = re_pad[..., p.lower_bin:p.upper_bin].transpose(-1, -2).contiguous()
     xi = im_pad[..., p.lower_bin:p.upper_bin].transpose(-1, -2).contiguous()
-    mask, state = noise_floor_mask(xr[:, 0].contiguous(), xi[:, 0].contiguous(), n_hop=h,
-                                   n_frames=n_frames, state0=state0, restart=restart)
+    mask, state = tracker_mask(xr, xi, n_frames, p, state0, restart)
     eig = eig_features_from_planes(xr, xi, mask, p).transpose(-1, -2)  # (B, 3, L, nb)
     return torch.cat([log_spec, F.pad(eig, (0, p.freq_dim - n_band))], dim=1), state
 
@@ -135,36 +148,64 @@ def make_salsa_chunk_fn(p: SalsaParams, chunk_len: int):
     (B, 7, chunk_len, freq_dim) float32 features, equal to extract_salsa(clip)[:,
     :, f0:f0 + chunk_len] for each chunk: waves (n_clips, 4, S) center-padded
     resident waveforms; clips, f0, n_full (B,) int64; floor0/countdown0 (B,
-    bins_band) the tracker state entering frame f0 (`salsa_tracker_checkpoints`).
-    One K2 launch resumed from that state and one K1 launch for the batch.
+    bins_band) the tracker state entering frame f0 (`salsa_tracker_checkpoints`;
+    None without tracking). One K2 launch resumed from that state and one K1 launch
+    for the batch.
     """
     h = p.n_hopframes
     win_length = p.win_length or p.n_fft
 
-    def fn(waves, clips, f0, n_full, floor0, countdown0, wav_scale: float = 1.0):
+    def fn(waves, clips, f0, n_full, floor0=None, countdown0=None, wav_scale: float = 1.0):
         (re, im), (re_pad, im_pad) = chunk_spectra(
             waves, clips, f0, n_full, chunk_len, h, p.n_fft, p.hop_length, win_length,
             wav_scale)
-        return _salsa_from_spectra(re, im, re_pad, im_pad, p, chunk_len, (floor0, countdown0))[0]
+        state0 = (floor0, countdown0) if p.is_tracking else None
+        return _salsa_from_spectra(re, im, re_pad, im_pad, p, chunk_len, state0)[0]
+
+    return fn
+
+
+def make_frame_chunk_fn(ff: FrameFeature, chunk_len: int):
+    """Chunk extractor for a frame-local feature type.
+
+    Returns fn(waves, clips, f0, n_full, floor0=None, countdown0=None,
+    wav_scale=1.0) -> (B, C', chunk_len, F), equal to ff(clip)[:, :, f0:f0 +
+    chunk_len] for each chunk: the arguments are `make_salsa_chunk_fn`'s, the
+    tracker state is not read, and waves carry max(ff.n_ffts) // 2 of center pad.
+    One DFT matmul for each FFT length and no kernel launch.
+    """
+    pad_total = max(ff.n_ffts) // 2
+
+    def fn(waves, clips, f0, n_full, floor0=None, countdown0=None, wav_scale: float = 1.0):
+        return ff.from_spectra(*(
+            chunk_spectra(waves, clips, f0, n_full, chunk_len, 0, n, ff.hop_length,
+                          ff.win_length, wav_scale, pad_total - n // 2)[0]
+            for n in ff.n_ffts))
 
     return fn
 
 
 def block_window_len(block_len: int, n_hop: int, n_fft: int, hop: int) -> int:
     """Samples of a block's window: block_len frames and n_hop context frames a
-    side, each n_fft long, hop apart."""
+    side, each n_fft long (the longest FFT's), hop apart."""
     return (block_len + 2 * n_hop - 1) * hop + n_fft
 
 
-def block_spectra(window: torch.Tensor, p: SalsaParams):
-    """STFT of every frame of block windows (N, C, win_len), float32 or int16 PCM
+def window_spectra(window: torch.Tensor, n_fft: int, hop: int, win_length: int,
+                   offset: int = 0):
+    """STFT of the frames of sample windows (N, C, win_len), float32 or int16 PCM
     (decoded on its device as x / 32768, exact): (re, im), each (N, C, n_frames,
-    bins), frame j starting at sample j * hop."""
+    bins), frame j starting at sample offset + j * hop."""
     if window.dtype == torch.int16:
         window = window.float() * (1.0 / 32768.0)
-    cos_mat, sin_mat = _windowed_dft_matrices(p.n_fft, p.win_length or p.n_fft, window.device)
-    frames = window.unfold(-1, p.n_fft, p.hop_length)          # (N, C, n_frames, n_fft)
+    cos_mat, sin_mat = _windowed_dft_matrices(n_fft, win_length, window.device)
+    frames = window[..., offset:].unfold(-1, n_fft, hop)     # (N, C, n_frames, n_fft)
     return frames @ cos_mat, frames @ sin_mat
+
+
+def block_spectra(window: torch.Tensor, p: SalsaParams):
+    """`window_spectra` of SALSA block windows, frame j at sample j * hop."""
+    return window_spectra(window, p.n_fft, p.hop_length, p.win_length or p.n_fft)
 
 
 def make_salsa_block_fn(p: SalsaParams, block_len: int):
@@ -180,7 +221,7 @@ def make_salsa_block_fn(p: SalsaParams, block_len: int):
     their clip at this block while the others carry their state; K2 gives them the
     clip-start state of this window in the same launch (its `restart` flags), the
     state it computes for a stream that starts here. One DFT matmul, one K2 launch
-    and one K1 launch.
+    and one K1 launch (without tracking no K2: the state passes through).
     """
     h = p.n_hopframes
     win_len = block_window_len(block_len, h, p.n_fft, p.hop_length)
@@ -201,43 +242,59 @@ def make_salsa_block_fn(p: SalsaParams, block_len: int):
     return fn
 
 
+def make_frame_block_fn(ff: FrameFeature, block_len: int):
+    """Block extractor of a frame-local type for streaming: fn(window, state0=None,
+    reinit=None) -> (features (N, C', block_len, F), state0). window: (N, C,
+    win_len) samples, win_len = block_window_len(block_len, 0, max(ff.n_ffts),
+    hop), frame j's longest FFT starting at sample j * hop; the shorter FFTs read
+    at the pad offset. The state passes through and reinit is not read: nothing
+    is carried from block to block."""
+    span = max(ff.n_ffts)
+    win_len = block_window_len(block_len, 0, span, ff.hop_length)
+
+    def fn(window: torch.Tensor, state0=None, reinit=None):
+        if window.dim() != 3 or window.shape[-1] != win_len:
+            raise ValueError(f"block window must be (N, C, {win_len}), got {tuple(window.shape)}")
+        return ff.from_spectra(*(
+            window_spectra(window, n, ff.hop_length, ff.win_length, (span - n) // 2)
+            for n in ff.n_ffts)), state0
+
+    return fn
+
+
+def make_block_fn(params: SalsaParams | FrameFeature, block_len: int):
+    """The block extractor of `make_chunk_extractor`'s params: SALSA's or a
+    frame-local type's."""
+    if isinstance(params, SalsaParams):
+        return make_salsa_block_fn(params, block_len)
+    return make_frame_block_fn(params, block_len)
+
+
 def make_chunk_extractor(feature_type: str, audio_format: str, chunk_len: int,
                          fs: int, n_fft: int, hop_length: int,
                          win_length: int | None = None,
                          fmin_doa: float = 50.0, fmax_doa: float | None = None,
+                         n_mels: int = 128, fmin: float = 50.0, fmax: float | None = None,
                          condition_number: float = 5.0, n_hopframes: int = 3,
                          is_tracking: bool = True, compress_high_freq: bool = True,
                          eig_method: str = "auto"):
-    """Chunk extractor factory with `salsa_tpu`'s SALSA parameters and defaults.
-    Returns (fn, params): see `make_salsa_chunk_fn`. The spatial stage is always
-    K1, the arithmetic of `salsa_tpu`'s Pallas kernel: eig_method 'auto' and
-    'pallas' are taken, salsa_tpu's XLA eigensolvers ('power', 'eigh') are not
-    ported."""
+    """Chunk extractor factory with `salsa_tpu`'s parameters and defaults, for every
+    type of FUSED_FEATURE_TYPES. Returns (fn, params): for salsa
+    `make_salsa_chunk_fn` and its SalsaParams (eig_method 'auto' is K1, 'power' and
+    'eigh' `salsa_tpu`'s XLA branch), for the others `make_frame_chunk_fn` and the
+    type's FrameFeature."""
     if feature_type not in FUSED_FEATURE_TYPES:
         raise ValueError(
             f"training.from_wav supports feature types {FUSED_FEATURE_TYPES}; "
             f"'{feature_type}' needs the offline extract CLI")
-    if feature_type != "salsa":
-        raise NotImplementedError(
-            f"fused chunk extraction of '{feature_type}' is not ported yet: ROADMAP "
-            "queue 1, item 7 (the other feature types)")
-    if not is_tracking:
-        raise NotImplementedError(
-            "is_tracking=False (no coherence test) is not ported yet: ROADMAP queue 1, "
-            "item 7")
-    if eig_method not in ("auto", "pallas"):
-        raise NotImplementedError(
-            f"eig_method '{eig_method}': the port's spatial stage is K1, the Pallas "
-            "kernel's arithmetic ('auto' or 'pallas'); salsa_tpu's XLA eigensolvers "
-            "are not ported")
-    if fmax_doa is None:
-        fmax_doa = 9000.0 if audio_format == "foa" else 4000.0
-    p = SalsaParams(
-        fs=fs, n_fft=n_fft, hop_length=hop_length, win_length=win_length or n_fft,
-        fmin_doa=fmin_doa, fmax_doa=fmax_doa, audio_format=audio_format,
-        condition_number=condition_number, n_hopframes=n_hopframes,
-        compress_high_freq=compress_high_freq)
-    return make_salsa_chunk_fn(p, chunk_len), p
+    if feature_type == "salsa":
+        p = salsa_params(audio_format, fs, n_fft, hop_length, win_length, fmin_doa, fmax_doa,
+                         condition_number, n_hopframes, is_tracking, compress_high_freq,
+                         eig_method)
+        return make_salsa_chunk_fn(p, chunk_len), p
+    ff = frame_feature(feature_type, audio_format, fs, n_fft, hop_length, win_length, n_mels,
+                       fmin, fmax, fmin_doa, fmax_doa, compress_high_freq)
+    return make_frame_chunk_fn(ff, chunk_len), ff
 
 
 def tracker_states_all(waves_padded: torch.Tensor, p: SalsaParams):

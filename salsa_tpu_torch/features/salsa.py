@@ -8,6 +8,13 @@ running the recurrence) and the spatial stage is K1 (`features/salsa_spatial.py`
 On CPU tensors both run their plain PyTorch versions. Layouts follow `salsa_tpu`
 with its `vmap` written out as a leading batch dimension: waves (B, 4, n_samples),
 band planes (B, C, bins, T + 2h), features (B, 7, T, F).
+
+`eig_method` 'auto' (and 'pallas') is K1 on every device. An explicit 'power' or
+'eigh', or is_tracking=False, takes `salsa_tpu`'s XLA branch instead, ported here
+as plain tensor code (`eig_features_from_padded`): the windowed covariance as
+complex outer products, then repeated-squaring power iteration or
+`torch.linalg.eigh`. Without tracking there is no tracker and no coherence test:
+every cell is valid, so K2 does not run.
 """
 from __future__ import annotations
 
@@ -20,7 +27,12 @@ import torch.nn.functional as F
 
 from salsa_tpu_torch.dsp.filterbank import high_freq_compression_matrix
 from salsa_tpu_torch.dsp.stft import power_to_db, stft_planes
-from salsa_tpu_torch.features.salsa_spatial import salsa_spatial
+from salsa_tpu_torch.features.salsa_spatial import (
+    START_S0,
+    START_S1,
+    mic_delta,
+    salsa_spatial,
+)
 from salsa_tpu_torch.kernels.build import check_launch, load_library
 
 # tracker constants (reference salsa_feature_extraction.py:28-93): alpha 0.02,
@@ -31,6 +43,9 @@ FLOOR_UP = np.float32(1.0 + _ALPHA).item()
 FLOOR_UP_SLOW = np.float32(1.0 + 0.1 * _ALPHA).item()
 FLOOR_DOWN = np.float32(1.0 - _ALPHA).item()
 FLOOR_MIN = 1e-6
+EIG_METHODS = ("auto", "pallas", "power", "eigh")
+NOT_FOUR_CHANNELS = ("SALSA with {} channels is not ported: the power iteration's start "
+                     "vectors are held for 4 channels only (ROADMAP queue 1, item 7)")
 
 
 @dataclass(frozen=True)
@@ -44,7 +59,19 @@ class SalsaParams:
     audio_format: str = "foa"  # 'foa' | 'mic'
     condition_number: float = 5.0
     n_hopframes: int = 3
+    is_tracking: bool = True
     compress_high_freq: bool = True
+    eig_method: str = "auto"  # 'auto' | 'pallas' (K1) | 'power' | 'eigh'
+
+    def __post_init__(self):
+        if self.eig_method not in EIG_METHODS:
+            raise ValueError(f"unknown eig_method '{self.eig_method}'; one of {EIG_METHODS}")
+
+    @property
+    def uses_k1(self) -> bool:
+        """Whether the spatial stage is K1: 'auto'/'pallas' with tracking. salsa_tpu
+        sends everything else to its XLA branch."""
+        return self.is_tracking and self.eig_method in ("auto", "pallas")
 
     @property
     def lower_bin(self) -> int:
@@ -245,15 +272,133 @@ noise_floor_mask.collect_launches = 0  # those of them with collect_states
 # Full SALSA feature
 # ---------------------------------------------------------------------------
 
+def windowed_covariance(Xpad: torch.Tensor, n_hopframes: int, n_frames: int) -> torch.Tensor:
+    """Sliding (2 n_hopframes + 1)-frame covariance of complex Xpad (..., bins,
+    n_frames + 2h, C): (..., bins, n_frames, C, C) with R[i, j] = mean_t X[t, i]
+    conj(X[t, j]) over the window, the frames summed in order."""
+    win = 2 * n_hopframes + 1
+    acc = None
+    for k in range(win):
+        seg = Xpad[..., k:k + n_frames, :]
+        outer = seg[..., :, None] * seg[..., None, :].conj()
+        acc = outer if acc is None else acc + outer
+    return acc / win
+
+
+def principal_eigs_eigh(R: torch.Tensor):
+    """Exact batched Hermitian eigendecomposition of R (..., C, C): the top two
+    eigenvalues and the principal eigenvector, (lam0, lam1, v0)."""
+    w, v = torch.linalg.eigh(R)  # ascending
+    return w[..., -1], w[..., -2], v[..., :, -1]
+
+
+def principal_eigs_power(R: torch.Tensor, n_iters: int = 20):
+    """Top two eigenpairs of R (..., 4, 4) by repeated squaring, as
+    `salsa_tpu.features.salsa.principal_eigs_power`: R / tr(R) squared
+    clip(ceil(log2(n_iters)) - 1, 2, 4) times with a trace renormalisation each
+    time, v = P s0 normalised and refined once with P, lam0 its Rayleigh quotient
+    with R; then 3 un-squared steps of R / tr(R) from s1, orthogonalised against v
+    each step, for lam1. Returns (lam0, lam1, v). The start vectors are
+    `salsa_tpu`'s for 4 channels (START_S0, START_S1); other channel counts raise.
+    """
+    C = R.shape[-1]
+    if C != 4:
+        raise NotImplementedError(NOT_FOUR_CHANNELS.format(C))
+    n_sq = int(np.clip(np.ceil(np.log2(max(n_iters, 2))) - 1, 2, 4))
+
+    def matmat(A, B):
+        return torch.sum(A[..., :, :, None] * B[..., None, :, :], dim=-2)
+
+    def matvec(A, b):
+        return torch.sum(A * b[..., None, :], dim=-1)
+
+    def trace(A):
+        return torch.diagonal(A, dim1=-2, dim2=-1).sum(-1).real
+
+    def unit(x):
+        return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-30)
+
+    def rayleigh(A, w):
+        return torch.sum(w.conj() * matvec(A, w), dim=-1).real
+
+    def orth(u, v):
+        return u - torch.sum(v.conj() * u, dim=-1, keepdim=True) * v
+
+    Rn = R / (trace(R)[..., None, None] + 1e-30).to(R.dtype)
+    P = Rn
+    for _ in range(n_sq):
+        P = matmat(P, P)
+        P = P / (trace(P)[..., None, None] + 1e-30).to(R.dtype)
+    s0 = torch.from_numpy(START_S0).to(R.device)
+    s1 = torch.from_numpy(START_S1).to(R.device)
+    v = unit(matvec(P, s0.expand(P.shape[:-1])))
+    v = unit(matvec(P, v))
+    lam0 = rayleigh(R, v)
+    u = orth(s1.expand(v.shape), v)
+    for _ in range(3):
+        u = unit(orth(matvec(Rn, u), v))
+    return lam0, rayleigh(R, u), v
+
+
+def eig_features_from_padded(Xpad: torch.Tensor, sig_mask: torch.Tensor,
+                             params: SalsaParams) -> torch.Tensor:
+    """`salsa_tpu`'s XLA spatial branch: masked principal-eigenvector features,
+    (B, C-1, bins, T), from the complex band Xpad (B, bins, T + 2h, C) carrying
+    its covariance context and the tracker mask (B, bins, T). eig_method 'eigh'
+    solves exactly, anything else by `principal_eigs_power`. With tracking a
+    cell is valid where the mask and the coherence test (lam0 > cond * lam1) hold;
+    without, every cell of `sig_mask` (all ones) is."""
+    p = params
+    n_bins, n_frames = Xpad.shape[-3], Xpad.shape[-2] - 2 * p.n_hopframes
+    R = windowed_covariance(Xpad, p.n_hopframes, n_frames)
+    if p.eig_method == "eigh":
+        lam0, lam1, v = principal_eigs_eigh(R)
+    else:
+        lam0, lam1, v = principal_eigs_power(R)
+    valid = sig_mask & (lam0 > lam1 * p.condition_number) if p.is_tracking else sig_mask
+    if p.audio_format == "foa":
+        ratio = (v[..., 1:] / v[..., 0:1]).real
+        norm = torch.sqrt(torch.sum(ratio * ratio, dim=-1, keepdim=True))
+        feat = ratio / torch.clamp(norm, min=1e-30)
+    elif p.audio_format == "mic":
+        phase = torch.angle(v[..., 1:] * v[..., 0:1].conj())
+        bins = np.arange(p.lower_bin, p.lower_bin + n_bins, dtype=np.float32)
+        scale = torch.from_numpy(bins).to(phase.device) * np.float32(mic_delta(p.fs, p.n_fft))
+        feat = phase / scale[:, None, None]
+    else:
+        raise ValueError(f"unknown audio format '{p.audio_format}'")
+    feat = torch.where(valid[..., None], feat, torch.zeros((), device=feat.device))
+    feat = torch.nan_to_num(feat, nan=0.0, posinf=0.0, neginf=0.0)
+    return feat.movedim(-1, -3)
+
+
 def eig_features_from_planes(xr: torch.Tensor, xi: torch.Tensor, sig_mask: torch.Tensor,
                              params: SalsaParams) -> torch.Tensor:
-    """Masked principal-eigenvector features, (B, 3, bins, T), from (B, 4, bins,
-    T + 2h) re/im planes carrying their covariance context. Always the K1 path:
-    non-4-channel input raises rather than changing algorithm."""
+    """Masked principal-eigenvector features, (B, C-1, bins, T), from (B, C, bins,
+    T + 2h) re/im planes carrying their covariance context: K1 where
+    `params.uses_k1`, else `eig_features_from_padded`."""
     p = params
-    return salsa_spatial(
-        xr, xi, sig_mask, n_hop=p.n_hopframes, audio_format=p.audio_format,
-        condition_number=p.condition_number, lower_bin=p.lower_bin, fs=p.fs, n_fft=p.n_fft)
+    if p.uses_k1:
+        return salsa_spatial(
+            xr, xi, sig_mask, n_hop=p.n_hopframes, audio_format=p.audio_format,
+            condition_number=p.condition_number, lower_bin=p.lower_bin, fs=p.fs,
+            n_fft=p.n_fft)
+    if xr.shape[1] != 4:
+        raise NotImplementedError(NOT_FOUR_CHANNELS.format(xr.shape[1]))
+    return eig_features_from_padded(torch.complex(xr, xi).permute(0, 2, 3, 1), sig_mask, p)
+
+
+def tracker_mask(xr: torch.Tensor, xi: torch.Tensor, n_frames: int, params: SalsaParams,
+                 state0=None, restart=None):
+    """The validity mask from the tracker and the tracker state after the last
+    frame: K2 on channel 0 of the band planes (B, C, bins, T + 2h) with tracking;
+    without, all ones and `state0` passed through, and no K2 launch."""
+    if not params.is_tracking:
+        return torch.ones((xr.shape[0], xr.shape[2], n_frames), dtype=torch.bool,
+                          device=xr.device), state0
+    return noise_floor_mask(xr[:, 0].contiguous(), xi[:, 0].contiguous(),
+                            n_hop=params.n_hopframes, n_frames=n_frames, state0=state0,
+                            restart=restart)
 
 
 def band_planes(re: torch.Tensor, im: torch.Tensor, params: SalsaParams):
@@ -293,8 +438,7 @@ def extract_salsa(waves: torch.Tensor, params: SalsaParams) -> torch.Tensor:
 
     n_t = re.shape[-2]
     xr_pad, xi_pad = band_planes(re, im, p)
-    sig_mask, _ = noise_floor_mask(xr_pad[:, 0].contiguous(), xi_pad[:, 0].contiguous(),
-                                   n_hop=p.n_hopframes, n_frames=n_t)
+    sig_mask, _ = tracker_mask(xr_pad, xi_pad, n_t, p)
     eig = eig_features_from_planes(xr_pad, xi_pad, sig_mask, p).transpose(-1, -2)
     eig_full = F.pad(eig, (0, p.freq_dim - (p.upper_bin - p.lower_bin)))
     return torch.cat([log_spec, eig_full], dim=1)

@@ -1,7 +1,7 @@
 """End-to-end SELD serving (counterpart of `salsa_tpu.pipeline`): raw multichannel
-waves -> SALSA features (K2 tracker + K1 spatial kernel on CUDA) -> scaler ->
-CRNN -> index-repeat to label rate -> event probabilities + DOA xyz, all on one
-device, numpy in and out."""
+waves -> features of any type of the registry (SALSA: K2 tracker + K1 spatial
+kernel on CUDA) -> scaler -> CRNN -> index-repeat to label rate -> event
+probabilities + DOA xyz, all on one device, numpy in and out."""
 from __future__ import annotations
 
 from collections.abc import Mapping
@@ -26,8 +26,9 @@ def load_weights(model: nn.Module, state_dict: Mapping | None) -> nn.Module:
 
 
 def normalize(feat: torch.Tensor, mean: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
-    """Scale the leading mean.shape[0] channels of (B, C, T, F) features; the
-    others (SALSA's spatial channels) pass as they are."""
+    """Scale the leading mean.shape[0] channels of (B, C, T, F) features (the
+    feature type's n_spec_channels); the others (the SALSA family's spatial
+    channels) pass as they are."""
     n_sc = mean.shape[0]
     return torch.cat([(feat[:, :n_sc] - mean) / std, feat[:, n_sc:]], dim=1)
 
@@ -56,7 +57,8 @@ class SeldInferencePipeline:
             variables {'params', 'batch_stats'} (through `interop`), or None to
             serve the model's current weights.
         scaler: (mean, std) arrays of shape (n_scaler_chan, 1, F); only the leading
-            n_scaler_chan feature channels are normalized (SALSA convention).
+            n_scaler_chan feature channels are normalized (4 for the SALSA family,
+            all for the classic types).
         interp_ratio: encoder-rate -> label-rate index-repeat factor.
         device: where features and model run; the first CUDA card by default.
             `device="cpu"` runs the kernels' plain versions, for tests.

@@ -6,7 +6,8 @@ dispatch of `StreamingSeldPipeline` per pool block.
   seeded with a solo stream's start prefix (pre-stream zeros and the reflect pad,
   `StreamingExtractor.write_slot_seed`), its noise tracker starts afresh from its
   own first window (`schedule_tracker_reinit`: K2's clip-start init for that row
-  while the other slots carry theirs), and the blocks before it are pad blocks
+  while the other slots carry theirs; a frame-local feature type has no tracker,
+  so no restart flag is raised), and the blocks before it are pad blocks
   through the per-slot validity vectors; so every prediction it emits is a solo
   run's on the same samples.
 * A detaching stream drains as a solo flush: its trailing reflect pad rides the

@@ -3,12 +3,15 @@ multichannel samples, pull feature blocks and label-rate predictions block by
 block.
 
 Each block of `block_frames` feature frames is extracted from a contiguous sample
-window holding its frames and `n_hopframes` covariance-context frames a side
-(`features/chunked.py::make_salsa_block_fn`): one DFT matmul, one K2 launch
-resumed from the tracker state the block before left (state in, state out) and
-one K1 launch for all N streams. The first block starts every stream's tracker
-with K2's own clip-start init; a pool slot that starts a stream at a later block
-gets that init from its own window while the other slots carry theirs.
+window holding its frames and, for SALSA, `n_hopframes` covariance-context frames
+a side (`features/chunked.py::make_block_fn`). A SALSA block is one DFT matmul,
+one K2 launch resumed from the tracker state the block before left (state in,
+state out) and one K1 launch for all N streams. The first block starts every
+stream's tracker with K2's own clip-start init; a pool slot that starts a stream
+at a later block gets that init from its own window while the other slots carry
+theirs. The frame-local types (every other type) have no halo and no tracker: a
+block is their DFT matmuls alone, and the GCC types' window holds the double-length
+FFT of every frame.
 
 Semantics, as in `salsa_tpu`: the stream starts with `n_hopframes` frames of
 pre-stream zeros before librosa's reflect pad (a live stream cannot wrap its edges
@@ -42,10 +45,11 @@ from torch import nn
 from salsa_tpu_torch.features.chunked import (
     FUSED_FEATURE_TYPES,
     block_window_len,
+    make_block_fn,
     make_chunk_extractor,
-    make_salsa_block_fn,
     required_pad,
 )
+from salsa_tpu_torch.features.salsa import SalsaParams
 from salsa_tpu_torch.pipeline import heads, load_weights, normalize
 
 
@@ -63,8 +67,8 @@ class StreamingExtractor:
 
     Keeps a rolling sample buffer on the offline extractor's padded timeline
     (frame t starts at padded sample t * hop; the stream start is seeded with the
-    reflect pad once enough samples arrive) and the noise-floor tracker state
-    entering the next block.
+    reflect pad once enough samples arrive) and, for SALSA with tracking, the
+    noise-floor tracker state entering the next block.
     """
 
     def __init__(self, feature_type: str = "salsa", audio_format: str = "foa",
@@ -85,15 +89,22 @@ class StreamingExtractor:
         # N synchronized streams share one block clock: push (N, C, n) packets;
         # N = 1 keeps the plain (C, n) API
         self.n_streams = int(n_streams)
-        # make_chunk_extractor checks the feature type and options and sets the
-        # SALSA parameters; a block is the contiguous form of its chunk
+        # make_chunk_extractor checks the feature type and options and sets its
+        # parameters; a block is the contiguous form of its chunk
         _, params = make_chunk_extractor(feature_type, audio_format, self.block_frames, fs,
                                          n_fft, hop_length, **kwargs)
-        self._block_fn = make_salsa_block_fn(params, self.block_frames)
+        self._block_fn = make_block_fn(params, self.block_frames)
         self.params = params
-        self.halo = params.n_hopframes  # covariance context frames a side
-        self._pad = required_pad(n_fft)
-        self._win_len = block_window_len(self.block_frames, self.halo, n_fft, hop_length)
+        salsa = isinstance(params, SalsaParams)
+        # only SALSA with tracking carries a tracker state from block to block
+        self._tracking = salsa and params.is_tracking
+        self.n_feat_channels = 7 if salsa else params.n_channels
+        self.n_features = params.freq_dim if salsa else params.n_features
+        self.halo = params.n_hopframes if salsa else 0  # covariance context frames a side
+        self._pad = required_pad(feature_type, n_fft)
+        # the window's span: the longest FFT of a frame, 2 * required_pad
+        self._win_len = block_window_len(self.block_frames, self.halo, 2 * self._pad,
+                                         hop_length)
         # the device mirror: buckets of _dev_B samples, _dev_R samples long
         self._dev_B = max(2048, self.block_frames * hop_length // 4)
         self._dev_R = self._win_len + 4 * self._dev_B
@@ -164,8 +175,9 @@ class StreamingExtractor:
     def schedule_tracker_reinit(self, slot: int, frame: int) -> None:
         """Start `slot`'s noise tracker afresh at the block starting at feature
         frame `frame`, from that block's window: the init a solo stream computes
-        from its first window."""
-        self._reinit.setdefault(frame, []).append(slot)
+        from its first window. Nothing to do for a type without a tracker."""
+        if self._tracking:
+            self._reinit.setdefault(frame, []).append(slot)
 
     def _take_reinit(self) -> list[int] | None:
         """The slots whose tracker starts at the current block, if any."""
@@ -358,8 +370,8 @@ class StreamingSeldPipeline:
     frames outside the stream (or past a pool slot's stream, per-stream hi) are
     pad blocks holding the scaler mean in the spectral channels, which
     normalization maps to exactly 0. A dispatch extracts one block of every
-    stream (one K2 and one K1 launch; a block in which no stream is live is the
-    pad block, with no dispatch) and, once a block's window is complete,
+    stream (for SALSA one K2 and one K1 launch; a block in which no stream is live
+    is the pad block, with no dispatch) and, once a block's window is complete,
     assembles and normalizes it and runs the CRNN on the N streams as its batch;
     only the label-rate outputs come back to the host. flush() predicts the
     blocks still inside the lookahead with pad right context and trims the last
@@ -370,7 +382,7 @@ class StreamingSeldPipeline:
     N > 1). The model runs on the extractor's device.
     """
 
-    dispatches = 0  # block dispatches of every pipeline, each one K2 and one K1 launch
+    dispatches = 0  # block dispatches of every pipeline (SALSA: one K2 and one K1 launch each)
 
     def __init__(self, extractor: StreamingExtractor, model: nn.Module,
                  state_dict: Mapping | None, scaler, interp_ratio: float, n_classes: int,
@@ -407,7 +419,8 @@ class StreamingSeldPipeline:
         self._off = self._lb * L - self.left
         N = extractor.n_streams
         self.n_streams = N
-        pad = torch.zeros((N, 7, L, extractor.params.freq_dim), device=self.device)
+        pad = torch.zeros((N, extractor.n_feat_channels, L, extractor.n_features),
+                          device=self.device)
         pad[:, :self._mean.shape[0]] = self._mean  # normalizes to exactly 0
         self._pad_block = pad
         self.reset(reset_extractor=False)

@@ -5,9 +5,10 @@ The train split's waveforms stay resident on the card with every chunk's table
 row (clip, start frame, untrimmed frame count, valid frames, label start, tracker
 checkpoint). Each step, in eager PyTorch:
 
-  1. extract the batch's SALSA chunks (`features.chunked`: one windowed-DFT matmul,
-     K2 resumed from the chunks' tracker checkpoints, K1);
-  2. normalize the spectral channels with the train-split scaler and zero the
+  1. extract the batch's chunks (`features.chunked`: for SALSA one windowed-DFT
+     matmul, K2 resumed from the chunks' tracker checkpoints, K1; for the
+     frame-local types their DFT matmuls alone);
+  2. normalize the scaler's channels with the train-split scaler and zero the
      frames past each chunk's valid length (after normalization, as the feature
      store pads);
   3. forward the CRNN in training mode (flax's BatchNorm update, dropout from an
@@ -38,6 +39,8 @@ from salsa_tpu_torch.data.dataset import SeldChunkDataset, batch_iterator
 from salsa_tpu_torch.data.database import truncate_clips
 from salsa_tpu_torch.data.wav_database import WavSplitData, length_groups
 from salsa_tpu_torch.features.chunked import make_chunk_extractor, salsa_tracker_checkpoints_batch
+from salsa_tpu_torch.features.registry import feature_n_spec_channels
+from salsa_tpu_torch.features.salsa import SalsaParams
 from salsa_tpu_torch.interop import torch_state_dict_to_flax
 from salsa_tpu_torch.metrics.scorer import evaluate_submissions
 from salsa_tpu_torch.models.layers import Dropout
@@ -53,9 +56,6 @@ from salsa_tpu_torch.train.losses import (
 )
 from salsa_tpu_torch.train.state import make_optimizer
 from salsa_tpu_torch.utils.experiments import logger
-
-N_SPEC_CHANNELS = 4  # SALSA's log-spectrogram channels, the scaler's scope
-
 
 def refuse_unported(cfg) -> None:
     """Raise NotImplementedError for every training option of `salsa_tpu` that the
@@ -159,15 +159,36 @@ class SeldTrainer:
             cfg.feature_type, d.audio_format, self.chunk_len, fs=d.fs, n_fft=d.n_fft,
             hop_length=d.hop_len, win_length=d.get("win_len", None),
             fmin_doa=d.get("fmin_doa", 50), fmax_doa=d.get("fmax_doa", None),
+            n_mels=d.get("n_mels", 128), fmin=d.get("fmin", 50), fmax=d.get("fmax", None),
             eig_method=cfg.training.get("eig_method", "auto"))
         self.feature_params = p
+        self.n_spec_channels = feature_n_spec_channels(cfg.feature_type)
         self.wav_scale = train_data.wav_scale
         self._waves = torch.from_numpy(train_data.waves).to(dev)
         clip_of_chunk = train_data.clip_of_chunk
 
-        # the tracker state entering every chunk's first frame, from the dequantized
-        # RESIDENT samples (what the step's tracker reads), clips of equal length
-        # batched into K2 launches with collect_states
+        self._floor_ck = self._cd_ck = None
+        if isinstance(p, SalsaParams) and p.is_tracking:
+            self._tracker_checkpoints(train_data, p)
+
+        as_long = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)  # noqa: E731
+        n_valid = np.minimum(train_data.clip_trimmed_frames[clip_of_chunk]
+                             - train_data.within_clip_start, self.chunk_len)
+        self._clip = as_long(clip_of_chunk)
+        self._f0 = as_long(train_data.within_clip_start)
+        self._n_full = as_long(train_data.clip_full_frames[clip_of_chunk])
+        self._n_valid = as_long(n_valid)
+        self._l_start = as_long(train_data.label_chunk_starts)
+        self._sed = torch.from_numpy(train_data.sed_targets).to(dev)
+        self._doa = torch.from_numpy(train_data.doa_targets).to(dev)
+        self.mean = torch.as_tensor(np.asarray(scaler[0], np.float32), device=dev)
+        self.std = torch.as_tensor(np.asarray(scaler[1], np.float32), device=dev)
+
+    def _tracker_checkpoints(self, train_data: WavSplitData, p: SalsaParams) -> None:
+        """The tracker state entering every chunk's first frame, from the dequantized
+        RESIDENT samples (what the step's tracker reads), clips of equal length
+        batched into K2 launches with collect_states."""
+        dev, clip_of_chunk = self.device, train_data.clip_of_chunk
         t0 = time.perf_counter()
         n_band = p.upper_bin - p.lower_bin
         self._floor_ck = torch.zeros((len(train_data), n_band), dtype=torch.float32, device=dev)
@@ -185,36 +206,26 @@ class SeldTrainer:
         logger.info("from_wav: tracker checkpoints for %d clips in %.1fs",
                     len(train_data.clip_wavs), self.setup_seconds["tracker_checkpoints"])
 
-        as_long = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)  # noqa: E731
-        n_valid = np.minimum(train_data.clip_trimmed_frames[clip_of_chunk]
-                             - train_data.within_clip_start, self.chunk_len)
-        self._clip = as_long(clip_of_chunk)
-        self._f0 = as_long(train_data.within_clip_start)
-        self._n_full = as_long(train_data.clip_full_frames[clip_of_chunk])
-        self._n_valid = as_long(n_valid)
-        self._l_start = as_long(train_data.label_chunk_starts)
-        self._sed = torch.from_numpy(train_data.sed_targets).to(dev)
-        self._doa = torch.from_numpy(train_data.doa_targets).to(dev)
-        self.mean = torch.as_tensor(np.asarray(scaler[0], np.float32), device=dev)
-        self.std = torch.as_tensor(np.asarray(scaler[1], np.float32), device=dev)
-
     # ------------------------------------------------------------------
     def normalize(self, x: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
-        """Chunks (B, 7, chunk_len, F) -> the spectral channels normalized by the
-        train-split scaler, and frames past each chunk's n_valid (B,) zeroed."""
+        """Chunks (B, C, chunk_len, F) -> the scaler's channels (the feature type's
+        n_spec_channels) normalized by the train-split scaler, and frames past each
+        chunk's n_valid (B,) zeroed."""
         mean, std = self.mean.to(x.device), self.std.to(x.device)
-        x = torch.cat([(x[:, :N_SPEC_CHANNELS] - mean) / std, x[:, N_SPEC_CHANNELS:]], dim=1)
+        n = self.n_spec_channels
+        x = torch.cat([(x[:, :n] - mean) / std, x[:, n:]], dim=1)
         # the short-clip pad region is true zeros in the feature-store path, which
         # pads after normalization
         ok = torch.arange(self.chunk_len, device=x.device) < n_valid[:, None]
         return x * ok[:, None, :, None].to(x.dtype)
 
     def batch(self, chunk_ids):
-        """(x, sed, doa) of the chunks `chunk_ids` (B,): normalized SALSA chunks
-        (B, 7, chunk_len, F) extracted on the device, and their label windows."""
+        """(x, sed, doa) of the chunks `chunk_ids` (B,): normalized feature chunks
+        (B, C, chunk_len, F) extracted on the device, and their label windows."""
         i = torch.as_tensor(np.asarray(chunk_ids, np.int64), device=self.device)
-        x = self.chunk_fn(self._waves, self._clip[i], self._f0[i], self._n_full[i],
-                          self._floor_ck[i], self._cd_ck[i], self.wav_scale)
+        state = (None, None) if self._floor_ck is None else (self._floor_ck[i], self._cd_ck[i])
+        x = self.chunk_fn(self._waves, self._clip[i], self._f0[i], self._n_full[i], *state,
+                          self.wav_scale)
         x = self.normalize(x, self._n_valid[i])
         rows = self._l_start[i][:, None] + torch.arange(self.label_chunk_len, device=self.device)
         return x, self._sed[rows], self._doa[rows]

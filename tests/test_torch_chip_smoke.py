@@ -131,3 +131,29 @@ def test_phase10_streams_on_the_cpu(capsys):
     text = capsys.readouterr().out
     assert "bit-equal to K2 collect_states over the whole stream" in text
     assert "--pcm16 bit-equal to the float push" in text
+
+
+def test_phase11_runs_the_feature_bank_on_the_cpu(capsys):
+    """Phase 11 cut down on the CPU (every BANK case on 2 x 1 s clips, the golden,
+    configs/seld_salsa_lite.yml's three requests at 1 s, one 1.2 s wav served from
+    disk and streamed at N = 2, 2 s training clips at 0.4 s chunks, batch 2 and a
+    narrow decoder): every comparison, the CSVs byte-identical to the in-memory
+    pipeline's, and the trained experiment validated. On CPU tensors the kernels'
+    wrappers run their plain versions and count nothing."""
+    out = chip_smoke.phase11(
+        torch.device("cpu"), seconds=1.0, n_clips=2, scenes=(("mic_one", 1.2, chip_smoke.FS),),
+        request_seconds=(1.0, 1.0, 0.7), train_seconds=2.0, stream_seconds=6.0, n_streams=2,
+        train_overrides=("data.train_chunk_len_s=0.4", "data.train_chunk_hop_len_s=0.2",
+                         "training.train_batch_size=2", "model.decoder.decoder_size=16",
+                         "data.test_chunk_len_s=2.0", "data.test_chunk_hop_len_s=2.1",
+                         "data.max_file_len_s=2.0"))
+    assert set(out["bank"]) == {"-".join([ft, fmt] + [f"{k}={v}" for k, v in o.items()])
+                                for ft, fmt, o in chip_smoke.BANK}
+    assert out["lite_launches"] == {"salsa_spatial": 0, "noise_floor": 0} and "bench" not in out
+    assert out["stream_cli"]["counts"]["dispatches"] == 1 and out["stream"]["blocks"] >= 1
+    assert out["train"]["n_steps"] >= 1 and all(np.isfinite(v)
+                                                for v in out["train"]["scores"].values())
+    text = capsys.readouterr().out
+    assert "golden melspecgcc" in text and "golden salsa_mic" in text
+    assert "byte-identical to the in-memory pipeline's" in text
+    assert "seld_salsa_lite: 4 chunks" in text and "first step's loss" in text

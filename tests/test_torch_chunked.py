@@ -11,10 +11,13 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+import chip_smoke  # noqa: E402
+
 from salsa_tpu.features import chunked as jchunked  # noqa: E402
 from salsa_tpu.features.salsa import SalsaParams as JSalsaParams  # noqa: E402
 from salsa_tpu_torch.dsp.stft import stft_planes  # noqa: E402
 from salsa_tpu_torch.features import chunked  # noqa: E402
+from salsa_tpu_torch.features.registry import make_extractor  # noqa: E402
 from salsa_tpu_torch.features.salsa import (  # noqa: E402
     SalsaParams,
     band_planes,
@@ -24,6 +27,12 @@ from salsa_tpu_torch.features.salsa import (  # noqa: E402
     tracking_magspec_planes,
 )
 from tests.test_from_wav import synth_wave  # noqa: E402
+from tests.test_torch_features import (  # noqa: E402
+    assert_bank_close,
+    assert_spatial_close,
+    lite_period,
+    on_circle,
+)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -196,29 +205,93 @@ def test_short_clip_chunk_matches_salsa_tpu(rng):
                                                 jnp.asarray(fl[0]), jnp.asarray(cd[0]))
 
 
+# the fused types besides SALSA through K1, and SALSA off K1 (no tracking; the
+# XLA power branch with tracking, resumed from a checkpoint)
+OTHER_TYPES = [("salsa_lite", "mic", {}), ("salsa_ipd", "mic", {}), ("linspeciv", "foa", {}),
+               ("melspeciv", "foa", {"n_mels": 64}), ("linspecgcc", "mic", {}),
+               ("melspecgcc", "mic", {"n_mels": 64}), ("melspec", "foa", {"n_mels": 64}),
+               ("salsa", "mic", {"is_tracking": False}), ("salsa", "foa", {"eig_method": "power"})]
+
+
+@pytest.mark.parametrize("ft,fmt,opts", OTHER_TYPES,
+                         ids=[f"{c[0]}-{c[1]}-{'-'.join(c[2])}" for c in OTHER_TYPES])
+def test_other_types_chunk_equals_full_clip_and_salsa_tpu(rng, ft, fmt, opts):
+    """Each fused type's chunks at the first, a middle and the last start (the
+    tests/test_from_wav.py pattern): equal to the port's full-clip slice within
+    atol 2e-4, rtol 1e-4, from a resident wave carrying required_pad (the GCC
+    types' big_n_fft // 2, their n_fft frames read at a pad offset); and each
+    against salsa_tpu's chunk function at tests/test_torch_features.py's bounds."""
+    wave = synth_wave(rng, 4.0)
+    kw = dict(fs=FS, n_fft=N_FFT, hop_length=HOP, fmax_doa=None, **opts)
+    fn, p = chunked.make_chunk_extractor(ft, fmt, CHUNK, **kw)
+    jfn, jp = jchunked.make_chunk_extractor(ft, fmt, CHUNK, **kw)
+    full = make_extractor(ft, fmt, **kw)(torch.from_numpy(wave)[None])[0].numpy()
+    pad = chunked.required_pad(ft, N_FFT)
+    wp = chunked.pad_waveform(wave, N_FFT, pad)
+    starts = _starts(wave.shape[1])
+    n_full = chunked.n_full_frames(wave.shape[1], HOP)
+    tracking = ft == "salsa" and p.is_tracking
+    state = (chunked.salsa_tracker_checkpoints(torch.from_numpy(wp), starts, p) if tracking
+             else (None, None))
+    got = fn(torch.from_numpy(wp)[None], torch.zeros(3, dtype=torch.long),
+             torch.from_numpy(starts), torch.full((3,), n_full), *state).numpy()
+    assert got.shape == (3, full.shape[0], CHUNK, full.shape[-1])
+    jstate = jchunked.salsa_tracker_checkpoints(wp, starts, jp) if tracking else None
+    jfn = jax.jit(jfn)
+    for i, f0 in enumerate(starts):
+        np.testing.assert_allclose(got[i], full[:, f0:f0 + CHUNK], atol=2e-4, rtol=1e-4,
+                                   err_msg=f"{ft} chunk at {f0}")
+        if ft == "salsa":
+            nb = jp.upper_bin - jp.lower_bin
+            fl, cd = ((jnp.asarray(jstate[0][i]), jnp.asarray(jstate[1][i])) if tracking
+                      else (jnp.zeros(nb), jnp.zeros(nb, jnp.int32)))
+        else:
+            fl, cd = jnp.zeros(1), jnp.zeros(1, jnp.int32)
+        want = np.asarray(jfn(jnp.asarray(wp), jnp.int32(n_full), jnp.int32(f0), fl, cd))
+        assert_bank_close(got[i, :4], want[:4], "spec")
+        rest = got[i, 4:]
+        if ft == "salsa":
+            period = (chip_smoke.mic_period(p, nb) if fmt == "mic" else None)
+            assert_spatial_close(rest[..., :nb], want[4:, :, :nb], period, f"{ft} at {f0}")
+        elif ft in ("salsa_lite", "salsa_ipd"):
+            assert_bank_close(on_circle(rest, want[4:], lite_period(p.params)), want[4:], "ipd")
+        elif rest.shape[0]:
+            assert_bank_close(rest, want[4:], "gcc" if ft.endswith("gcc") else "iv")
+
+
 def test_helpers_equal_salsa_tpu(rng):
     wave = rng.standard_normal((4, 2345)).astype(np.float32)
     for pad in (None, 300):
         np.testing.assert_array_equal(chunked.pad_waveform(wave, N_FFT, pad),
                                       jchunked.pad_waveform(wave, N_FFT, pad))
-    for ft in ("salsa", "melspec"):
-        assert chunked.required_pad(N_FFT) == jchunked.required_pad(ft, N_FFT)
+    for ft in chunked.FUSED_FEATURE_TYPES:
+        assert chunked.required_pad(ft, N_FFT) == jchunked.required_pad(ft, N_FFT)
     for n in (0, 299, 300, 1_440_000):
         assert chunked.n_full_frames(n, HOP) == jchunked.n_full_frames(n, HOP)
     assert chunked.FUSED_FEATURE_TYPES == jchunked.FUSED_FEATURE_TYPES
 
 
 def test_chunk_extractor_refusals():
+    """Every fused type and SALSA option is taken; what remains refused: an unknown
+    type or eig_method (ValueError), SALSA with other than 4 channels
+    (NotImplementedError naming its ROADMAP item)."""
     kw = dict(fs=FS, n_fft=N_FFT, hop_length=HOP)
     fn, p = chunked.make_chunk_extractor("salsa", "mic", CHUNK, **kw)
     assert callable(fn) and p.fmax_doa == 4000.0 and p.audio_format == "mic"
     with pytest.raises(ValueError, match="from_wav supports"):
         chunked.make_chunk_extractor("notafeature", "foa", CHUNK, **kw)
+    with pytest.raises(ValueError, match="eig_method"):
+        chunked.make_chunk_extractor("salsa", "foa", CHUNK, eig_method="jacobi", **kw)
     for ft in ("salsa_lite", "melspecgcc"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            chunked.make_chunk_extractor(ft, "foa", CHUNK, **kw)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        chunked.make_chunk_extractor("salsa", "foa", CHUNK, is_tracking=False, **kw)
-    for method in ("power", "eigh"):
-        with pytest.raises(NotImplementedError, match="K1"):
-            chunked.make_chunk_extractor("salsa", "foa", CHUNK, eig_method=method, **kw)
+        fn, ff = chunked.make_chunk_extractor(ft, "mic", CHUNK, **kw)
+        assert callable(fn) and ff.n_channels == (7 if ft == "salsa_lite" else 10)
+    zero = torch.zeros(1, dtype=torch.long)
+    for opts in ({"is_tracking": False}, {"eig_method": "power"}, {"eig_method": "eigh"}):
+        fn, p = chunked.make_chunk_extractor("salsa", "foa", CHUNK, **opts, **kw)
+        assert not p.uses_k1
+        nb = p.upper_bin - p.lower_bin
+        state = ((torch.zeros((1, nb)), torch.full((1, nb), 3, dtype=torch.int32))
+                 if p.is_tracking else (None, None))
+        three = torch.zeros((1, 3, (CHUNK + 8) * HOP + N_FFT))
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
+            fn(three, zero, zero, zero + CHUNK + 7, *state)

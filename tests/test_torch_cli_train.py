@@ -211,3 +211,36 @@ def test_train_refusals(experiment, monkeypatch):
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli_train.train(experiment["config"], group)
+
+
+def test_train_passes_the_spectral_keys(experiment, monkeypatch):
+    """cli.train on a melspeciv experiment (n_mels 32, fmin 0, fmax 3.5 kHz, eig_method
+    'power'): the keys reach the full-clip extractor (scaler fit, validation) and
+    the chunk extractor of every step, as salsa_tpu's cli.train passes them; the
+    classic type's scaler covers all 7 channels and no tracker checkpoint is made."""
+    import salsa_tpu_torch.train.trainer as trainer_mod
+
+    root = experiment["root"]
+    cfg = _config(root, max_epochs=1, eig_method="power")
+    cfg["feature_type"] = "melspeciv"
+    cfg["data"].update(n_mels=32, fmin=0.0, fmax=3500.0)
+    path = os.path.join(root, "melspeciv.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    calls = {"make_extractor": [], "make_chunk_extractor": []}
+    for module, name in ((cli_train, "make_extractor"), (trainer_mod, "make_chunk_extractor")):
+        target = getattr(module, name)
+        monkeypatch.setattr(module, name, functools.partial(
+            lambda target, name, *a, **kw: calls[name].append(kw) or target(*a, **kw),
+            target, name))
+    tr = cli_train.train(path, os.path.join(root, "mel_outputs"), device="cpu")
+    want = {"n_mels": 32, "fmin": 0.0, "fmax": 3500.0}
+    for name, (kw,) in calls.items():
+        assert {k: kw[k] for k in want} == want, (name, kw)
+        assert kw["eig_method"] == "power", name
+    exp = os.path.join(root, "mel_outputs", "crossval", "foa", "melspeciv", "melspeciv")
+    scaler = np.load(os.path.join(exp, "models", "feature_scaler.npz"))
+    assert scaler["mean"].shape == (7, 1, 32)
+    assert tr._floor_ck is None and "tracker_checkpoints" not in tr.setup_seconds
+    assert np.isfinite(tr.step_losses).all()
+    assert os.path.isfile(os.path.join(exp, "models", "best", "best.msgpack"))

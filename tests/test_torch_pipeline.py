@@ -281,6 +281,20 @@ HYGIENE = textwrap.dedent("""
     assert len(blocks) == 1 and blocks[0].shape == (7, 16, 200), [b.shape for b in blocks]
     assert callable(stream_pool.SeldStreamPool) and callable(streaming.StreamingSeldPipeline)
 
+    # the rest of the feature bank, every type on every entry point's function
+    import salsa_tpu_torch.features.salsa_lite as salsa_lite
+    import salsa_tpu_torch.features.specs as specs
+    from salsa_tpu_torch.features.registry import FEATURE_REGISTRY, make_extractor
+
+    assert callable(specs.gcc_phat_all_pairs) and callable(salsa_lite.extract_salsa_lite)
+    short = torch.from_numpy(np.random.default_rng(3).standard_normal((1, 4, 4800)).astype(
+        np.float32))
+    for ft in FEATURE_REGISTRY:
+        ex = make_extractor(ft, "mic" if ft.startswith("salsa") else "foa")
+        assert ex(short).shape == (1, ex.n_channels, 17, ex.n_features), ft
+    se = streaming.StreamingExtractor("salsa_lite", "mic", block_frames=16, device="cpu")
+    assert se.push(short[0].numpy())[0].shape == (7, 16, 191)
+
     leaked = sorted(m for m in sys.modules if blocked(m))
     assert not leaked, leaked
     print("HYGIENE_OK")

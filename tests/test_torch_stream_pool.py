@@ -307,3 +307,50 @@ def test_pool_api_guards(setup):
     pool.push(h, np.zeros((4, 100), np.int16))
     with pytest.raises(ValueError, match="homogeneous"):
         pool.push(h, wave(7, 0.1))
+
+
+def test_salsa_lite_pool_equals_solo_runs():
+    """A salsa_lite pool (MIC, frame-local: no halo, no tracker): A from the start,
+    B attached two blocks in and detached early, each equal to its solo streaming
+    run, and no restart flag is scheduled for the joiner (no K2 runs)."""
+    rng = np.random.default_rng(20261021)
+    geo = dict(fs=FS, n_fft=N_FFT, hop_length=HOP, block_frames=L)
+    j_model = j_build_model(encoder=ENC, decoder=DEC, n_classes=3)
+    n_feat = StreamingExtractor("salsa_lite", "mic", device="cpu", **geo).n_features
+    params, stats = flax_init(rng, j_model, np.zeros((1, 7, 64, n_feat), np.float32))
+    scaler = (rng.normal(-5.0, 1.0, (4, 1, n_feat)).astype(np.float32),
+              rng.uniform(5.0, 8.0, (4, 1, n_feat)).astype(np.float32))
+
+    def pipe(n):
+        return StreamingSeldPipeline(
+            StreamingExtractor("salsa_lite", "mic", n_streams=n, device="cpu", **geo),
+            build_model(encoder=ENC, decoder=DEC, n_classes=3),
+            {"params": params, "batch_stats": stats}, scaler, 16 * 10 / (FS / HOP), 3,
+            left_context=LEFT, right_context=RIGHT)
+
+    wa, wb = wave(30, 6.0), wave(31, 2.0)
+    pool = SeldStreamPool(pipe(2))
+    ha, hb, got_a, got_b, pos_a, pos_b = pool.attach(), None, [], [], 0, 0
+    while pos_a < wa.shape[1]:
+        got_a += pool.push(ha, wa[:, pos_a:pos_a + PUSH])
+        pos_a += PUSH
+        if hb is None and pos_a >= 2 * TICK:
+            hb = pool.attach()
+        if hb is not None and pos_b < wb.shape[1]:
+            got_b += pool.push(hb, wb[:, pos_b:pos_b + PUSH])
+            pos_b += PUSH
+            assert pool.ext._reinit == {}
+            if pos_b >= wb.shape[1]:
+                got_b += pool.detach(hb)
+    got_a += pool.detach(ha)
+    got_b += pool.poll(hb)
+    assert pool.n_live == 0
+    one = pipe(1)
+    for got, w in ((got_a, wa), (got_b, wb)):
+        one.reset()
+        want = []
+        for i in range(0, w.shape[1], PUSH):
+            want += one.push(w[:, i:i + PUSH])
+        want += one.flush()
+        assert_outputs(got, want, 1e-5, 0)
+        assert cat(got)[0].std() > 0.01  # the comparison is not vacuous

@@ -299,10 +299,47 @@ def test_streaming_refuses_what_is_not_ported():
     geo = kw("foa")
     with pytest.raises(ValueError, match="streaming supports"):
         StreamingExtractor("logmel", "foa", device="cpu", **geo)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        StreamingExtractor("salsa_lite", "mic", device="cpu", **geo)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        StreamingExtractor("salsa", "foa", is_tracking=False, device="cpu", **geo)
+    # every fused type and SALSA option streams (test_frame_local_streams_equal_offline)
+    assert StreamingExtractor("salsa_lite", "mic", device="cpu", **geo).halo == 0
+    assert not StreamingExtractor("salsa", "foa", is_tracking=False, device="cpu",
+                                  **geo)._tracking
+    with pytest.raises(ValueError, match="eig_method"):
+        StreamingExtractor("salsa", "foa", eig_method="jacobi", device="cpu", **geo)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             StreamingExtractor("salsa", "foa", **geo)
+
+
+@pytest.mark.parametrize("ft,fmt,opts,tol", [
+    ("salsa_lite", "mic", {}, dict(atol=1e-5, rtol=0)),
+    ("melspeciv", "foa", {"n_mels": 64}, dict(atol=2e-4, rtol=1e-4)),
+    ("linspecgcc", "mic", {}, dict(atol=2e-4, rtol=1e-4)),
+])
+def test_frame_local_streams_equal_offline(rng, ft, fmt, opts, tol):
+    """The frame-local types stream with no halo and no tracker: ragged packets
+    (tests/test_streaming.py:55-91) give the offline extractor's features, the GCC
+    type through its deeper reflect pad and double-length frames at both ends; two
+    synchronized streams give each one's; and salsa_tpu's streaming extractor
+    gives the same at tests/test_torch_features.py's bounds."""
+    from salsa_tpu_torch.features.registry import make_extractor
+    from tests.test_torch_features import assert_bank_close, lite_period, on_circle
+
+    geo = dict(fs=FS, n_fft=N_FFT, hop_length=HOP, **opts)
+    waves = make_wave(rng, 2.5, n_streams=2)
+    full = make_extractor(ft, fmt, **geo)(torch.from_numpy(waves)).numpy()
+    te = StreamingExtractor(ft, fmt, block_frames=L, device="cpu", **geo)
+    assert te.halo == 0 and te._pad == chunked.required_pad(ft, N_FFT)
+    got = stream_all(te, waves[0])
+    assert got.shape == full[0].shape == (te.n_feat_channels, te.total_frames(waves.shape[-1]),
+                                          te.n_features)
+    np.testing.assert_allclose(got, full[0], err_msg=ft, **tol)
+    two = StreamingExtractor(ft, fmt, block_frames=L, n_streams=2, device="cpu", **geo)
+    np.testing.assert_allclose(stream_all(two, waves, sizes=(333, 2048)), full,
+                               err_msg=f"{ft} x2", **tol)
+    want = stream_all(JExtractor(ft, fmt, block_frames=L, **geo), waves[0])
+    assert_bank_close(got[:4], want[:4], "spec")
+    if ft == "salsa_lite":
+        assert_bank_close(on_circle(got[4:], want[4:], lite_period(te.params.params)),
+                          want[4:], "ipd")
+    else:
+        assert_bank_close(got[4:], want[4:], "gcc" if ft.endswith("gcc") else "iv")

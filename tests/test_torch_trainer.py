@@ -66,17 +66,20 @@ DEC = {"name": "SeldDecoder", "decoder_type": "bigru", "decoder_size": 32, "freq
        "head_dropout": 0.0, "rnn_dropout": 0.0}
 
 
-def trainer_config():
+def trainer_config(feature_type="salsa", audio_format="foa", n_steps=N_STEPS):
     """27 train chunks at batch 2 and train_fraction 0.1: one step an epoch, so
     each epoch's mean loss is that step's. lr 1e-4: at 1e-3 both runs stay within
     2e-3 for 3 steps only (Adam turns float32 rounding of small gradients into
     whole-lr steps, and the batch of 2 amplifies it)."""
+    data = {"fs": E2E_FS, "n_fft": E2E_NFFT, "hop_len": E2E_HOP, "n_classes": N_CLASSES,
+            "audio_format": audio_format, "label_rate": 10, "output_format": "reg_xyz",
+            "max_file_len_s": 4.0, "train_fraction": 0.1}
+    if feature_type == "salsa":
+        data["fmax_doa"] = 3000.0
     return {
-        "feature_type": "salsa",
-        "data": {"fs": E2E_FS, "n_fft": E2E_NFFT, "hop_len": E2E_HOP, "n_classes": N_CLASSES,
-                 "fmax_doa": 3000.0, "audio_format": "foa", "label_rate": 10,
-                 "output_format": "reg_xyz", "max_file_len_s": 4.0, "train_fraction": 0.1},
-        "training": {"train_batch_size": 2, "max_epochs": N_STEPS, "from_wav": True,
+        "feature_type": feature_type,
+        "data": data,
+        "training": {"train_batch_size": 2, "max_epochs": n_steps, "from_wav": True,
                      "eig_method": "pallas", "steps_per_dispatch": 1,
                      "lr_scheduler": {"milestones": [0.0, 0.5, 1.0], "lrs": [1e-4, 1e-4, 2e-5],
                                       "moms": [0.9, 0.85, 0.9]}},
@@ -84,11 +87,10 @@ def trainer_config():
     }
 
 
-@pytest.fixture(scope="module")
-def trained(tmp_path_factory):
-    """Both trainers after N_STEPS steps, their per-step losses, and the flax
-    init they started from."""
-    root = str(tmp_path_factory.mktemp("torch_trainer"))
+def train_both(root, feature_type="salsa", audio_format="foa", n_steps=N_STEPS):
+    """Both trainers after n_steps steps from one flax init, their per-step losses
+    and the weights (a generator: salsa_tpu's dropout stays patched off until it
+    is closed)."""
     rng = np.random.default_rng(20261018)
     names, meta_dir = _write_synth_corpus(root, rng, n_clips=4, seconds=4.0)
     with open(os.path.join(meta_dir, "train.csv"), "w") as f:
@@ -96,43 +98,47 @@ def trained(tmp_path_factory):
     with open(os.path.join(meta_dir, "val.csv"), "w") as f:
         f.write("filename\n" + names[3])
     audio_dir = os.path.join(root, "foa_dev")
-    kw = dict(fs=E2E_FS, n_fft=E2E_NFFT, hop_length=E2E_HOP, fmax_doa=3000.0)
-    j_ex = j_make_extractor("salsa", "foa", eig_method="pallas", **kw)
-    t_ex = make_extractor("salsa", "foa", **kw)
+    kw = dict(fs=E2E_FS, n_fft=E2E_NFFT, hop_length=E2E_HOP)
+    if feature_type == "salsa":
+        kw["fmax_doa"] = 3000.0
+    j_ex = j_make_extractor(feature_type, audio_format, eig_method="pallas", **kw)
+    t_ex = make_extractor(feature_type, audio_format, **kw)
+    geometry = dict(GEOMETRY, audio_format=audio_format)
 
     jdb = JDatabase(feature_root_dir=os.path.join(root, "features"), gt_meta_root_dir=root,
-                    **GEOMETRY)
+                    **geometry)
     jdb.n_fft = E2E_NFFT
     j_split = jwav.load_wav_split(jdb, "train", audio_dir, split_meta_dir=meta_dir,
                                   n_channels=7, n_features=j_ex.n_features)
     scaler = jwav.fit_scaler_from_waves(j_ex, j_split.clip_wavs, 4)
-    j_val = JDatabase(feature_root_dir=None, gt_meta_root_dir=root, **GEOMETRY,
+    j_val = JDatabase(feature_root_dir=None, gt_meta_root_dir=root, **geometry,
                       store=jwav.extract_split_to_store(j_ex, names[3:], audio_dir, E2E_FS,
                                                         scaler)
                       ).load_split("val", split_meta_dir=meta_dir, stage="inference")
 
-    tdb = TDatabase(store=twav.MemoryFeatureStore({}, None), gt_meta_root_dir=root, **GEOMETRY)
+    tdb = TDatabase(store=twav.MemoryFeatureStore({}, None), gt_meta_root_dir=root, **geometry)
     tdb.n_fft = E2E_NFFT
     t_split = twav.load_wav_split(tdb, "train", audio_dir, split_meta_dir=meta_dir,
                                   n_channels=7, n_features=t_ex.n_features)
     t_val = TDatabase(store=twav.extract_split_to_store(t_ex, names[3:], audio_dir, E2E_FS,
                                                         scaler, device="cpu"),
-                      gt_meta_root_dir=root, **GEOMETRY
+                      gt_meta_root_dir=root, **geometry
                       ).load_split("val", split_meta_dir=meta_dir, stage="inference")
 
     gt_dir = os.path.join(root, "metadata_dev")
+    cfg = trainer_config(feature_type, audio_format, n_steps)
     patch = pytest.MonkeyPatch()
     patch.setattr(jdropout, "dropout", lambda x, key, rate: x)  # salsa_tpu's dropout off
     try:
         jt = JTrainer(model=j_build_model(encoder=ENC, decoder=DEC, n_classes=N_CLASSES),
-                      cfg=JAttrDict(trainer_config()), train_data=j_split, val_data=j_val,
+                      cfg=JAttrDict(cfg), train_data=j_split, val_data=j_val,
                       gt_meta_dir=gt_dir, submission_dir=os.path.join(root, "jax_subs"),
                       seed=SEED, scaler=scaler)
         # the step counter as the step leaves it (int32, replicated): one compile
         jt.state = jt.state.replace(step=replicate(jt.mesh, jnp.asarray(0, jnp.int32)))
         init = jax.device_get((jt.state.params, jt.state.batch_stats))
         tt = SeldTrainer(model=build_model(encoder=ENC, decoder=DEC, n_classes=N_CLASSES),
-                         cfg=AttrDict(trainer_config()), train_data=t_split, val_data=t_val,
+                         cfg=AttrDict(cfg), train_data=t_split, val_data=t_val,
                          gt_meta_dir=gt_dir, submission_dir=os.path.join(root, "torch_subs"),
                          seed=SEED, scaler=scaler, device="cpu")
         load_flax_variables(tt.model, *init)
@@ -140,7 +146,7 @@ def trained(tmp_path_factory):
             if isinstance(m, Dropout):
                 m.p = 0.0
         losses = {"jax": [], "torch": []}
-        for epoch in range(N_STEPS):
+        for epoch in range(n_steps):
             losses["jax"].append(jt.train_epoch(epoch)["loss"])
             losses["torch"].append(tt.train_epoch(epoch)["loss"])
         # the trained weights and statistics, torch-named, before a test reloads any
@@ -153,6 +159,13 @@ def trained(tmp_path_factory):
                "t_split": t_split, "weights": weights}
     finally:
         patch.undo()
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """Both SALSA trainers after N_STEPS steps, their per-step losses, and the flax
+    init they started from."""
+    yield from train_both(str(tmp_path_factory.mktemp("torch_trainer")))
 
 
 def test_trainer_tables_match_salsa_tpu(trained):
@@ -171,12 +184,16 @@ def test_trainer_tables_match_salsa_tpu(trained):
     assert float(tt.interp_ratio) == float(jt.interp_ratio)
 
 
-def test_slice_loss_trace_matches_salsa_tpu(trained):
+def assert_loss_traces_match(trained, n_steps):
     jl, tl = np.array(trained["losses"]["jax"]), np.array(trained["losses"]["torch"])
-    assert len(tl) == N_STEPS and np.isfinite(tl).all()
+    assert len(tl) == n_steps and np.isfinite(tl).all()
     np.testing.assert_allclose(tl[0], jl[0], rtol=1e-4, err_msg=f"{jl} vs {tl}")
     np.testing.assert_allclose(tl, jl, rtol=2e-3, err_msg=f"{jl} vs {tl}")
     assert np.std(tl) > 0.01  # the steps see different batches and weights
+
+
+def test_slice_loss_trace_matches_salsa_tpu(trained):
+    assert_loss_traces_match(trained, N_STEPS)
     # the optimizer's count and the schedule's last values
     tt, jt = trained["torch"], trained["jax"]
     assert tt.optimizer.count == int(jt.state.step) == N_STEPS
@@ -235,3 +252,4 @@ def test_validate_matches_salsa_tpu_on_equal_weights(trained):
         np.testing.assert_allclose(t_scores[k], j_scores[k], rtol=1e-9, err_msg=k)
     for k, v in jt.last_val_losses.items():
         np.testing.assert_allclose(tt.last_val_losses[k], v, rtol=1e-4, err_msg=k)
+
