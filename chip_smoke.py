@@ -686,10 +686,26 @@ def phase5(dev, pipe, request, sass_mixes) -> dict:
     return times
 
 
-def profile_table(fn, phase: str, what: str, top: int = 12) -> None:
+def device_share(rows, wall_ms: float, copies_from_host: bool) -> dict:
+    """The device's busy time, host -> device copy and idle share of a profiled call
+    from its device activities `rows`, (name, device us) pairs, and its host wall
+    time. `copy_ms` is the `Memcpy HtoD` rows' sum; where the call copies from the
+    host and no such row was recorded, the copy is not measured (None) and so is the
+    idle share (None): a copy the profiler dropped is never read as 0 ms."""
+    busy_ms = sum(us for _, us in rows) / 1e3
+    copies = [us for name, us in rows if name.startswith("Memcpy HtoD")]
+    copy_ms = sum(copies) / 1e3 if copies or not copies_from_host else None
+    idle = None if copy_ms is None or not rows else 1 - busy_ms / wall_ms
+    return {"busy_ms": busy_ms, "copy_ms": copy_ms, "idle": idle}
+
+
+def profile_table(fn, phase: str, what: str, top: int = 12,
+                  copies_from_host: bool = True) -> dict:
     """Profile one fn() on the card and print its device busy time against the host
-    wall and the `top` kernels by device time. Kernel and copy activities only:
-    op-level rows repeat the time of the kernels they launch."""
+    wall and the `top` kernels by device time; returns `device_share`'s reading.
+    Kernel and copy activities only: op-level rows repeat the time of the kernels
+    they launch. `copies_from_host`: fn() uploads its input, so a missing host ->
+    device copy row leaves the copy and the idle share not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -704,14 +720,18 @@ def profile_table(fn, phase: str, what: str, top: int = 12) -> None:
 
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
               and dev_us(e) > 0 and not e.key.startswith("Activity Buffer")]
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    share = device_share([(e.key, dev_us(e)) for e in events], wall_ms, copies_from_host)
     if not events:
         log(phase, f"profile of {what}: no device time recorded (not measured)")
-        return
-    log(phase, f"profile of {what}: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
-               f"({1 - busy_ms / wall_ms:.1%} idle, profiler on) [{CARD}]")
+        return share
+    copy = ("copy: not measured (no Memcpy HtoD row)" if share["copy_ms"] is None
+            else f"copy {share['copy_ms']:.2f} ms")
+    idle = "idle not measured" if share["idle"] is None else f"{share['idle']:.1%} idle"
+    log(phase, f"profile of {what}: device busy {share['busy_ms']:.2f} ms of {wall_ms:.2f} ms "
+               f"wall ({idle}, {copy}, profiler on) [{CARD}]")
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         log(phase, f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return share
 
 
 def kernel_device_ms(fn, kernel: str, calls: int = CALLS) -> float | None:
@@ -924,7 +944,7 @@ def write_experiment(root: str, scenes=SCENES, seed: int = SEED, config: str = S
                         *torch_state_dict_to_flax(weights[ck]), step,
                         {"epoch": step, "valSeld": val_seld})
     ex = make_extractor(cfg.feature_type, cfg.data.audio_format,
-                        **cli_predict.feature_kwargs(cfg.data))
+                        **cli_predict.feature_kwargs(cfg))
     rng = np.random.default_rng(seed)
     shape = (ex.n_spec_channels, 1, ex.n_features)
     np.savez(os.path.join(models, "feature_scaler.npz"),
@@ -1024,7 +1044,7 @@ def serve_from_disk(dev, exp: dict, tmp: str, batch_size: int = 4, tag: str = "8
                         decoder=cfg.model.decoder.to_dict(), n_classes=d.n_classes)
     scaler = np.load(exp["scaler"])
     pipe = SeldInferencePipeline(
-        make_extractor(cfg.feature_type, d.audio_format, **cli_predict.feature_kwargs(d)),
+        make_extractor(cfg.feature_type, d.audio_format, **cli_predict.feature_kwargs(cfg)),
         model, exp["weights"], (scaler["mean"], scaler["std"]),
         model.time_downsample_ratio * d.label_rate / (d.fs / d.hop_len), d.n_classes,
         d.output_format, device=dev)
@@ -1362,7 +1382,8 @@ def phase9(dev, seconds: float = 60.0, overrides=()) -> dict:
                    setup=dict(tr.setup_seconds))
         if cuda:
             ids = tr._epoch_order(tr.max_epochs + 1)[:tr.batch_size]
-            profile_table(lambda: tr.train_step(ids), "9", "one train step", top=16)
+            profile_table(lambda: tr.train_step(ids), "9", "one train step", top=16,
+                          copies_from_host=False)
 
         if cuda:
             # K2 resumed and K1 at the step's shapes against their plain versions on
@@ -1524,7 +1545,7 @@ def streaming_pipeline(dev, exp: dict, n_streams: int) -> StreamingSeldPipeline:
     cfg, d = exp["cfg"], exp["cfg"].data
     scaler = np.load(exp["scaler"])
     se = StreamingExtractor(cfg.feature_type, d.audio_format, block_frames=STREAM["block_frames"],
-                            n_streams=n_streams, device=dev, **cli_predict.feature_kwargs(d))
+                            n_streams=n_streams, device=dev, **cli_predict.feature_kwargs(cfg))
     model = build_model(encoder=cfg.model.encoder.to_dict(), decoder=cfg.model.decoder.to_dict(),
                         n_classes=d.n_classes, output_format=d.output_format)
     return StreamingSeldPipeline(se, model, exp["weights"], (scaler["mean"], scaler["std"]),
@@ -1929,7 +1950,7 @@ def lite_requests(dev, rng, request_seconds=(60.0, 60.0, 20.7)) -> dict:
                                      decoder=cfg.model.decoder.to_dict(), n_classes=d.n_classes,
                                      output_format=d.output_format),
                          torch.Generator().manual_seed(SEED + 30))
-    ex = make_extractor(cfg.feature_type, d.audio_format, **cli_predict.feature_kwargs(d))
+    ex = make_extractor(cfg.feature_type, d.audio_format, **cli_predict.feature_kwargs(cfg))
     scaler = (rng.normal(-5.0, 1.0, (4, 1, ex.n_features)).astype(np.float32),
               rng.uniform(5.0, 8.0, (4, 1, ex.n_features)).astype(np.float32))
     pipe = SeldInferencePipeline(ex, model, None, scaler, INTERP, d.n_classes, d.output_format,
@@ -2003,7 +2024,8 @@ def lite_train(dev, seconds: float = 60.0, overrides=()) -> dict:
                         np.flatnonzero(tr.train_data.clip_of_chunk == 1)[0]])
         i = torch.as_tensor(ids, device=dev)
         d = exp["cfg"].data
-        ex = make_extractor(exp["cfg"].feature_type, d.audio_format, **cli_predict.feature_kwargs(d))
+        ex = make_extractor(exp["cfg"].feature_type, d.audio_format,
+                            **cli_predict.feature_kwargs(exp["cfg"]))
         with torch.inference_mode():
             got = tr.chunk_fn(tr._waves, tr._clip[i], tr._f0[i], tr._n_full[i], None, None,
                               tr.wav_scale)

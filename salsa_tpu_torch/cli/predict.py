@@ -61,13 +61,17 @@ def _load_scaler(cfg, audio_format: str):
         f"({root or 'feature_root_dir unset'}) nor {npz} — train first")
 
 
-def feature_kwargs(d) -> dict:
-    """The extractor's keyword arguments from a config's data block, with
-    `salsa_tpu`'s defaults; the batch and the streaming paths take the same."""
+def feature_kwargs(cfg) -> dict:
+    """The extractor's keyword arguments from an experiment config, with
+    `salsa_tpu`'s defaults; the batch and the streaming paths take the same. The
+    eigensolver is the one the model was trained on (`training.eig_method`), as
+    `cli.train` passes it to the scaler fit, the val split and every step."""
+    d = cfg.data
     return dict(fs=d.fs, n_fft=d.n_fft, hop_length=d.hop_len,
                 win_length=d.get("win_len", d.n_fft), n_mels=d.get("n_mels", 128),
                 fmin=d.get("fmin", 50), fmax=d.get("fmax", None),
-                fmin_doa=d.get("fmin_doa", 50), fmax_doa=d.get("fmax_doa", None))
+                fmin_doa=d.get("fmin_doa", 50), fmax_doa=d.get("fmax_doa", None),
+                eig_method=cfg.get("training", {}).get("eig_method", "auto"))
 
 
 def predict(exp_config: str, wav_dir: str, out_dir: str,
@@ -97,7 +101,7 @@ def predict(exp_config: str, wav_dir: str, out_dir: str,
         cfg.sed_threshold = tuned
         logger.info("serving with tuned sed_threshold %.2f", tuned)
     d = cfg.data
-    extractor = make_extractor(cfg.feature_type, d.audio_format, **feature_kwargs(d))
+    extractor = make_extractor(cfg.feature_type, d.audio_format, **feature_kwargs(cfg))
     # the encoder named by the experiment: a PannResNet22TPU tree would load into
     # PannResNet22 and serve another network, so build_model refuses it
     model = build_model(
@@ -169,7 +173,7 @@ def predict(exp_config: str, wav_dir: str, out_dir: str,
 def _streaming_pipeline(cfg, d, model, variables, scaler, interp_ratio, block_frames,
                         context_frames, n_streams, device):
     se = StreamingExtractor(cfg.feature_type, d.audio_format, block_frames=block_frames,
-                            n_streams=n_streams, device=device, **feature_kwargs(d))
+                            n_streams=n_streams, device=device, **feature_kwargs(cfg))
     return StreamingSeldPipeline(
         se, model, variables, scaler, interp_ratio, d.n_classes,
         d.get("output_format", "reg_xyz"), left_context=context_frames,

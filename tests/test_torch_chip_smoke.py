@@ -94,6 +94,22 @@ def test_foa_scene_ground_truth_follows_its_source(rng):
     assert active[on].mean() > 5 * active[~on].mean()  # the source sounds where rows say
 
 
+@pytest.mark.parametrize("rows,copies,want", [
+    ([("conv", 40_000.0), ("Memcpy HtoD (Pageable -> Device)", 13_000.0)], True,
+     {"busy_ms": 53.0, "copy_ms": 13.0, "idle": 0.47}),
+    ([("conv", 40_000.0)], True, {"busy_ms": 40.0, "copy_ms": None, "idle": None}),
+    ([("conv", 40_000.0)], False, {"busy_ms": 40.0, "copy_ms": 0.0, "idle": 0.6}),
+])
+def test_device_share_reads_a_missing_copy_row_as_not_measured(rows, copies, want):
+    """A profiled request uploads its clips: without a Memcpy HtoD row the copy and
+    the idle share are not measured (None), never a copy of 0 ms and a high idle
+    share. A call that uploads nothing reads its idle share without the row."""
+    got = chip_smoke.device_share(rows, 100.0, copies)
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k] == pytest.approx(v) if v is not None else got[k] is None, k
+
+
 def test_phase9_trains_from_wav_on_the_cpu(capsys):
     """Phase 9 cut down on the CPU (2 s clips, 0.4 s chunks, batch 2, a narrow
     decoder): the chunk and first-step checks, cli.train with its checkpoints,

@@ -158,3 +158,38 @@ def test_predict_passes_the_spectral_keys(bank_runs):
     assert j_kwargs["n_mels"] == 64 and "fmin" not in j_kwargs and "fmax" not in j_kwargs
     (lite,) = bank_runs["salsa_lite"][("kwargs", "streaming", "port")]
     assert lite["fmin_doa"] == 50 and lite["fmax_doa"] is None
+
+
+def test_predict_passes_the_eig_method(workspace):
+    """A model trained on `training.eig_method: eigh` features is served on eigh
+    features, batch and --streaming: the key reaches the port's extractors as
+    cli.train passes it to the scaler fit, the val split and every step.
+    salsa_tpu's batch path (salsa_tpu/cli/predict.py:74-80) drops it and serves
+    K1's features (ROADMAP queue 3)."""
+    config = _write_config(workspace, "eigh", "reg_xyz", **{"training.eig_method": "eigh"})
+    for mode, kw_mode, name in (("batch", {}, "make_extractor"),
+                                ("streaming", dict(streaming=True, streams=2, **STREAM_KW),
+                                 "StreamingExtractor")):
+        calls = []
+        with pytest.MonkeyPatch.context() as mp:
+            arrays = _recording_csvs(tpredict_mod, mp)
+            _spy(mp, tpredict_mod, name, calls)
+            tpredict_mod.predict(config, str(workspace / "wavs"),
+                                 str(workspace / f"eigh_{mode}"),
+                                 exp_group_dir=str(workspace / "outputs"), device="cpu", **kw_mode)
+        ((kwargs,),) = (calls,)
+        assert kwargs["eig_method"] == "eigh", (mode, kwargs)
+        assert len(arrays) == len(SCENES) and all(
+            np.isfinite(ev).all() and np.isfinite(doa).all() for ev, doa in arrays.values())
+
+    def stop(*args, **kwargs):
+        j_calls.append(kwargs)
+        raise _Dropped
+
+    j_calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jpredict_mod, "make_extractor", stop)
+        with pytest.raises(_Dropped):
+            jpredict_mod.predict(config, str(workspace / "wavs"), str(workspace / "eigh_jax"),
+                                 exp_group_dir=str(workspace / "outputs"))
+    assert "eig_method" not in j_calls[0]
