@@ -70,7 +70,17 @@ Phases, each printing what it found; any failure raises and exits non-zero:
      --streams 4` and 4 streams' per-block latency, `cli.train` from wav (6 steps
      at batch 32 x 8 s, the first step's loss against the CPU's), with K1 and K2
      launching 0 times on every salsa_lite run; then the per-type extraction bench
-     `salsa_tpu_torch.scripts.bench_features` (8 x 60 s).
+     `salsa_tpu_torch.scripts.bench_features` (8 x 60 s);
+ 12. augmented and resumed training (training.device_augment): configs/seld.yml
+     (the FOA channel swaps and frequency shift), its first step's loss on the
+     card against the CPU's plain versions on the same draws (which must change
+     the batch), then `cli.train` (2 epochs of 6 steps at batch 32) with K1 and K2
+     counted in every step and the step split into extraction, augmentation,
+     forward and backward and optimizer; `cli.train` for 2 epochs resumed to 4
+     against a fresh 4-epoch run (constant lr; step losses within 1e-4);
+     configs/seld_salsa_lite.yml augmented (the MIC swaps, shift and cutouts: the
+     trailing 3 spatial channels 0 inside every cutout), K1 and K2 launching 0
+     times.
 The second-to-last line is a JSON summary of the kernels, each with its time,
 its plain version's, its bound (the larger of its bytes over the memory rate and
 its operations over the peak rate of their type) and, where one PyTorch call
@@ -79,6 +89,7 @@ computes the same function, that call's time; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import csv
 import json
@@ -143,6 +154,7 @@ from salsa_tpu_torch.scripts.probe_salsa_kernel import (
 from salsa_tpu_torch.scripts.timing import cuda_ms, smi
 from salsa_tpu_torch.submission import write_classwise_csv
 from salsa_tpu_torch.train.checkpoint import save_checkpoint
+from salsa_tpu_torch.train.trainer import SeldTrainer
 from salsa_tpu_torch.utils.audio_io import read_wav, write_wav
 from salsa_tpu_torch.utils.config import apply_overrides, load_config, save_config
 
@@ -1172,7 +1184,9 @@ def write_train_experiment(root: str, seconds: float = 60.0, seed: int = SEED,
 def first_step_loss(tr, dev, tag: str) -> float:
     """The first step's loss with every dropout off: the device against the CPU's
     plain versions on copies of the same resident rows and weights; raises beyond
-    1e-4 relative. Returns the relative difference."""
+    1e-4 relative. With augmentation, both sides apply the step's draws (one draw
+    on the CPU generator), which must change the batch. Returns the relative
+    difference."""
     for m in tr.model.modules():
         if isinstance(m, Dropout):
             m.p, m.generator = 0.0, None
@@ -1181,17 +1195,29 @@ def first_step_loss(tr, dev, tag: str) -> float:
     i = torch.as_tensor(ids, device=dev)
     with torch.no_grad():
         x, sed, doa = tr.batch(ids)
-        loss_dev = float(tr.loss(tr.model.train()(x), sed, doa)[0])
         t0 = time.perf_counter()
         rows = [t[i].cpu() for t in (tr._clip, tr._f0, tr._n_full)]
         state = ((None, None) if tr._floor_ck is None
                  else (tr._floor_ck[i].cpu(), tr._cd_ck[i].cpu()))
         x_cpu = tr.normalize(tr.chunk_fn(tr._waves.cpu(), *rows, *state, tr.wav_scale),
                              tr._n_valid[i].cpu())
-        loss_cpu = float(tr.loss(model_cpu.train()(x_cpu), sed.cpu(), doa.cpu())[0])
+        sed_cpu, doa_cpu = sed.cpu(), doa.cpu()
+        what = ""
+        if tr.augment is not None:
+            tr.seed_step()
+            draws = tr.augment.draw(tr.batch_size, tr.augment_generator)
+            x_aug, sed, doa_aug = tr.augment.apply(draws.to(dev), x, sed, doa)
+            if torch.equal(x_aug, x) and torch.equal(doa_aug, doa):
+                raise AssertionError("the augmentation's draws left the first batch unchanged")
+            x_cpu, sed_cpu, doa_cpu = tr.augment.apply(draws, x_cpu, sed_cpu, doa_cpu)
+            changed = float((x_aug != x).float().mean())
+            x, doa = x_aug, doa_aug
+            what = f", augmented ({changed:.1%} of the input's cells changed)"
+        loss_cpu = float(tr.loss(model_cpu.train()(x_cpu), sed_cpu, doa_cpu)[0])
         cpu_s = time.perf_counter() - t0
+        loss_dev = float(tr.loss(tr.model.train()(x), sed, doa)[0])
     rel = abs(loss_dev - loss_cpu) / abs(loss_cpu)
-    log(tag, f"first step's loss (batch {tr.batch_size}, dropout off): {dev.type} "
+    log(tag, f"first step's loss (batch {tr.batch_size}, dropout off{what}): {dev.type} "
              f"{loss_dev:.7f}, CPU plain versions {loss_cpu:.7f} ({cpu_s:.1f} s), "
              f"relative difference {rel:.2e} (bound 1e-4)")
     if not rel < 1e-4:
@@ -1260,32 +1286,38 @@ def check_chunks(tr, dev) -> float:
 
 
 def timed_steps(tr, dev, n_steps: int) -> dict:
-    """n_steps train steps, each split into extraction, forward+backward and
-    optimizer between CUDA events (host clock on the CPU); medians of steps 3 on."""
+    """n_steps train steps, each split into extraction, augmentation (0 without
+    it), forward+backward and optimizer between CUDA events (host clock on the
+    CPU); medians of steps 3 on."""
     order = tr._epoch_order(tr.max_epochs)
-    parts = {"extract": [], "fwd_bwd": [], "optimizer": [], "step": []}
+    parts = {"extract": [], "augment": [], "fwd_bwd": [], "optimizer": [], "step": []}
     for s in range(n_steps):
         ids = order[(s * tr.batch_size) % len(order):][:tr.batch_size]
+        tr.seed_step()
         if dev.type == "cuda":
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
             ev[0].record()
             batch = tr.batch(ids)
             ev[1].record()
-            tr.forward_backward(*batch)
+            batch = tr.augment_batch(*batch)
             ev[2].record()
-            tr.optimizer.step()
+            tr.forward_backward(*batch)
             ev[3].record()
-            ev[3].synchronize()
-            t = [ev[0].elapsed_time(ev[k]) for k in (1, 2, 3)]
+            tr.optimizer.step()
+            ev[4].record()
+            ev[4].synchronize()
+            t = [ev[0].elapsed_time(ev[k]) for k in (1, 2, 3, 4)]
         else:
             t0 = time.perf_counter()
             batch = tr.batch(ids)
             t1 = time.perf_counter()
-            tr.forward_backward(*batch)
+            batch = tr.augment_batch(*batch)
             t2 = time.perf_counter()
+            tr.forward_backward(*batch)
+            t3 = time.perf_counter()
             tr.optimizer.step()
-            t = [(x - t0) * 1e3 for x in (t1, t2, time.perf_counter())]
-        for key, v in zip(parts, (t[0], t[1] - t[0], t[2] - t[1], t[2])):
+            t = [(x - t0) * 1e3 for x in (t1, t2, t3, time.perf_counter())]
+        for key, v in zip(parts, (t[0], t[1] - t[0], t[2] - t[1], t[3] - t[2], t[3])):
             parts[key].append(v)
     return {k: statistics.median(v[2:]) for k, v in parts.items()}
 
@@ -2138,6 +2170,157 @@ def phase11(dev, seconds: float = 60.0, n_clips: int = 4, scenes=LITE_SCENES,
     return out
 
 
+# phase 12: configs/seld.yml and configs/seld_salsa_lite.yml with
+# training.device_augment, and cli.train resumed; a constant lr (and beta1: the
+# config's moms are constant) so that the total step count, which differs between
+# a 2-epoch run and a 4-epoch one, does not enter the schedule
+AUG_OVERRIDES = ("training.device_augment=true",)
+CONSTANT_LR = "training.lr_scheduler.lrs=[3.0e-4,3.0e-4,3.0e-4,3.0e-4]"
+
+
+@contextlib.contextmanager
+def recorded_epochs():
+    """{epoch: its step losses} of every epoch a SeldTrainer trains meanwhile."""
+    epochs, train_epoch = {}, SeldTrainer.train_epoch
+
+    def recording(self, epoch):
+        metrics = train_epoch(self, epoch)
+        epochs[epoch] = list(self.step_losses)
+        return metrics
+
+    SeldTrainer.train_epoch = recording
+    try:
+        yield epochs
+    finally:
+        SeldTrainer.train_epoch = train_epoch
+
+
+def counted_train(dev, *args, **kwargs):
+    """`cli_train.train(*args, device=dev, **kwargs)` with K1 and K2 counted from 0:
+    (trainer, launches, host-clock seconds)."""
+    salsa_spatial.launches = noise_floor_mask.launches = 0
+    noise_floor_mask.collect_launches = 0
+    t0 = time.perf_counter()
+    tr = cli_train.train(*args, device=dev, **kwargs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    launches = {"salsa_spatial": salsa_spatial.launches,
+                "noise_floor": noise_floor_mask.launches,
+                "noise_floor_collect": noise_floor_mask.collect_launches}
+    return tr, launches, time.perf_counter() - t0
+
+
+def check_cutouts(tr, dev) -> int:
+    """One step's augmented batch on the device: inside every sample's cutout
+    rectangles its trailing 3 spatial channels are 0. Returns the number of
+    samples that drew a cutout."""
+    tr.seed_step()
+    x, sed, doa = tr.batch(tr._epoch_order(0)[:tr.batch_size])
+    draws = tr.augment.draw(tr.batch_size, tr.augment_generator).to(dev)
+    got = tr.augment.apply(draws, x, sed, doa)[0]
+    t = torch.arange(tr.chunk_len, device=dev)[None, None, :, None]
+    f = torch.arange(got.shape[-1], device=dev)[None, None, None, :]
+    top, h, left, w = (draws.rects[..., k, None, None] for k in range(4))
+    covered = ((t >= top) & (t < top + h) & (f >= left) & (f < left + w)).any(1)  # (B, T, F)
+    n_cut = int(covered.flatten(1).any(1).sum())
+    spatial = got[:, -3:].masked_select(covered[:, None].expand(-1, 3, -1, -1))
+    if n_cut == 0 or bool((spatial != 0).any()):
+        raise AssertionError(f"salsa_lite cutouts: {n_cut} samples cut, "
+                             f"{int((spatial != 0).sum())} spatial cells inside them not 0")
+    return n_cut
+
+
+def phase12(dev, seconds: float = 60.0, overrides=(), timed: int = TIMED_STEPS) -> dict:
+    """Augmented and resumed training from raw wavs: configs/seld.yml with
+    training.device_augment (the FOA swaps and shift) checked on its first step
+    against the CPU's plain versions on the same draws, then `cli.train` with K1
+    and K2 counted in every step and the augmentation's time a step;
+    configs/seld_salsa_lite.yml augmented (the MIC swaps, shift and cutouts) with
+    K1 and K2 launching 0 times; `cli.train` for 2 epochs resumed to 4 against a
+    fresh 4-epoch run."""
+    cuda = dev.type == "cuda"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = write_train_experiment(tmp, seconds, overrides=(*AUG_OVERRIDES, *overrides))
+        tr = cli_train.build_trainer(exp["config"], exp["group"], exp_suffix="_check",
+                                     device=dev)
+        out["first_step_rel"] = first_step_loss(tr, dev, "12")
+        del tr
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+        # the main path: augmented cli.train, as a user runs it
+        tr, launches, wall = counted_train(dev, exp["config"], exp["group"])
+        n_steps = tr.steps_per_epoch * tr.max_epochs
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else float("nan")
+        log("12", f"augmented cli.train (configs/seld.yml, device_augment true): "
+                  f"{len(TRAIN_CLIPS)} x {seconds:g} s train clips, {tr.max_epochs} epochs of "
+                  f"{tr.steps_per_epoch} steps at batch {tr.batch_size}: {wall:.2f} s host "
+                  f"clock; launches {launches}; peak memory {peak:.2f} GiB [{CARD}]")
+        if cuda and not (launches["noise_floor_collect"] >= 1
+                         and launches["salsa_spatial"] >= n_steps
+                         and launches["noise_floor"] >= n_steps + launches["noise_floor_collect"]):
+            raise AssertionError(f"augmented cli.train launched {launches}: expected K1 and K2 "
+                                 f"in each of its {n_steps} steps")
+        times = timed_steps(tr, dev, timed)
+        chunk_s = tr.chunk_len * exp["cfg"].data.hop_len / exp["cfg"].data.fs
+        log("12", f"augmented train step, median of steps 3-{timed}: {times['step']:.2f} ms = "
+                  f"extraction {times['extract']:.2f} + augmentation {times['augment']:.3f} + "
+                  f"forward and backward {times['fwd_bwd']:.2f} + optimizer "
+                  f"{times['optimizer']:.2f} ms; {1e3 / times['step']:.2f} steps/s, "
+                  f"{tr.batch_size * chunk_s * 1e3 / times['step']:.1f}x realtime [{CARD}]")
+        if cuda:
+            ids = tr._epoch_order(tr.max_epochs + 1)[:tr.batch_size]
+            out["profile"] = profile_table(lambda: tr.train_step(ids), "12",
+                                           "one augmented train step", top=16,
+                                           copies_from_host=False)
+        out.update(launches=launches, step=times, peak_gib=peak, wall_s=wall, n_steps=n_steps)
+        del tr
+
+        # --resume: 2 epochs, then resumed to 4, against a fresh 4-epoch run
+        resume = {"overrides": [CONSTANT_LR]}
+        with recorded_epochs() as run:
+            counted_train(dev, exp["config"], exp["group"], exp_suffix="_resume", **resume)
+            tr, launches, wall = counted_train(
+                dev, exp["config"], exp["group"], exp_suffix="_resume", resume=True,
+                overrides=[CONSTANT_LR, "training.max_epochs=4"])
+        with recorded_epochs() as fresh:
+            counted_train(dev, exp["config"], exp["group"], exp_suffix="_fresh",
+                          overrides=[CONSTANT_LR, "training.max_epochs=4"])
+        if sorted(run) != [0, 1, 2, 3] or sorted(fresh) != [0, 1, 2, 3]:
+            raise AssertionError(f"resumed run trained epochs {sorted(run)}, fresh {sorted(fresh)}")
+        got = np.array([run[e] for e in (2, 3)])
+        want = np.array([fresh[e] for e in (2, 3)])
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        log("12", f"cli.train resumed from epoch001 at step {2 * tr.steps_per_epoch} to 4 "
+                  f"epochs (augmented, constant lr; K1 {launches['salsa_spatial']}, K2 "
+                  f"{launches['noise_floor']} launches in the resumed call): epochs 2-3's "
+                  f"{got.size} step losses within {rel:.2e} relative of a fresh 4-epoch run's "
+                  "(bound 1e-4: cuDNN's backward is not bit-deterministic)")
+        if not rel < 1e-4:
+            raise AssertionError(f"resumed step losses {got} vs fresh {want}")
+        out.update(resume_rel=rel, resume_launches=launches)
+        del tr
+
+        # configs/seld_salsa_lite.yml augmented: the MIC swaps, the shift, the cutouts
+        lite = write_train_experiment(os.path.join(tmp, "lite"), seconds, overrides=(
+            "training.max_epochs=1", *AUG_OVERRIDES, *overrides), config=LITE_YML)
+        tr, launches, wall = counted_train(dev, lite["config"], lite["group"])
+        n_cut = check_cutouts(tr, dev)
+        times = timed_steps(tr, dev, timed)
+        log("12", f"augmented seld_salsa_lite cli.train: {tr.steps_per_epoch * tr.max_epochs} "
+                  f"steps at batch {tr.batch_size} in {wall:.2f} s host clock; launches "
+                  f"{launches}; a step {times['step']:.2f} ms, augmentation "
+                  f"{times['augment']:.3f} ms; {n_cut} of {tr.batch_size} samples cut, their "
+                  f"trailing 3 spatial channels 0 inside every cutout [{CARD}]")
+        if any(launches.values()):
+            raise AssertionError(f"augmented seld_salsa_lite training launched K1 or K2: "
+                                 f"{launches}")
+        out["lite"] = {"launches": launches, "step": times, "wall_s": wall, "n_cut": n_cut}
+    return out
+
+
 def main() -> None:
     card = phase0()
     dev = torch.device("cuda", 0)
@@ -2162,13 +2345,17 @@ def main() -> None:
     stream = phase10(dev)
     torch.cuda.empty_cache()
     bank = phase11(dev)
+    torch.cuda.empty_cache()
+    aug = phase12(dev)
     # library_ms: one PyTorch call computing the same function, where there is one
     # (cuDNN bf16 for K4, timed by the probe); none exists for K1-K3. `launches` is
     # phase 4's serving run; K1's and K2's train_* keys are phase 9's cli.train,
     # their stream_* keys phase 10's streaming CLI runs and the block shape at N = 4
     # (stream_block_ms the kernel's device time a launch, stream_block_call_ms a
     # wrapper call's, 10 back to back), salsa_lite_launches phase 11's
-    # configs/seld_salsa_lite.yml runs (0)
+    # configs/seld_salsa_lite.yml runs (0), aug_* phase 12's: the augmented
+    # cli.train of configs/seld.yml, its resumed call, the augmented
+    # configs/seld_salsa_lite.yml run (0)
     kernels = [
         {"name": "salsa_spatial", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/salsa_spatial.cu",
@@ -2184,7 +2371,10 @@ def main() -> None:
          "stream_block_call_ms": stream["kernels"][4]["k1_call"],
          "stream_block_bound_ms": stream["kernels"][4]["k1_bound"][0],
          "stream_max_abs_err": stream["k1_err"],
-         "salsa_lite_launches": bank["lite_launches"]["salsa_spatial"]},
+         "salsa_lite_launches": bank["lite_launches"]["salsa_spatial"],
+         "aug_train_launches": aug["launches"]["salsa_spatial"],
+         "aug_resume_launches": aug["resume_launches"]["salsa_spatial"],
+         "aug_salsa_lite_launches": aug["lite"]["launches"]["salsa_spatial"]},
         {"name": "noise_floor", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/noise_floor.cu",
          "replaces": "salsa_tpu/features/salsa.py:82",
@@ -2200,7 +2390,11 @@ def main() -> None:
          "stream_block_ms": stream["kernels"][4]["k2"],
          "stream_block_call_ms": stream["kernels"][4]["k2_call"],
          "stream_block_bound_ms": stream["kernels"][4]["k2_bound"][0],
-         "salsa_lite_launches": bank["lite_launches"]["noise_floor"]},
+         "salsa_lite_launches": bank["lite_launches"]["noise_floor"],
+         "aug_train_launches": aug["launches"]["noise_floor"],
+         "aug_train_collect_launches": aug["launches"]["noise_floor_collect"],
+         "aug_resume_launches": aug["resume_launches"]["noise_floor"],
+         "aug_salsa_lite_launches": aug["lite"]["launches"]["noise_floor"]},
         {"name": "salsa_spatial_probe", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/salsa_spatial_probe.cu",
          "replaces": "scripts/probe_salsa_kernel.py:67",

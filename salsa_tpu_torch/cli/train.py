@@ -12,9 +12,13 @@ extracted inside every step (`train.trainer.SeldTrainer`), writing
 `epochNNN` and `best` checkpoints in flax's msgpack format. The experiment it
 leaves is served by `salsa_tpu_torch.cli.predict` and by `salsa_tpu.cli.predict`.
 
+`training.device_augment: true | "feature"` augments every step's batch on the
+device. `--resume` continues from the latest checkpoint of the experiment's
+`models/checkpoint` (weights, BatchNorm statistics and Adam's state) at the
+epoch after the one it recorded; each step's dropout and augmentation draws are
+a function of (seed, step), so the resumed epochs are the uninterrupted run's.
 A config without `training.from_wav: true` is refused (the HDF5 feature store
-needs h5py), and so is `--resume` (resuming needs the optimizer state read back,
-ROADMAP queue 1, item 10).
+needs h5py).
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from salsa_tpu_torch.data.wav_database import (
 from salsa_tpu_torch.features.chunked import required_pad
 from salsa_tpu_torch.features.registry import make_extractor
 from salsa_tpu_torch.models.seld import build_model
+from salsa_tpu_torch.train.checkpoint import latest_checkpoint
 from salsa_tpu_torch.train.trainer import SeldTrainer, refuse_unported, resolve_device
 from salsa_tpu_torch.utils.config import apply_overrides
 from salsa_tpu_torch.utils.experiments import logger, manage_experiments
@@ -141,11 +146,13 @@ def build_trainer(exp_config: str, exp_group_dir: str = "./outputs", exp_suffix:
 
 def train(exp_config: str, exp_group_dir: str = "./outputs", exp_suffix: str = "",
           seed: int | None = None, overrides: list[str] | None = None,
-          device: torch.device | str = "cuda") -> SeldTrainer:
+          device: torch.device | str = "cuda", resume: bool = False) -> SeldTrainer:
     """Train an experiment from raw wavs on `device` (the first CUDA card unless
-    the caller asks for the CPU); returns the trainer after `fit`."""
+    the caller asks for the CPU); with `resume`, from the experiment's latest
+    checkpoint where it has one. Returns the trainer after `fit`."""
     trainer = build_trainer(exp_config, exp_group_dir, exp_suffix, seed, overrides, device)
-    trainer.fit()
+    resume_path = latest_checkpoint(trainer.cfg.dir.model.checkpoint) if resume else None
+    trainer.fit(resume_from=resume_path)
     return trainer
 
 
@@ -156,16 +163,13 @@ def main(argv: list[str] | None = None):
     p.add_argument("--exp-group-dir", default="./outputs")
     p.add_argument("--exp-suffix", default="")
     p.add_argument("--resume", action="store_true",
-                   help="continue from the latest checkpoint (not ported yet)")
+                   help="continue from the experiment's latest checkpoint")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--set", dest="overrides", action="append", default=[],
                    metavar="KEY=VALUE", help="dotted config overrides, repeatable")
     a = p.parse_args(argv)
-    if a.resume:
-        raise NotImplementedError(
-            "--resume is not ported yet: restoring the optimizer state from a checkpoint "
-            "is ROADMAP queue 1, item 10")
-    return train(a.exp_config, a.exp_group_dir, a.exp_suffix, a.seed, a.overrides)
+    return train(a.exp_config, a.exp_group_dir, a.exp_suffix, a.seed, a.overrides,
+                 resume=a.resume)
 
 
 if __name__ == "__main__":

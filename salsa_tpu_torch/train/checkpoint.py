@@ -269,9 +269,7 @@ def save_checkpoint(ckpt_dir: str, name: str, params: dict, batch_stats: dict, s
     return path + ".msgpack"
 
 
-def restore_variables(path: str) -> tuple[dict, dict, int]:
-    """(params, batch_stats, step) of a `.msgpack` checkpoint, as nested dicts of
-    numpy arrays; `opt_state` is read past and dropped."""
+def _restore_payload(path: str) -> dict:
     if path.endswith(".orbax"):
         raise ValueError(f"{path}: an orbax checkpoint directory; this package reads "
                          "flax .msgpack checkpoints only (save with backend='msgpack')")
@@ -280,7 +278,27 @@ def restore_variables(path: str) -> tuple[dict, dict, int]:
     missing = {"step", "params", "batch_stats"} - set(payload)
     if missing:
         raise ValueError(f"{path}: not a salsa_tpu checkpoint (no {sorted(missing)})")
+    return payload
+
+
+def restore_variables(path: str) -> tuple[dict, dict, int]:
+    """(params, batch_stats, step) of a `.msgpack` checkpoint, as nested dicts of
+    numpy arrays; `opt_state` is read past and dropped."""
+    payload = _restore_payload(path)
     return payload["params"], payload["batch_stats"], int(payload["step"])
+
+
+def restore_train_state(path: str) -> tuple[dict, dict, dict, int]:
+    """(params, batch_stats, opt_state, step) of a `.msgpack` checkpoint to resume
+    training from, `opt_state` in optax's layout (the port's and `salsa_tpu`'s);
+    raises ValueError on a checkpoint that carries no optimizer state."""
+    payload = _restore_payload(path)
+    if not payload.get("opt_state"):
+        raise ValueError(f"{path}: the checkpoint carries no optimizer state (opt_state), "
+                         "so training cannot resume from it; resume from a checkpoint that "
+                         "the trainer saved")
+    return (payload["params"], payload["batch_stats"], payload["opt_state"],
+            int(payload["step"]))
 
 
 def load_metadata(path: str) -> dict:

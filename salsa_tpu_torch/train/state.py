@@ -7,7 +7,8 @@ the optimizer's step count before that update (0 for the first), which is the
 count inject_hyperparams evaluates them at; Adam's bias correction 1 - b1^t then
 takes the current b1, as optax's does. `optax_state` writes the state in optax's
 layout (count, hyperparams, mu and nu as flax parameter trees) for checkpoints
-that `salsa_tpu` restores.
+that `salsa_tpu` restores; `load_optax_state` reads that layout back, from the
+port's checkpoints and from `salsa_tpu`'s.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from salsa_tpu_torch.interop import torch_state_dict_to_flax
+from salsa_tpu_torch.interop import flax_to_torch_state_dict, torch_state_dict_to_flax
 from salsa_tpu_torch.train.schedules import make_lr_momentum_schedules
 
 B2, EPS = 0.999, 1e-8  # optax.adam's defaults, which salsa_tpu keeps
@@ -82,6 +83,51 @@ class ScheduledOptimizer:
                 "hyperparams_states": {"b1": {"count": count},
                                        "learning_rate": {"count": count}},
                 "inner_state": inner}
+
+    def load_optax_state(self, model: nn.Module, opt_state: dict) -> None:
+        """Set this optimizer from a tree in `optax_state`'s layout (a restored
+        checkpoint's opt_state): each parameter's `exp_avg`, `exp_avg_sq` and
+        `step` (the count, as torch's Adam keeps it: a float32 scalar on the CPU,
+        which its bias correction reads), then `count`, `lr` and `b1`. Raises
+        ValueError on a tree of the other optimizer (adam / adamw) or whose moments
+        are not laid out as `model`'s parameters."""
+        inner = opt_state.get("inner_state", {})
+        want = {"0", "1", "2"} if self.name == "adamw" else {"0", "1"}
+        if set(inner) != want:
+            raise ValueError(f"opt_state's inner state has entries {sorted(inner)}, not "
+                             f"{self.name}'s {sorted(want)}")
+        names = {id(p): n for n, p in model.named_parameters()}
+        template, stats = torch_state_dict_to_flax(model.state_dict())
+        moments = {}
+        for key, leaf in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
+            got, expected = _leaves(inner["0"][leaf]), _leaves(template)
+            if got != expected:
+                diff = sorted(set(got.items()) ^ set(expected.items()))[:4]
+                raise ValueError(f"opt_state's {leaf} does not match the model's parameters "
+                                 f"(path, shape) first differing: {diff}")
+            moments[key] = flax_to_torch_state_dict(inner["0"][leaf], stats)
+        count = int(np.asarray(opt_state["count"]))
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                n = names[id(p)]
+                self.optimizer.state[p] = {
+                    "step": torch.tensor(float(count), dtype=torch.float32),
+                    **{k: torch.from_numpy(np.array(moments[k][n], dtype=np.float32)).to(
+                        device=p.device) for k in ("exp_avg", "exp_avg_sq")}}
+        hyper = opt_state["hyperparams"]
+        self.count = count
+        self.lr, self.b1 = np.float32(hyper["learning_rate"]), np.float32(hyper["b1"])
+
+
+def _leaves(tree: dict, prefix: tuple = ()) -> dict[tuple, tuple]:
+    """{path: shape} of a nested dict's array leaves."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, prefix + (str(k),)))
+        else:
+            out[prefix + (str(k),)] = tuple(np.shape(v))
+    return out
 
 
 def make_optimizer(params, total_steps: int, optimizer_name: str = "adam",

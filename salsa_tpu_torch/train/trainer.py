@@ -11,9 +11,18 @@ checkpoint). Each step, in eager PyTorch:
   2. normalize the scaler's channels with the train-split scaler and zero the
      frames past each chunk's valid length (after normalization, as the feature
      store pads);
-  3. forward the CRNN in training mode (flax's BatchNorm update, dropout from an
+  3. with `training.device_augment` (true or "feature"), augment the batch
+     (`train.device_augment`: draws on a CPU generator, applied on the device);
+  4. forward the CRNN in training mode (flax's BatchNorm update, dropout from an
      explicit generator), index-repeat to label rate, the SELD loss, backward;
-  4. one Adam/AdamW update with the scheduled lr and beta1 (`train.state`).
+  5. one Adam/AdamW update with the scheduled lr and beta1 (`train.state`).
+
+Each step's randomness is a pure function of (seed, step), as `salsa_tpu` folds
+the step into its key (`jax.random.fold_in`): before every step the dropout and
+the augmentation generators are seeded from (seed, optimizer count), each from a
+stream of its own. So a run resumed from a checkpoint (`fit(resume_from=...)`:
+weights, BatchNorm statistics and Adam's state) takes the steps an uninterrupted
+run takes.
 
 The epoch order is `np.random.default_rng((seed, epoch))`'s shuffle, as
 `salsa_tpu`'s; `training.steps_per_dispatch` only groups steps into dispatches
@@ -41,12 +50,13 @@ from salsa_tpu_torch.data.wav_database import WavSplitData, length_groups
 from salsa_tpu_torch.features.chunked import make_chunk_extractor, salsa_tracker_checkpoints_batch
 from salsa_tpu_torch.features.registry import feature_n_spec_channels
 from salsa_tpu_torch.features.salsa import SalsaParams
-from salsa_tpu_torch.interop import torch_state_dict_to_flax
+from salsa_tpu_torch.interop import load_flax_variables, torch_state_dict_to_flax
 from salsa_tpu_torch.metrics.scorer import evaluate_submissions
 from salsa_tpu_torch.models.layers import Dropout
 from salsa_tpu_torch.models.seld import init_train_, interpolate_index_repeat
 from salsa_tpu_torch.submission import combine_chunks, sed_from_accdoa, write_classwise_csv
 from salsa_tpu_torch.train import checkpoint as ckpt
+from salsa_tpu_torch.train.device_augment import make_device_augment
 from salsa_tpu_torch.train.losses import (
     accdoa_loss,
     accdoa_mse,
@@ -57,6 +67,15 @@ from salsa_tpu_torch.train.losses import (
 from salsa_tpu_torch.train.state import make_optimizer
 from salsa_tpu_torch.utils.experiments import logger
 
+DROPOUT_STREAM, AUGMENT_STREAM = 0, 1  # the per-step seeds' streams
+
+
+def step_seed(seed: int, step: int, stream: int) -> int:
+    """The seed of a step's generator: a pure function of the run's seed, the
+    step (the optimizer's count before it) and the generator's stream."""
+    return int(np.random.SeedSequence([seed, step, stream]).generate_state(1, np.uint64)[0])
+
+
 def refuse_unported(cfg) -> None:
     """Raise NotImplementedError for every training option of `salsa_tpu` that the
     port does not run, naming its ROADMAP queue 1 item."""
@@ -66,7 +85,6 @@ def refuse_unported(cfg) -> None:
          "training.device_data (the feature-store resident path)", 10),
         (t.get("device_data_shard", False), "training.device_data_shard", 11),
         (t.get("remat", False), "training.remat", 10),
-        (t.get("device_augment", False), "training.device_augment", 10),
         (t.get("from_wav_mode", "fused") != "fused",
          f"training.from_wav_mode: {t.get('from_wav_mode')}", 8),
         (int(os.environ.get("WORLD_SIZE", "1")) > 1
@@ -129,7 +147,9 @@ class SeldTrainer:
             cfg.data.fs / cfg.data.hop_len)
 
         self.model = init_train_(model, torch.Generator().manual_seed(seed)).to(self.device)
-        self.dropout_generator = torch.Generator(device=self.device).manual_seed(seed)
+        # both seeded before every step (seed_step)
+        self.dropout_generator = torch.Generator(device=self.device)
+        self.augment_generator = torch.Generator()
         for m in self.model.modules():
             if isinstance(m, Dropout):
                 m.generator = self.dropout_generator
@@ -183,6 +203,13 @@ class SeldTrainer:
         self._doa = torch.from_numpy(train_data.doa_targets).to(dev)
         self.mean = torch.as_tensor(np.asarray(scaler[0], np.float32), device=dev)
         self.std = torch.as_tensor(np.asarray(scaler[1], np.float32), device=dev)
+        self.augment = None
+        aug = cfg.training.get("device_augment", False)
+        if aug:
+            # true: the full stack; "feature": no label-coupled channel swaps
+            self.augment = make_device_augment(
+                cfg.feature_type, d.audio_format, self.n_classes, self.chunk_len,
+                train_data.features.shape[2], mode=aug if isinstance(aug, str) else "full")
 
     def _tracker_checkpoints(self, train_data: WavSplitData, p: SalsaParams) -> None:
         """The tracker state entering every chunk's first frame, from the dequantized
@@ -249,9 +276,24 @@ class SeldTrainer:
         total.backward()
         return {"loss": total.detach(), "sed_loss": sed_l.detach(), "doa_loss": doa_l.detach()}
 
+    def seed_step(self) -> None:
+        """Seed the dropout and augmentation generators for the next step from
+        (seed, optimizer count)."""
+        count = self.optimizer.count
+        self.dropout_generator.manual_seed(step_seed(self.seed, count, DROPOUT_STREAM))
+        self.augment_generator.manual_seed(step_seed(self.seed, count, AUGMENT_STREAM))
+
+    def augment_batch(self, x, sed, doa):
+        """(x, sed, doa) augmented with the step's draws, or as they are without
+        `training.device_augment`."""
+        if self.augment is None:
+            return x, sed, doa
+        return self.augment(self.augment_generator, x, sed, doa)
+
     def train_step(self, chunk_ids) -> dict[str, torch.Tensor]:
         """One optimizer step on the chunks `chunk_ids`; returns its losses."""
-        metrics = self.forward_backward(*self.batch(chunk_ids))
+        self.seed_step()
+        metrics = self.forward_backward(*self.augment_batch(*self.batch(chunk_ids)))
         self.optimizer.step()
         return metrics
 
@@ -286,12 +328,29 @@ class SeldTrainer:
         return ckpt.save_checkpoint(ckpt_dir, name, params, stats, self.optimizer.count, meta,
                                     opt_state=self.optimizer.optax_state(self.model))
 
-    def fit(self):
+    def restore(self, path: str) -> int:
+        """Restore the weights, BatchNorm statistics and optimizer state of the
+        checkpoint `path` (the port's or `salsa_tpu`'s); returns the epoch to
+        continue from: the sidecar's epoch + 1, or else count // steps_per_epoch."""
+        params, stats, opt_state, _step = ckpt.restore_train_state(path)
+        load_flax_variables(self.model, params, stats)
+        self.optimizer.load_optax_state(self.model, opt_state)
+        meta = ckpt.load_metadata(path)
+        if "epoch" in meta:
+            start_epoch = int(meta["epoch"]) + 1
+        else:
+            start_epoch = self.optimizer.count // self.steps_per_epoch
+        logger.info("Resumed from %s at step %d (epoch %d)", path, self.optimizer.count,
+                    start_epoch)
+        return start_epoch
+
+    def fit(self, resume_from: str | None = None):
+        start_epoch = self.restore(resume_from) if resume_from else 0
         best_seld = float("inf")
         ckpt_dir, best_dir = self.cfg.dir.model.checkpoint, self.cfg.dir.model.best
         val_interval = self.cfg.training.get("val_interval", 1)
         t0 = time.time()
-        for epoch in range(self.max_epochs):
+        for epoch in range(start_epoch, self.max_epochs):
             metrics = self.train_epoch(epoch)
             if not np.isfinite(metrics.get("loss", 0.0)):
                 logger.error("Epoch %d: non-finite loss %s — stopping. Resume from "

@@ -173,3 +173,39 @@ def test_phase11_runs_the_feature_bank_on_the_cpu(capsys):
     assert "golden melspecgcc" in text and "golden salsa_mic" in text
     assert "byte-identical to the in-memory pipeline's" in text
     assert "seld_salsa_lite: 4 chunks" in text and "first step's loss" in text
+
+
+def test_phase12_trains_augmented_and_resumes_on_the_cpu(capsys):
+    """Phase 12 cut down on the CPU (2 s clips, 0.4 s chunks, batch 4, a narrow
+    decoder): the augmented first step against the CPU's plain versions on the
+    same draws, augmented cli.train with the step split, the resumed run's step
+    losses against a fresh run's, the salsa_lite cutouts' spatial channels 0. On
+    CPU tensors the kernels' wrappers count nothing."""
+    out = chip_smoke.phase12(torch.device("cpu"), seconds=2.0, timed=4, overrides=(
+        "data.train_chunk_len_s=0.4", "data.train_chunk_hop_len_s=0.2",
+        "training.train_batch_size=4", "model.decoder.decoder_size=16",
+        "data.test_chunk_len_s=2.0", "data.test_chunk_hop_len_s=2.1",
+        "data.max_file_len_s=2.0"))
+    assert out["launches"] == {"salsa_spatial": 0, "noise_floor": 0, "noise_floor_collect": 0}
+    assert out["first_step_rel"] == 0.0 and out["resume_rel"] == 0.0
+    assert out["step"]["augment"] > 0 and out["n_steps"] >= 2
+    assert out["lite"]["n_cut"] >= 1 and not any(out["lite"]["launches"].values())
+    text = capsys.readouterr().out
+    assert "augmented (" in text and "cells changed" in text
+    assert "step losses within" in text and "trailing 3 spatial channels 0" in text
+
+
+def test_main_runs_every_phase_and_imports_nothing_of_salsa_tpu():
+    """main() calls phases 0-12 in order; the script imports neither jax nor
+    salsa_tpu (only salsa_tpu_torch), at the top or inside a function."""
+    import ast
+    import inspect
+    import re
+
+    calls = re.findall(r"\bphase(\d+)\(", inspect.getsource(chip_smoke.main))
+    assert [int(c) for c in calls] == list(range(13))
+    tree = ast.parse(inspect.getsource(chip_smoke))
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert names and not [m for m in names
+                          if m.split(".")[0] in ("jax", "flax", "salsa_tpu")], names

@@ -198,13 +198,12 @@ def test_train_refusals(experiment, monkeypatch):
     for name, training, match in (
             ("dd.yml", {"device_data_shard": True}, "item 11"),
             ("remat.yml", {"remat": True}, "item 10"),
-            ("aug.yml", {"device_augment": True}, "item 10"),
             ("pre.yml", {"from_wav_mode": "precompute"}, "item 8")):
         with pytest.raises(NotImplementedError, match=match):
             cli_train.train(_write_config(root, name, **training), group, device="cpu")
-    with pytest.raises(NotImplementedError, match="resume.*item 10"):
-        cli_train.main(["--exp-config", experiment["config"], "--exp-group-dir", group,
-                        "--resume"])
+    with pytest.raises(ValueError, match="'full' or 'feature'"):
+        cli_train.train(_write_config(root, "aug_mode.yml", device_augment="swap"), group,
+                        device="cpu")
     with pytest.raises(NotImplementedError, match="PannResNet22TPU"):
         cli_train.train(experiment["config"], group, device="cpu",
                         overrides=["model.encoder.name=PannResNet22TPU"])

@@ -295,6 +295,20 @@ HYGIENE = textwrap.dedent("""
     se = streaming.StreamingExtractor("salsa_lite", "mic", block_frames=16, device="cpu")
     assert se.push(short[0].numpy())[0].shape == (7, 16, 191)
 
+    # augmented, resumable training and the synthetic-corpus scripts
+    import salsa_tpu_torch.scripts.aug_ablation as aug_ablation
+    import salsa_tpu_torch.scripts.synthetic_sanity as synthetic_sanity
+    from salsa_tpu_torch.train.device_augment import make_device_augment
+
+    aug = make_device_augment("salsa_lite", "mic", 2, 16, 191)
+    xa, sa, da = aug(torch.Generator().manual_seed(0), torch.ones(2, 7, 16, 191),
+                     torch.zeros(2, 16, 2), torch.ones(2, 16, 6))
+    assert xa.shape == (2, 7, 16, 191) and callable(trainer.SeldTrainer.restore)
+    assert callable(checkpoint.restore_train_state) and callable(aug_ablation.main)
+    with tempfile.TemporaryDirectory() as tmp:
+        synthetic_sanity.write_corpus(tmp, 2, 0, "mic")
+        assert len(os.listdir(os.path.join(tmp, "task3", "mic_dev"))) == 2
+
     leaked = sorted(m for m in sys.modules if blocked(m))
     assert not leaked, leaked
     print("HYGIENE_OK")

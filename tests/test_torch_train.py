@@ -304,7 +304,6 @@ REFUSALS = [
     ({"training": {"from_wav": False, "device_data": True}}, "device_data", 10),
     ({"training": {"device_data_shard": True}}, "device_data_shard", 11),
     ({"training": {"remat": True}}, "remat", 10),
-    ({"training": {"device_augment": True}}, "device_augment", 10),
     ({"training": {"from_wav_mode": "precompute"}}, "precompute", 8),
     ({"model": {"encoder": {"compute_dtype": "bfloat16"}}}, "bf16", 10),
     ({"model": {"decoder": {"compute_dtype": "bfloat16"}}}, "bf16", 10),
