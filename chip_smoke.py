@@ -102,6 +102,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -694,30 +695,35 @@ def phase5(dev, pipe, request, sass_mixes) -> dict:
     del big
 
     # where a request's device time goes
-    profile_table(lambda: pipe(request), "5", "one request")
+    profile_table(lambda: pipe(request), "5", "one request", upload_bytes=request.nbytes)
     return times
 
 
-def device_share(rows, wall_ms: float, copies_from_host: bool) -> dict:
+PCIE_BYTES_PER_S = 64e9  # PCIe 5.0 x16, one direction: no host -> device copy is faster
+
+
+def device_share(rows, wall_ms: float, upload_bytes: int) -> dict:
     """The device's busy time, host -> device copy and idle share of a profiled call
     from its device activities `rows`, (name, device us) pairs, and its host wall
-    time. `copy_ms` is the `Memcpy HtoD` rows' sum; where the call copies from the
-    host and no such row was recorded, the copy is not measured (None) and so is the
-    idle share (None): a copy the profiler dropped is never read as 0 ms."""
+    time. `copy_ms` is the `Memcpy HtoD` rows' sum. Where the call uploads
+    `upload_bytes` and those rows add up to less than the link's least time for
+    them, the profiler dropped the upload's row (small copies' rows may remain):
+    the copy is then not measured (None), and so is the idle share (None). A
+    dropped copy is never read as a short one."""
     busy_ms = sum(us for _, us in rows) / 1e3
-    copies = [us for name, us in rows if name.startswith("Memcpy HtoD")]
-    copy_ms = sum(copies) / 1e3 if copies or not copies_from_host else None
+    copy_ms = sum(us for name, us in rows if name.startswith("Memcpy HtoD")) / 1e3
+    if copy_ms < upload_bytes / PCIE_BYTES_PER_S * 1e3:
+        copy_ms = None
     idle = None if copy_ms is None or not rows else 1 - busy_ms / wall_ms
     return {"busy_ms": busy_ms, "copy_ms": copy_ms, "idle": idle}
 
 
-def profile_table(fn, phase: str, what: str, top: int = 12,
-                  copies_from_host: bool = True) -> dict:
+def profile_table(fn, phase: str, what: str, top: int = 12, upload_bytes: int = 0) -> dict:
     """Profile one fn() on the card and print its device busy time against the host
     wall and the `top` kernels by device time; returns `device_share`'s reading.
     Kernel and copy activities only: op-level rows repeat the time of the kernels
-    they launch. `copies_from_host`: fn() uploads its input, so a missing host ->
-    device copy row leaves the copy and the idle share not measured."""
+    they launch. `upload_bytes`: what fn() copies from the host, so that a dropped
+    copy row leaves the copy and the idle share not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -732,11 +738,12 @@ def profile_table(fn, phase: str, what: str, top: int = 12,
 
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
               and dev_us(e) > 0 and not e.key.startswith("Activity Buffer")]
-    share = device_share([(e.key, dev_us(e)) for e in events], wall_ms, copies_from_host)
+    share = device_share([(e.key, dev_us(e)) for e in events], wall_ms, upload_bytes)
     if not events:
         log(phase, f"profile of {what}: no device time recorded (not measured)")
         return share
-    copy = ("copy: not measured (no Memcpy HtoD row)" if share["copy_ms"] is None
+    copy = (f"copy of {upload_bytes / 1e6:.1f} MB: not measured (its Memcpy HtoD row is "
+            "missing)" if share["copy_ms"] is None
             else f"copy {share['copy_ms']:.2f} ms")
     idle = "idle not measured" if share["idle"] is None else f"{share['idle']:.1%} idle"
     log(phase, f"profile of {what}: device busy {share['busy_ms']:.2f} ms of {wall_ms:.2f} ms "
@@ -1335,6 +1342,30 @@ def step_planes(tr, dev):
     return xr, xi, (tr._floor_ck[ids], tr._cd_ck[ids])
 
 
+def counted_train(dev, *args, **kwargs):
+    """`cli_train.train(*args, device=dev, **kwargs)` with K1 and K2 counted from 0:
+    (trainer, launches, host-clock seconds)."""
+    salsa_spatial.launches = noise_floor_mask.launches = 0
+    noise_floor_mask.collect_launches = 0
+    t0 = time.perf_counter()
+    tr = cli_train.train(*args, device=dev, **kwargs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    launches = {"salsa_spatial": salsa_spatial.launches,
+                "noise_floor": noise_floor_mask.launches,
+                "noise_floor_collect": noise_floor_mask.collect_launches}
+    return tr, launches, time.perf_counter() - t0
+
+
+def check_train_launches(launches: dict, n_steps: int, what: str) -> None:
+    """K1 and K2 in each of a SALSA run's n_steps steps and K2 with
+    collect_states at its setup."""
+    if not (launches["noise_floor_collect"] >= 1 and launches["salsa_spatial"] >= n_steps
+            and launches["noise_floor"] >= n_steps + launches["noise_floor_collect"]):
+        raise AssertionError(f"{what} launched {launches}: expected K1 and K2 in each of its "
+                             f"{n_steps} steps and K2 with collect_states at setup")
+
+
 def phase9(dev, seconds: float = 60.0, overrides=()) -> dict:
     """Training from raw wavs: checks on the device, then `cli.train` as a user
     runs it, its launches counted, then its times, validation and serving."""
@@ -1374,27 +1405,15 @@ def phase9(dev, seconds: float = 60.0, overrides=()) -> dict:
             torch.cuda.reset_peak_memory_stats(dev)
 
         # the main path: cli.train, as a user runs it
-        salsa_spatial.launches = noise_floor_mask.launches = 0
-        noise_floor_mask.collect_launches = 0
-        t0 = time.perf_counter()
-        tr = cli_train.train(exp["config"], exp["group"], device=dev)
-        if cuda:
-            torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-        launches = {"salsa_spatial": salsa_spatial.launches,
-                    "noise_floor": noise_floor_mask.launches,
-                    "noise_floor_collect": noise_floor_mask.collect_launches}
+        tr, launches, wall = counted_train(dev, exp["config"], exp["group"])
         n_steps = tr.steps_per_epoch * tr.max_epochs
         peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else float("nan")
         log("9", f"cli.train: {len(TRAIN_CLIPS)} x {seconds:g} s train clips ({len(tr.train_data)} "
                  f"chunks of {tr.chunk_len} frames), {len(VAL_CLIPS)} val clips, {tr.max_epochs} "
                  f"epochs of {tr.steps_per_epoch} steps at batch {tr.batch_size}: {wall:.2f} s "
                  f"host clock; launches {launches}; peak memory {peak:.2f} GiB [{CARD}]")
-        if cuda and not (launches["noise_floor_collect"] >= 1
-                         and launches["salsa_spatial"] >= n_steps
-                         and launches["noise_floor"] >= n_steps + launches["noise_floor_collect"]):
-            raise AssertionError(f"cli.train launched {launches}: expected K1 and K2 in each of "
-                                 f"its {n_steps} steps and K2 with collect_states at setup")
+        if cuda:
+            check_train_launches(launches, n_steps, "cli.train")
         log("9", "setup, host clock: " + ", ".join(
             f"{k} {v:.3f} s" for k, v in tr.setup_seconds.items()) + f" [{CARD}]")
         exp_dir = exp["exp_dir"]
@@ -1414,8 +1433,7 @@ def phase9(dev, seconds: float = 60.0, overrides=()) -> dict:
                    setup=dict(tr.setup_seconds))
         if cuda:
             ids = tr._epoch_order(tr.max_epochs + 1)[:tr.batch_size]
-            profile_table(lambda: tr.train_step(ids), "9", "one train step", top=16,
-                          copies_from_host=False)
+            profile_table(lambda: tr.train_step(ids), "9", "one train step", top=16)
 
         if cuda:
             # K2 resumed and K1 at the step's shapes against their plain versions on
@@ -1781,8 +1799,10 @@ def phase10(dev, scenes=SCENES, n_streams: int = 4, check_seconds: float = 9.7,
             if cuda and n == n_streams:
                 pipe.reset()
                 pipe.push(waves[..., :3 * L * HOP])
-                profile_table(lambda: pipe.push(waves[..., 3 * L * HOP:4 * L * HOP]), "10",
-                              f"a push completing a block at N = {n}")
+                packet = waves[..., 3 * L * HOP:4 * L * HOP]
+                profile_table(lambda: pipe.push(packet), "10",
+                              f"a push completing a block at N = {n}",
+                              upload_bytes=packet.nbytes)
             del pipe
 
     # K1 and K2 at the block shapes, 10 calls back to back
@@ -2035,7 +2055,8 @@ def lite_requests(dev, rng, request_seconds=(60.0, 60.0, 20.7)) -> dict:
                   f"(host clock), {secs / out['request_ms'] * 1e3:.1f}x realtime; extraction "
                   f"{out['extract_ms']:.3f} ms, CRNN {out['crnn_ms']:.2f} ms (CUDA events) "
                   f"[{CARD}]")
-        profile_table(lambda: pipe(req), "11", "one seld_salsa_lite request")
+        profile_table(lambda: pipe(req), "11", "one seld_salsa_lite request",
+                      upload_bytes=req.nbytes)
     return out
 
 
@@ -2073,16 +2094,7 @@ def lite_train(dev, seconds: float = 60.0, overrides=()) -> dict:
         if cuda:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
-        salsa_spatial.launches = noise_floor_mask.launches = 0
-        noise_floor_mask.collect_launches = 0
-        t0 = time.perf_counter()
-        tr = cli_train.train(exp["config"], exp["group"], device=dev)
-        if cuda:
-            torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-        launches = {"salsa_spatial": salsa_spatial.launches,
-                    "noise_floor": noise_floor_mask.launches,
-                    "noise_floor_collect": noise_floor_mask.collect_launches}
+        tr, launches, wall = counted_train(dev, exp["config"], exp["group"])
         peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else float("nan")
         n_steps = tr.steps_per_epoch * tr.max_epochs
         log("11", f"seld_salsa_lite cli.train: {len(TRAIN_CLIPS)} x {seconds:g} s MIC train "
@@ -2180,12 +2192,13 @@ CONSTANT_LR = "training.lr_scheduler.lrs=[3.0e-4,3.0e-4,3.0e-4,3.0e-4]"
 
 @contextlib.contextmanager
 def recorded_epochs():
-    """{epoch: its step losses} of every epoch a SeldTrainer trains meanwhile."""
-    epochs, train_epoch = {}, SeldTrainer.train_epoch
+    """[(epoch, its step losses)] of every epoch a SeldTrainer trains meanwhile, in
+    order."""
+    epochs, train_epoch = [], SeldTrainer.train_epoch
 
     def recording(self, epoch):
         metrics = train_epoch(self, epoch)
-        epochs[epoch] = list(self.step_losses)
+        epochs.append((epoch, list(self.step_losses)))
         return metrics
 
     SeldTrainer.train_epoch = recording
@@ -2195,19 +2208,31 @@ def recorded_epochs():
         SeldTrainer.train_epoch = train_epoch
 
 
-def counted_train(dev, *args, **kwargs):
-    """`cli_train.train(*args, device=dev, **kwargs)` with K1 and K2 counted from 0:
-    (trainer, launches, host-clock seconds)."""
-    salsa_spatial.launches = noise_floor_mask.launches = 0
-    noise_floor_mask.collect_launches = 0
-    t0 = time.perf_counter()
-    tr = cli_train.train(*args, device=dev, **kwargs)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    launches = {"salsa_spatial": salsa_spatial.launches,
-                "noise_floor": noise_floor_mask.launches,
-                "noise_floor_collect": noise_floor_mask.collect_launches}
-    return tr, launches, time.perf_counter() - t0
+@contextlib.contextmanager
+def deterministic(dev):
+    """cuDNN's deterministic algorithms and torch's deterministic mode, with a
+    warning (recorded, each once) from every op that has no deterministic form,
+    for the duration. Two runs of the same steps then take the same arithmetic,
+    so the resume check reads the checkpoint, not the order of the card's
+    atomic adds. Yields the warnings' messages."""
+    if dev.type != "cuda":
+        yield []
+        return
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("default")
+            messages = []
+            yield messages
+            messages.extend(sorted({str(w.message).split("\n")[0][:160] for w in caught
+                                    if "deterministic" in str(w.message)}))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
 
 
 def check_cutouts(tr, dev) -> int:
@@ -2234,10 +2259,10 @@ def phase12(dev, seconds: float = 60.0, overrides=(), timed: int = TIMED_STEPS) 
     """Augmented and resumed training from raw wavs: configs/seld.yml with
     training.device_augment (the FOA swaps and shift) checked on its first step
     against the CPU's plain versions on the same draws, then `cli.train` with K1
-    and K2 counted in every step and the augmentation's time a step;
+    and K2 counted in every step and the augmentation's time a step; `cli.train`
+    for 2 epochs resumed to 4 against a fresh 4-epoch run; then
     configs/seld_salsa_lite.yml augmented (the MIC swaps, shift and cutouts) with
-    K1 and K2 launching 0 times; `cli.train` for 2 epochs resumed to 4 against a
-    fresh 4-epoch run."""
+    K1 and K2 launching 0 times."""
     cuda = dev.type == "cuda"
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2258,11 +2283,8 @@ def phase12(dev, seconds: float = 60.0, overrides=(), timed: int = TIMED_STEPS) 
                   f"{len(TRAIN_CLIPS)} x {seconds:g} s train clips, {tr.max_epochs} epochs of "
                   f"{tr.steps_per_epoch} steps at batch {tr.batch_size}: {wall:.2f} s host "
                   f"clock; launches {launches}; peak memory {peak:.2f} GiB [{CARD}]")
-        if cuda and not (launches["noise_floor_collect"] >= 1
-                         and launches["salsa_spatial"] >= n_steps
-                         and launches["noise_floor"] >= n_steps + launches["noise_floor_collect"]):
-            raise AssertionError(f"augmented cli.train launched {launches}: expected K1 and K2 "
-                                 f"in each of its {n_steps} steps")
+        if cuda:
+            check_train_launches(launches, n_steps, "augmented cli.train")
         times = timed_steps(tr, dev, timed)
         chunk_s = tr.chunk_len * exp["cfg"].data.hop_len / exp["cfg"].data.fs
         log("12", f"augmented train step, median of steps 3-{timed}: {times['step']:.2f} ms = "
@@ -2273,31 +2295,36 @@ def phase12(dev, seconds: float = 60.0, overrides=(), timed: int = TIMED_STEPS) 
         if cuda:
             ids = tr._epoch_order(tr.max_epochs + 1)[:tr.batch_size]
             out["profile"] = profile_table(lambda: tr.train_step(ids), "12",
-                                           "one augmented train step", top=16,
-                                           copies_from_host=False)
+                                           "one augmented train step", top=16)
         out.update(launches=launches, step=times, peak_gib=peak, wall_s=wall, n_steps=n_steps)
         del tr
 
-        # --resume: 2 epochs, then resumed to 4, against a fresh 4-epoch run
-        resume = {"overrides": [CONSTANT_LR]}
-        with recorded_epochs() as run:
-            counted_train(dev, exp["config"], exp["group"], exp_suffix="_resume", **resume)
-            tr, launches, wall = counted_train(
-                dev, exp["config"], exp["group"], exp_suffix="_resume", resume=True,
-                overrides=[CONSTANT_LR, "training.max_epochs=4"])
-        with recorded_epochs() as fresh:
-            counted_train(dev, exp["config"], exp["group"], exp_suffix="_fresh",
-                          overrides=[CONSTANT_LR, "training.max_epochs=4"])
-        if sorted(run) != [0, 1, 2, 3] or sorted(fresh) != [0, 1, 2, 3]:
-            raise AssertionError(f"resumed run trained epochs {sorted(run)}, fresh {sorted(fresh)}")
-        got = np.array([run[e] for e in (2, 3)])
-        want = np.array([fresh[e] for e in (2, 3)])
+        # --resume: 2 epochs, then resumed to 4, against a fresh 4-epoch run, all
+        # three in deterministic mode: with cuDNN's default algorithms two fresh
+        # runs part by ~1e-2 over 24 steps (Adam turns the atomics' rounding into
+        # whole-lr steps), which would hide what the resume does
+        with deterministic(dev) as nondeterministic:
+            with recorded_epochs() as run:
+                counted_train(dev, exp["config"], exp["group"], exp_suffix="_resume",
+                              overrides=[CONSTANT_LR])
+                tr, launches, wall = counted_train(
+                    dev, exp["config"], exp["group"], exp_suffix="_resume", resume=True,
+                    overrides=[CONSTANT_LR, "training.max_epochs=4"])
+            with recorded_epochs() as fresh:
+                counted_train(dev, exp["config"], exp["group"], exp_suffix="_fresh",
+                              overrides=[CONSTANT_LR, "training.max_epochs=4"])
+        order = ([e for e, _ in run], [e for e, _ in fresh])
+        if order != ([0, 1, 2, 3], [0, 1, 2, 3]):
+            raise AssertionError(f"the runs trained epochs {order}: the resumed call must "
+                                 "train epochs 2 and 3 only")
+        got, want = (np.array([losses for _, losses in r[2:]]) for r in (run, fresh))
         rel = float(np.max(np.abs(got - want) / np.abs(want)))
         log("12", f"cli.train resumed from epoch001 at step {2 * tr.steps_per_epoch} to 4 "
                   f"epochs (augmented, constant lr; K1 {launches['salsa_spatial']}, K2 "
                   f"{launches['noise_floor']} launches in the resumed call): epochs 2-3's "
                   f"{got.size} step losses within {rel:.2e} relative of a fresh 4-epoch run's "
-                  "(bound 1e-4: cuDNN's backward is not bit-deterministic)")
+                  "(bound 1e-4; all three runs in deterministic mode; ops without a "
+                  f"deterministic form: {nondeterministic or 'none'})")
         if not rel < 1e-4:
             raise AssertionError(f"resumed step losses {got} vs fresh {want}")
         out.update(resume_rel=rel, resume_launches=launches)

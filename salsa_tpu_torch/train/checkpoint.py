@@ -288,17 +288,17 @@ def restore_variables(path: str) -> tuple[dict, dict, int]:
     return payload["params"], payload["batch_stats"], int(payload["step"])
 
 
-def restore_train_state(path: str) -> tuple[dict, dict, dict, int]:
-    """(params, batch_stats, opt_state, step) of a `.msgpack` checkpoint to resume
-    training from, `opt_state` in optax's layout (the port's and `salsa_tpu`'s);
-    raises ValueError on a checkpoint that carries no optimizer state."""
+def restore_train_state(path: str) -> tuple[dict, dict, dict]:
+    """(params, batch_stats, opt_state) of a `.msgpack` checkpoint to resume
+    training from, `opt_state` in optax's layout (the port's and `salsa_tpu`'s;
+    its count is the step); raises ValueError on a checkpoint that carries no
+    optimizer state."""
     payload = _restore_payload(path)
     if not payload.get("opt_state"):
         raise ValueError(f"{path}: the checkpoint carries no optimizer state (opt_state), "
                          "so training cannot resume from it; resume from a checkpoint that "
                          "the trainer saved")
-    return (payload["params"], payload["batch_stats"], payload["opt_state"],
-            int(payload["step"]))
+    return payload["params"], payload["batch_stats"], payload["opt_state"]
 
 
 def load_metadata(path: str) -> dict:

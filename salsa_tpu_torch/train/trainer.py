@@ -332,7 +332,7 @@ class SeldTrainer:
         """Restore the weights, BatchNorm statistics and optimizer state of the
         checkpoint `path` (the port's or `salsa_tpu`'s); returns the epoch to
         continue from: the sidecar's epoch + 1, or else count // steps_per_epoch."""
-        params, stats, opt_state, _step = ckpt.restore_train_state(path)
+        params, stats, opt_state = ckpt.restore_train_state(path)
         load_flax_variables(self.model, params, stats)
         self.optimizer.load_optax_state(self.model, opt_state)
         meta = ckpt.load_metadata(path)

@@ -94,17 +94,21 @@ def test_foa_scene_ground_truth_follows_its_source(rng):
     assert active[on].mean() > 5 * active[~on].mean()  # the source sounds where rows say
 
 
-@pytest.mark.parametrize("rows,copies,want", [
-    ([("conv", 40_000.0), ("Memcpy HtoD (Pageable -> Device)", 13_000.0)], True,
+@pytest.mark.parametrize("rows,upload,want", [
+    ([("conv", 40_000.0), ("Memcpy HtoD (Pageable -> Device)", 13_000.0)], 92_160_000,
      {"busy_ms": 53.0, "copy_ms": 13.0, "idle": 0.47}),
-    ([("conv", 40_000.0)], True, {"busy_ms": 40.0, "copy_ms": None, "idle": None}),
-    ([("conv", 40_000.0)], False, {"busy_ms": 40.0, "copy_ms": 0.0, "idle": 0.6}),
+    ([("conv", 40_000.0)], 92_160_000, {"busy_ms": 40.0, "copy_ms": None, "idle": None}),
+    ([("conv", 40_000.0), ("Memcpy HtoD (Pageable -> Device)", 4.0)], 92_160_000,
+     {"busy_ms": 40.004, "copy_ms": None, "idle": None}),
+    ([("conv", 40_000.0)], 0, {"busy_ms": 40.0, "copy_ms": 0.0, "idle": 0.6}),
 ])
-def test_device_share_reads_a_missing_copy_row_as_not_measured(rows, copies, want):
-    """A profiled request uploads its clips: without a Memcpy HtoD row the copy and
-    the idle share are not measured (None), never a copy of 0 ms and a high idle
-    share. A call that uploads nothing reads its idle share without the row."""
-    got = chip_smoke.device_share(rows, 100.0, copies)
+def test_device_share_reads_a_missing_copy_row_as_not_measured(rows, upload, want):
+    """A profiled request uploads 92 MB: without a Memcpy HtoD row, or with rows
+    too short for the bytes (a small copy's row kept, the upload's dropped), the
+    copy and the idle share are not measured (None), never a short copy and a
+    high idle share. A call that uploads nothing reads its idle share without a
+    row."""
+    got = chip_smoke.device_share(rows, 100.0, upload)
     assert got.keys() == want.keys()
     for k, v in want.items():
         assert got[k] == pytest.approx(v) if v is not None else got[k] is None, k
