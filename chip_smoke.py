@@ -80,7 +80,18 @@ Phases, each printing what it found; any failure raises and exits non-zero:
      against a fresh 4-epoch run (constant lr; step losses within 1e-4);
      configs/seld_salsa_lite.yml augmented (the MIC swaps, shift and cutouts: the
      trailing 3 spatial channels 0 inside every cutout), K1 and K2 launching 0
-     times.
+     times;
+ 13. inference, TTA, the threshold sweep and the ensemble: phase 9's experiment
+     trained twice (two seeds), then for reg_xyz and for accdoa on the same
+     weights: `cli.infer --splits val` plain and `--tta` (16 FOA variants) with K1
+     and K2 launching once per extraction batch and TTA adding none, the TTA
+     dumps against the CPU's plain versions, fused against sequential TTA (one
+     variant a dispatch) within 1e-4 with both times and the plain pass's; on
+     reg_xyz `--tune-threshold` (the sidecar, val's CSVs at the tuned point) and
+     `cli.predict --use-tuned-threshold`; `cli.ensemble` over one member (CSVs
+     byte-identical to its infer's), both members with `--tune-threshold`, and
+     `--ckpts` over member 0's epoch checkpoints inferred from a models/best
+     directory.
 The second-to-last line is a JSON summary of the kernels, each with its time,
 its plain version's, its bound (the larger of its bytes over the memory rate and
 its operations over the peak rate of their type) and, where one PyTorch call
@@ -108,9 +119,12 @@ import numpy as np
 import torch
 
 from salsa_tpu_torch import configs
+from salsa_tpu_torch.cli import ensemble as cli_ensemble
 from salsa_tpu_torch.cli import evaluate as cli_evaluate
+from salsa_tpu_torch.cli import infer as cli_infer
 from salsa_tpu_torch.cli import predict as cli_predict
 from salsa_tpu_torch.cli import train as cli_train
+from salsa_tpu_torch.data.wav_database import length_groups
 from salsa_tpu_torch.features import chunked
 from salsa_tpu_torch.dsp.stft import stft_planes
 from salsa_tpu_torch.features.registry import make_extractor
@@ -155,8 +169,10 @@ from salsa_tpu_torch.scripts.probe_salsa_kernel import (
 from salsa_tpu_torch.scripts.timing import cuda_ms, smi
 from salsa_tpu_torch.submission import write_classwise_csv
 from salsa_tpu_torch.train.checkpoint import save_checkpoint
-from salsa_tpu_torch.train.trainer import SeldTrainer
-from salsa_tpu_torch.utils.audio_io import read_wav, write_wav
+from salsa_tpu_torch.train.ensemble import ensemble_predictions, write_ensemble
+from salsa_tpu_torch.train.trainer import SeldPredictor, SeldTrainer
+from salsa_tpu_torch.train.tta import tta_fold
+from salsa_tpu_torch.utils.audio_io import read_wav, wav_info, write_wav
 from salsa_tpu_torch.utils.config import apply_overrides, load_config, save_config
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -2348,6 +2364,295 @@ def phase12(dev, seconds: float = 60.0, overrides=(), timed: int = TIMED_STEPS) 
     return out
 
 
+# phase 13: cli.infer (plain, --tta, --tune-threshold) and cli.ensemble on phase 9's
+# experiment, two members trained from seeds; accdoa reads the same weights
+MEMBER_SEEDS = (SEED, SEED + 1)
+FUSED_GATE = 1e-4  # fused against sequential TTA on the card
+
+
+def extraction_batches(lengths, batch_size: int = 8) -> int:
+    """The extractor calls `data.wav_database.extract_split_to_store` makes for clips
+    of these sample counts: clips of equal length batch, batch_size a call."""
+    return sum(-(-len(g) // batch_size) for g in length_groups(list(lengths), int))
+
+
+def check_infer_launches(launches: dict, n_batches: int, what: str) -> None:
+    """K1 and K2 once per extraction batch of the split, and nowhere else."""
+    want = {"salsa_spatial": n_batches, "noise_floor": n_batches}
+    if launches != want:
+        raise AssertionError(f"{what} launched {launches}: expected {want}, one K1 and one "
+                             "K2 launch per extraction batch of the split")
+
+
+def differing_files(got_dir: str, want_dir: str) -> list[str]:
+    """The names of the files whose bytes differ between two directories or that
+    only one of them holds."""
+    def read(d, name):
+        path = os.path.join(d, name)
+        return open(path, "rb").read() if os.path.isfile(path) else None
+
+    names = sorted(set(os.listdir(got_dir)) | set(os.listdir(want_dir)))
+    return [n for n in names if read(got_dir, n) is None or read(got_dir, n) != read(want_dir, n)]
+
+
+@contextlib.contextmanager
+def recorded_predictions(dev):
+    """{"predict_s": host-clock seconds of every SeldPredictor.predict_split call
+    (the card synchronized before and after), "batches": the batch size of every
+    eval dispatch}, meanwhile."""
+    rec = {"predict_s": [], "batches": []}
+    predict, step = SeldPredictor.predict_split, SeldPredictor.eval_step
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed(self, *args, **kwargs):
+        sync()
+        t0 = time.perf_counter()
+        written = predict(self, *args, **kwargs)
+        sync()
+        rec["predict_s"].append(time.perf_counter() - t0)
+        return written
+
+    def counted(self, x):
+        rec["batches"].append(int(x.shape[0]))
+        return step(self, x)
+
+    SeldPredictor.predict_split, SeldPredictor.eval_step = timed, counted
+    try:
+        yield rec
+    finally:
+        SeldPredictor.predict_split, SeldPredictor.eval_step = predict, step
+
+
+def counted_infer(dev, exp: dict, config: str, suffix: str, out_dir: str, **kwargs):
+    """`cli.infer --splits val` of the member `suffix` as a user runs it, with K1
+    and K2 counted from 0; val's CSVs and dumps copied to <out_dir>/csv and
+    <out_dir>/pred. Returns (results, launches, {"wall_s", "predict_s",
+    "batches", "peak_gib"}), the last the peak of the card's allocated memory."""
+    salsa_spatial.launches = noise_floor_mask.launches = 0
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    with recorded_predictions(dev) as rec:
+        t0 = time.perf_counter()
+        res = cli_infer.inference(config, exp["group"], suffix, splits=["val"], device=dev,
+                                  **kwargs)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else float("nan")
+    launches = {"salsa_spatial": salsa_spatial.launches, "noise_floor": noise_floor_mask.launches}
+    outputs = os.path.join(exp["exp_dir"] + suffix, "outputs")
+    for what, sub in (("csv", "submissions"), ("pred", "predictions")):
+        shutil.copytree(os.path.join(outputs, sub, "val"), os.path.join(out_dir, what))
+    return res, launches, {"wall_s": wall, "predict_s": rec["predict_s"][0],
+                           "batches": rec["batches"], "peak_gib": peak}
+
+
+def load_dumps(pred_dir: str) -> dict:
+    """{clip: {array name: array}} of a directory of `.npz` prediction dumps."""
+    out = {}
+    for fn in sorted(os.listdir(pred_dir)):
+        with np.load(os.path.join(pred_dir, fn)) as blob:
+            out[fn[:-len(".npz")]] = dict(blob)
+    return out
+
+
+def variant_config(root: str, exp: dict, sub: str, overrides) -> str:
+    """<root>/<sub>/<the experiment's config name> with `overrides`: the same
+    experiment (its name is the file's), read another way."""
+    cfg = copy.deepcopy(exp["cfg"])
+    apply_overrides(cfg, list(overrides))
+    path = os.path.join(root, sub, os.path.basename(exp["config"]))
+    os.makedirs(os.path.dirname(path))
+    save_config(cfg, path)
+    return path
+
+
+def infer_and_fuse(dev, exp: dict, config: str, fmt: str, n_batches: int, tmp: str) -> dict:
+    """Phase 13 (a), (b) and (d) on one output format; (c) on reg_xyz."""
+    cuda = dev.type == "cuda"
+    cfg = load_config(config)
+    n_classes, thr = cfg.data.n_classes, float(cfg.sed_threshold)
+    gt = os.path.join(cfg.gt_meta_root_dir, "metadata_dev")
+    base = os.path.join(tmp, fmt)
+    out = {}
+
+    # (a) plain and --tta, the kernels counted, the TTA dumps against the CPU's
+    plain, out["launches"], t_plain = counted_infer(dev, exp, config, "_m0",
+                                                     os.path.join(base, "plain"))
+    tta, out["tta_launches"], t_tta = counted_infer(dev, exp, config, "_m0",
+                                                    os.path.join(base, "tta"), use_tta=True)
+    if cuda:
+        check_infer_launches(out["launches"], n_batches, f"{fmt} cli.infer")
+        check_infer_launches(out["tta_launches"], n_batches, f"{fmt} cli.infer --tta")
+    for what, res, t, launches in (("plain", plain, t_plain, out["launches"]),
+                                   ("--tta", tta, t_tta, out["tta_launches"])):
+        s = res["val"]
+        log("13", f"{fmt} cli.infer {what}: SELD {s['seld_error']:.4f} ER {s['ER']:.4f} F1 "
+                  f"{s['F1']:.4f} LE {s['LE']:.2f} LR {s['LR']:.4f}; K1 "
+                  f"{launches['salsa_spatial']}, K2 {launches['noise_floor']} launches "
+                  f"({n_batches} extraction batch(es)); {t['wall_s']:.3f} s wall, predict "
+                  f"{t['predict_s']:.3f} s, eval dispatches of {t['batches']} rows, peak "
+                  f"memory {t['peak_gib']:.2f} GiB [{CARD}]")
+    got = load_dumps(os.path.join(base, "tta", "pred"))
+    if cuda:
+        cpu_res, _, t_cpu = counted_infer(torch.device("cpu"), exp, config, "_m0",
+                                          os.path.join(base, "tta_cpu"), use_tta=True)
+        want = load_dumps(os.path.join(base, "tta_cpu", "pred"))
+        for k in ("event_frame_pred", "doa_frame_pred"):
+            err = np.concatenate([np.abs(got[n][k] - want[n][k]).ravel() for n in want])
+            share = float(np.mean(err <= 2e-3))
+            log("13", f"{fmt} --tta dumps, {dev.type} vs CPU plain versions, {k}: max abs err "
+                      f"{err.max():.3e}, share within 2e-3 {share:.5f} (CPU "
+                      f"{t_cpu['wall_s']:.1f} s)")
+            if share < 0.999 or err.max() > 2e-2:
+                raise AssertionError(f"{fmt} --tta {k}, {dev.type} vs CPU: {share}, {err.max()}")
+        out["cpu_s"] = t_cpu["wall_s"]
+
+    # (b) fused against sequential TTA: every variant in fold-sized dispatches, then
+    # one variant a dispatch (training.tta_elements_per_dispatch: 1)
+    seq_config = variant_config(tmp, exp, f"{fmt}_fold1", [
+        f"data.output_format={fmt}", "training.tta_elements_per_dispatch=1"])
+    _, _, t_seq = counted_infer(dev, exp, seq_config, "_m0", os.path.join(base, "seq"),
+                                use_tta=True)
+    seq = load_dumps(os.path.join(base, "seq", "pred"))
+    diff = max(float(np.abs(got[n][k] - seq[n][k]).max()) for n in seq
+               for k in ("event_frame_pred", "doa_frame_pred"))
+    rows = t_tta["batches"][0]
+    log("13", f"{fmt} fused TTA ({len(t_tta['batches'])} dispatches of {rows} rows, fold "
+              f"{rows // t_seq['batches'][0]}) against sequential ({len(t_seq['batches'])} "
+              f"of {t_seq['batches'][0]}): max abs difference {diff:.3e} (bound "
+              f"{FUSED_GATE:g}); predict {t_tta['predict_s']:.3f} s fused, "
+              f"{t_seq['predict_s']:.3f} s sequential, {t_plain['predict_s']:.3f} s plain "
+              f"({t_tta['predict_s'] / t_plain['predict_s']:.1f}x); wall {t_tta['wall_s']:.3f} / "
+              f"{t_seq['wall_s']:.3f} / {t_plain['wall_s']:.3f} s [{CARD}]")
+    if not diff <= FUSED_GATE:
+        raise AssertionError(f"{fmt}: fused TTA against sequential: {diff}")
+    out.update(fused_diff=diff, plain=t_plain, tta=t_tta, seq=t_seq)
+
+    # (c) --tune-threshold: the sidecar, val's CSVs at the tuned point, and
+    # cli.predict --use-tuned-threshold serving with it
+    if fmt == "reg_xyz":
+        tuned_res, _, _ = counted_infer(dev, exp, config, "_m0", os.path.join(base, "tuned"),
+                                        use_tta=True, tune_threshold=True)
+        tuned = tuned_res["tuned_threshold"]
+        sidecar = os.path.join(exp["exp_dir"] + "_m0", "models", "tuned_threshold.json")
+        if not os.path.isfile(sidecar) or json.load(open(sidecar))["sed_threshold"] != tuned:
+            raise AssertionError(f"--tune-threshold: {sidecar} missing or not at {tuned}")
+        rewritten = os.path.join(base, "tuned_rewritten")
+        write_ensemble(ensemble_predictions([os.path.join(base, "tuned", "pred")]), rewritten,
+                       n_classes, sed_threshold=tuned, version=str(cfg.eval_version))
+        if differing_files(os.path.join(base, "tuned", "csv"), rewritten):
+            raise AssertionError("--tune-threshold: val's CSVs are not the dumps at the tuned "
+                                 "threshold")
+        served = cli_predict.predict(config, exp["val_wav_dir"], os.path.join(base, "served"),
+                                     exp["group"], "_m0", use_tuned_threshold=True, device=dev)
+        with open(os.path.join(exp["exp_dir"] + "_m0", "logs", "log.txt")) as f:
+            if f"serving with tuned sed_threshold {tuned:.2f}" not in f.read():
+                raise AssertionError("cli.predict --use-tuned-threshold did not serve the "
+                                     "tuned threshold")
+        fixed = variant_config(tmp, exp, f"{fmt}_at_tuned", [f"sed_threshold={tuned}"])
+        at_tuned = cli_predict.predict(fixed, exp["val_wav_dir"], os.path.join(base, "at_tuned"),
+                                       exp["group"], "_m0", device=dev)
+        bad = differing_files(served, at_tuned)
+        if bad:
+            raise AssertionError(f"cli.predict --use-tuned-threshold: {bad} differ from "
+                                 f"serving a config at {tuned}")
+        sweep = tuned_res["threshold_sweep"]
+        at_thr = next(r["seld"] for r in sweep["rows"] if abs(r["threshold"] - thr) < 1e-9)
+        log("13", f"{fmt} --tta --tune-threshold: tuned sed_threshold {tuned:.2f} (SELD "
+                  f"{sweep['best']['seld']:.4f}; at {thr:.2f}: {at_thr:.4f}); "
+                  f"val's CSVs the dumps at it; cli.predict --use-tuned-threshold served "
+                  f"{len(os.listdir(served))} CSVs at it (byte-identical to a config at it)")
+        out["tuned"] = tuned
+
+    # (d) cli.ensemble: one member (byte-identical to its infer), both members
+    # tuned, and the parameter-space average inferred from a models/best directory
+    ens1 = os.path.join(base, "ens1")
+    single = cli_ensemble.main(["--pred-dirs", os.path.join(base, "plain", "pred"), "--out-dir",
+                                ens1, "--n-classes", str(n_classes), "--sed-threshold",
+                                str(thr), "--gt-meta-dir", gt])
+    bad = differing_files(ens1, os.path.join(base, "plain", "csv"))
+    if bad or single != plain["val"]:
+        raise AssertionError(f"{fmt} single-member ensemble: CSVs {bad} differ from its "
+                             f"infer's, scores {single} vs {plain['val']}")
+    counted_infer(dev, exp, config, "_m1", os.path.join(base, "m1"))
+    both = cli_ensemble.main(["--pred-dirs", os.path.join(base, "plain", "pred"),
+                              os.path.join(base, "m1", "pred"), "--out-dir",
+                              os.path.join(base, "ens2"), "--n-classes", str(n_classes),
+                              "--sed-threshold", str(thr), "--gt-meta-dir", gt,
+                              "--tune-threshold"])
+    if not all(np.isfinite(both[k]) for k in ("seld_error", "ER", "F1", "LE", "LR")):
+        raise AssertionError(f"{fmt} two-member ensemble: {both}")
+    ckpt_dir = os.path.join(exp["exp_dir"] + "_m0", "models", "checkpoint")
+    members = sorted(os.path.join(ckpt_dir, f) for f in os.listdir(ckpt_dir)
+                     if f.endswith(".msgpack"))
+    swa_models = os.path.join(exp["exp_dir"] + "_swa", "models")
+    os.makedirs(os.path.join(swa_models, "best"), exist_ok=True)
+    shutil.copyfile(os.path.join(exp["exp_dir"] + "_m0", "models", "feature_scaler.npz"),
+                    os.path.join(swa_models, "feature_scaler.npz"))
+    swa_path = cli_ensemble.main(["--ckpts", *members, "--out-ckpt",
+                                  os.path.join(swa_models, "best", "swa.msgpack")])
+    swa, swa_launches, _ = counted_infer(dev, exp, config, "_swa", os.path.join(base, "swa"))
+    with open(os.path.join(exp["exp_dir"] + "_swa", "logs", "log.txt")) as f:
+        restored = re.findall(r"restored (\S+)", f.read())
+    if restored[-1:] != [swa_path] or not np.isfinite(swa["val"]["seld_error"]):
+        raise AssertionError(f"{fmt}: the averaged checkpoint was not inferred: {restored}, "
+                             f"{swa['val']}")
+    if cuda:
+        check_infer_launches(swa_launches, n_batches, f"{fmt} cli.infer of the average")
+    log("13", f"{fmt} cli.ensemble: one member's CSVs byte-identical to its infer's (SELD "
+              f"{single['seld_error']:.4f}); both members tuned at "
+              f"{both['tuned_threshold']:.2f}: SELD {both['seld_error']:.4f}; --ckpts over "
+              f"{len(members)} epoch checkpoints of member 0, inferred from models/best: "
+              f"SELD {swa['val']['seld_error']:.4f}")
+    out["scores"] = {"plain": plain["val"], "tta": tta["val"], "ensemble": both,
+                     "swa": swa["val"]}
+    return out
+
+
+def phase13(dev, seconds: float = 60.0, overrides=()) -> dict:
+    """Inference, TTA, the threshold sweep and the ensemble on the card: phase 9's
+    experiment trained twice (seeds MEMBER_SEEDS, phase 9's steps), then per
+    output format (reg_xyz, and accdoa on the same weights) `cli.infer` plain and
+    --tta with K1 and K2 counted (once per extraction batch, TTA adding none), the
+    TTA dumps against the CPU's, fused against sequential TTA, `--tune-threshold`
+    and `cli.predict --use-tuned-threshold` (reg_xyz), and `cli.ensemble` over one
+    member, both members tuned, and --ckpts inferred from models/best."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = write_train_experiment(tmp, seconds, overrides=overrides)
+        t0 = time.perf_counter()
+        for m, seed in enumerate(MEMBER_SEEDS):
+            tr = cli_train.train(exp["config"], exp["group"], exp_suffix=f"_m{m}", seed=seed,
+                                 device=dev)
+        log("13", f"trained {len(MEMBER_SEEDS)} members from seeds {MEMBER_SEEDS}, "
+                  f"{tr.max_epochs} epochs of {tr.steps_per_epoch} steps at batch "
+                  f"{tr.batch_size} each: {time.perf_counter() - t0:.2f} s host clock [{CARD}]")
+        del tr
+        lengths = [wav_info(os.path.join(exp["val_wav_dir"], f"{n}.wav"))[1]
+                   for n in VAL_CLIPS]
+        n_batches = extraction_batches(lengths)
+        cfg = exp["cfg"]
+        frames = int(round(cfg.data.test_chunk_len_s * cfg.data.fs / cfg.data.hop_len))
+        ex = make_extractor(cfg.feature_type, cfg.data.audio_format,
+                            **cli_predict.feature_kwargs(cfg))
+        shape = (len(VAL_CLIPS), ex.n_channels, frames, ex.n_features)
+        log("13", f"TTA fold at the {cfg.data.test_chunk_len_s:g} s test chunk: "
+                  f"{tta_fold(16, shape)} of 16 FOA variants a dispatch at a batch {shape}, "
+                  f"{tta_fold(16, (8, *shape[1:]))} at 8 clips a batch (budget 2e8 elements)")
+        configs = {"reg_xyz": exp["config"],
+                   "accdoa": variant_config(tmp, exp, "accdoa", ["data.output_format=accdoa"])}
+        for fmt, config in configs.items():
+            out[fmt] = infer_and_fuse(dev, exp, config, fmt, n_batches, tmp)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     card = phase0()
     dev = torch.device("cuda", 0)
@@ -2374,6 +2679,8 @@ def main() -> None:
     bank = phase11(dev)
     torch.cuda.empty_cache()
     aug = phase12(dev)
+    torch.cuda.empty_cache()
+    infer = phase13(dev)
     # library_ms: one PyTorch call computing the same function, where there is one
     # (cuDNN bf16 for K4, timed by the probe); none exists for K1-K3. `launches` is
     # phase 4's serving run; K1's and K2's train_* keys are phase 9's cli.train,
@@ -2382,7 +2689,8 @@ def main() -> None:
     # wrapper call's, 10 back to back), salsa_lite_launches phase 11's
     # configs/seld_salsa_lite.yml runs (0), aug_* phase 12's: the augmented
     # cli.train of configs/seld.yml, its resumed call, the augmented
-    # configs/seld_salsa_lite.yml run (0)
+    # configs/seld_salsa_lite.yml run (0), infer_* phase 13's cli.infer of the val
+    # split, plain and --tta (reg_xyz)
     kernels = [
         {"name": "salsa_spatial", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/salsa_spatial.cu",
@@ -2401,7 +2709,9 @@ def main() -> None:
          "salsa_lite_launches": bank["lite_launches"]["salsa_spatial"],
          "aug_train_launches": aug["launches"]["salsa_spatial"],
          "aug_resume_launches": aug["resume_launches"]["salsa_spatial"],
-         "aug_salsa_lite_launches": aug["lite"]["launches"]["salsa_spatial"]},
+         "aug_salsa_lite_launches": aug["lite"]["launches"]["salsa_spatial"],
+         "infer_launches": infer["reg_xyz"]["launches"]["salsa_spatial"],
+         "infer_tta_launches": infer["reg_xyz"]["tta_launches"]["salsa_spatial"]},
         {"name": "noise_floor", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/noise_floor.cu",
          "replaces": "salsa_tpu/features/salsa.py:82",
@@ -2421,7 +2731,9 @@ def main() -> None:
          "aug_train_launches": aug["launches"]["noise_floor"],
          "aug_train_collect_launches": aug["launches"]["noise_floor_collect"],
          "aug_resume_launches": aug["resume_launches"]["noise_floor"],
-         "aug_salsa_lite_launches": aug["lite"]["launches"]["noise_floor"]},
+         "aug_salsa_lite_launches": aug["lite"]["launches"]["noise_floor"],
+         "infer_launches": infer["reg_xyz"]["launches"]["noise_floor"],
+         "infer_tta_launches": infer["reg_xyz"]["tta_launches"]["noise_floor"]},
         {"name": "salsa_spatial_probe", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/salsa_spatial_probe.cu",
          "replaces": "scripts/probe_salsa_kernel.py:67",

@@ -13,12 +13,13 @@ def combine_chunks(
     chunk_len: int,
     chunk_hop: int,
     n_frames: int = 600,
+    method: str = "mean",
 ) -> np.ndarray:
     """(n_chunks, chunk_len, ...) -> (n_frames, ...) by stitching overlapping chunks.
 
-    The first chunk writes its full window; each later chunk averages the overlap
-    with the running value (salsa_tpu's method 'mean') then overwrites the tail, as
-    the reference recombines.
+    The first chunk writes its full window; each later chunk blends the overlap
+    with the running value ('mean': arithmetic, 'gmean': geometric) then
+    overwrites the tail, as the reference recombines.
     """
     starts = list(range(0, n_frames - chunk_len + 1, chunk_hop))
     if (n_frames - chunk_len) % chunk_hop != 0:
@@ -32,7 +33,12 @@ def combine_chunks(
         if i == 0:
             out[s:e] = chunk_preds[i]
         else:
-            out[s:s + overlap] = (out[s:s + overlap] + chunk_preds[i, :overlap]) / 2
+            if method == "mean":
+                out[s:s + overlap] = (out[s:s + overlap] + chunk_preds[i, :overlap]) / 2
+            elif method == "gmean":
+                out[s:s + overlap] = np.sqrt(out[s:s + overlap] * chunk_preds[i, :overlap])
+            else:
+                raise ValueError(f"unknown combine method '{method}'")
             out[s + overlap:e] = chunk_preds[i, overlap:]
     return out
 

@@ -27,7 +27,9 @@ run takes.
 The epoch order is `np.random.default_rng((seed, epoch))`'s shuffle, as
 `salsa_tpu`'s; `training.steps_per_dispatch` only groups steps into dispatches
 there and changes nothing here. Validation extracts the val split once per call
-of `cli.train` (K1 and K2), predicts, writes DCASE CSVs and scores them.
+of `cli.train` (K1 and K2), predicts, writes DCASE CSVs and scores them. The
+prediction half (`SeldPredictor`: the eval step, channel-swap TTA folded into the
+batch, the validation losses, CSVs and prediction dumps) is what `cli.infer` runs.
 Checkpoints are flax msgpack (`train.checkpoint`), with the optimizer state in
 optax's layout, so `salsa_tpu` restores them.
 
@@ -65,6 +67,7 @@ from salsa_tpu_torch.train.losses import (
     seld_loss,
 )
 from salsa_tpu_torch.train.state import make_optimizer
+from salsa_tpu_torch.train.tta import tta_fold
 from salsa_tpu_torch.utils.experiments import logger
 
 DROPOUT_STREAM, AUGMENT_STREAM = 0, 1  # the per-step seeds' streams
@@ -110,7 +113,166 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return device
 
 
-class SeldTrainer:
+class SeldPredictor:
+    """The prediction half of the trainer: a model on `device` (eval mode for every
+    prediction), the label-rate eval step, the validation losses, and
+    `predict_split`, which writes a split's DCASE CSVs and, where asked, its
+    per-clip prediction dumps. `cli.infer` predicts through it alone; SeldTrainer
+    adds training."""
+
+    def __init__(self, model, cfg, device: torch.device | str = "cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.n_classes = cfg.data.n_classes
+        self.output_format = cfg.data.get("output_format", "reg_xyz")
+        self.label_rate = cfg.data.get("label_rate", 10)
+        self.eval_version = str(cfg.get("eval_version", "2021"))
+        self.sed_threshold = cfg.get("sed_threshold", 0.3)
+        self.doa_threshold = cfg.get("doa_threshold", 20)
+        self.max_label_frames = int(cfg.data.get("max_file_len_s", 60) * self.label_rate)
+        self.loss_weight = tuple(cfg.get("training", {}).get("loss_weight", (0.3, 0.7)))
+        self.interp_ratio = model.time_downsample_ratio * self.label_rate / (
+            cfg.data.fs / cfg.data.hop_len)
+        self.model = model.to(self.device)
+        self.last_val_losses: dict[str, float] = {}
+
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def eval_step(self, x: torch.Tensor):
+        """(event_prob, doa, event_logit) at label rate, the model in eval mode."""
+        self.model.eval()
+        out = self.model(x)
+        event_logit = interpolate_index_repeat(out["event_frame_logit"], self.interp_ratio)
+        doa = interpolate_index_repeat(out["doa_frame_output"], self.interp_ratio)
+        if self.output_format == "accdoa":
+            return sed_from_accdoa(doa, self.n_classes), doa, event_logit
+        return torch.sigmoid(event_logit), doa, event_logit
+
+    def val_losses(self, event_logit, doa_pred, sed_gt, doa_gt, n_real: int):
+        """Validation (total, sed, doa) losses with the training formulas:
+        prediction frames trimmed to the targets', padded rows past n_real masked
+        out of both terms."""
+        n = min(event_logit.shape[1], sed_gt.shape[1])
+        logit, tgt = event_logit[:, :n], sed_gt[:, :n]
+        row = (torch.arange(logit.shape[0], device=logit.device) < n_real).to(logit.dtype)
+        mask = tgt * row[:, None, None]
+        if self.output_format == "accdoa":
+            doa_l = accdoa_mse(doa_pred[:, :n], doa_gt[:, :n], mask, self.n_classes, n_real * n)
+            return doa_l, torch.zeros_like(doa_l), doa_l
+        sed_l = bce_with_logits(logit, tgt, row_weights=row)
+        c = self.n_classes
+        doa_l = sum(masked_reg_loss(doa_pred[:, :n, i * c:(i + 1) * c],
+                                    doa_gt[:, :n, i * c:(i + 1) * c], mask) for i in range(3))
+        total = self.loss_weight[0] * sed_l + self.loss_weight[1] * doa_l
+        return total, sed_l, doa_l
+
+    def tta_fold(self, n_variants: int, x_shape) -> int:
+        """Variants per eval dispatch under `training.tta_elements_per_dispatch`
+        (default 2e8 elements, as `salsa_tpu`'s)."""
+        budget = float(self.cfg.get("training", {}).get("tta_elements_per_dispatch", 2e8))
+        return tta_fold(n_variants, x_shape, budget)
+
+    @torch.inference_mode()
+    def eval_tta(self, x: torch.Tensor, tta):
+        """(event_prob, doa, identity event_logit, identity doa) of a batch x
+        (B, C, T, F) averaged over every variant of `tta` (a ChannelSwapTTA): the
+        variants fold into the batch dimension, `tta_fold` of them a dispatch; each
+        variant's DOA maps back through the inverse label transform. Event
+        probabilities sum in float32 and DOAs in float64 in variant order, as
+        `salsa_tpu`'s numpy sums, and the mean is cast back to float32. For accdoa
+        the event probability is each variant's norm before the mean."""
+        K, B = len(tta), x.shape[0]
+        fold = self.tta_fold(K, x.shape)
+        ev_acc = doa_acc = id_logit = id_doa = None
+        for g in range(0, K, fold):
+            ev, dd, logit = self.eval_step(tta.transform_group(x, range(g, g + fold)))
+            ev, dd = ev.unflatten(0, (fold, B)), dd.unflatten(0, (fold, B))
+            if g == 0:  # variant 0 is the identity: the validation losses' outputs
+                id_logit, id_doa = logit.unflatten(0, (fold, B))[0], dd[0]
+            for j in range(fold):
+                mapped = tta.inverse_doa(dd[j], g + j).double()
+                ev_acc = ev[j] if ev_acc is None else ev_acc + ev[j]
+                doa_acc = mapped if doa_acc is None else doa_acc + mapped
+        return ev_acc / K, (doa_acc / K).float(), id_logit, id_doa
+
+    def predict_split(self, split_data, submission_dir: str, combine_method: str = "mean",
+                      tta=None, output_pred_dir: str | None = None) -> list[str]:
+        """Predict a val/test split (one chunk batch a call, in clip order) and write
+        one submission CSV per clip; returns the CSV names. The mean validation
+        losses go to `last_val_losses`.
+
+        With `tta` (a ChannelSwapTTA) each batch's predictions are the mean over
+        its symmetry variants (`eval_tta`), the losses the identity variant's.
+        With `output_pred_dir` each clip's predictions and ground truth are dumped
+        as `<clip>.npz` holding `salsa_tpu`'s four arrays under their names:
+        event_frame_pred (1, T, n), doa_frame_pred (1, T, 3n), event_frame_gt and
+        doa_frame_gt. `salsa_tpu` writes them to `<clip>.h5`; this host has no
+        h5py, so the format changes and nothing else does (`train.ensemble`
+        reads both); a `<clip>.h5` there is replaced by the new dump."""
+        os.makedirs(submission_dir, exist_ok=True)
+        if output_pred_dir:
+            os.makedirs(output_pred_dir, exist_ok=True)
+        ds = SeldChunkDataset(split_data)
+        bs = min(max(split_data.chunks_per_clip, 8), max(1, len(ds)))
+        probs, doas = [], []
+        sums = {"val_loss": 0.0, "val_sed_loss": 0.0, "val_doa_loss": 0.0}
+        n_loss = 0
+        for x, sed_gt, doa_gt, _names, n_real in batch_iterator(ds, bs):
+            x = torch.from_numpy(x).to(self.device)
+            if tta is None:
+                event_prob, doa, event_logit = self.eval_step(x)
+                id_doa = doa
+            else:
+                event_prob, doa, event_logit, id_doa = self.eval_tta(x, tta)
+            if np.any(sed_gt):
+                losses = self.val_losses(event_logit, id_doa,
+                                         torch.from_numpy(sed_gt).to(self.device),
+                                         torch.from_numpy(doa_gt).to(self.device), n_real)
+                for k, v in zip(sums, losses):
+                    sums[k] += float(v) * n_real  # weighted by real rows
+                n_loss += n_real
+            probs.append(event_prob.cpu().numpy()[:n_real])
+            doas.append(doa.cpu().numpy()[:n_real])
+        probs, doas = np.concatenate(probs, axis=0), np.concatenate(doas, axis=0)
+
+        counts = split_data.clip_chunk_counts
+        label_frames = np.minimum(split_data.clip_label_frames, self.max_label_frames)
+        l_starts, label_chunk_len = split_data.label_chunk_starts, split_data.label_chunk_len
+        sed_t, doa_t = split_data.sed_targets, split_data.doa_targets
+        written = []
+        i = l_ptr = 0
+        for ci, name in enumerate(split_data.unique_clip_names):
+            k, n_label = int(counts[ci]), int(label_frames[ci])
+            # the clip's label rows in the split's tables, padding included
+            padded_label = int(l_starts[i + k - 1] - l_starts[i]) + label_chunk_len
+            if k == 1:
+                ep, dp = probs[i][:n_label], doas[i][:n_label]
+            else:
+                ep = combine_chunks(probs[i:i + k], label_chunk_len,
+                                    split_data.label_chunk_hop, n_label, combine_method)
+                dp = combine_chunks(doas[i:i + k], label_chunk_len,
+                                    split_data.label_chunk_hop, n_label, combine_method)
+            fn = name + ".csv"
+            write_classwise_csv(os.path.join(submission_dir, fn), ep, dp, self.n_classes,
+                                sed_threshold=self.sed_threshold, max_frames=n_label,
+                                version=self.eval_version)
+            written.append(fn)
+            if output_pred_dir:
+                stale = os.path.join(output_pred_dir, name + ".h5")
+                if os.path.isfile(stale):  # an earlier salsa_tpu dump of this clip
+                    os.remove(stale)
+                np.savez(os.path.join(output_pred_dir, name + ".npz"),
+                         event_frame_pred=ep[None].astype(np.float32),
+                         doa_frame_pred=dp[None].astype(np.float32),
+                         event_frame_gt=sed_t[l_ptr:l_ptr + n_label][None].astype(np.float32),
+                         doa_frame_gt=doa_t[l_ptr:l_ptr + n_label][None].astype(np.float32))
+            i += k
+            l_ptr += padded_label
+        self.last_val_losses = {k: v / n_loss for k, v in sums.items()} if n_loss else {}
+        return written
+
+
+class SeldTrainer(SeldPredictor):
     def __init__(self, model, cfg, train_data, val_data, gt_meta_dir: str | None,
                  submission_dir: str, seed: int = 2021, scaler=None,
                  device: torch.device | str = "cuda"):
@@ -120,18 +282,10 @@ class SeldTrainer:
                 "the port trains from raw wavs only (training.from_wav: true with a "
                 "WavSplitData train split): the HDF5 feature store needs h5py, which "
                 "this package does not use")
-        self.device = resolve_device(device)
-        self.cfg = cfg
-        self.n_classes = cfg.data.n_classes
-        self.output_format = cfg.data.get("output_format", "reg_xyz")
-        self.label_rate = cfg.data.get("label_rate", 10)
+        super().__init__(init_train_(model, torch.Generator().manual_seed(seed)), cfg, device)
         self.seed = seed
         self.gt_meta_dir = gt_meta_dir
         self.submission_dir = submission_dir
-        self.eval_version = str(cfg.get("eval_version", "2021"))
-        self.sed_threshold = cfg.get("sed_threshold", 0.3)
-        self.doa_threshold = cfg.get("doa_threshold", 20)
-        self.max_label_frames = int(cfg.data.get("max_file_len_s", 60) * self.label_rate)
         self.train_data = train_data
         self.val_data = val_data
 
@@ -143,10 +297,8 @@ class SeldTrainer:
         train_fraction = cfg.data.get("train_fraction", 1.0)
         self.steps_per_epoch = max(1, int(len(train_data) // self.batch_size * train_fraction))
         total_steps = self.steps_per_epoch * self.max_epochs
-        self.interp_ratio = model.time_downsample_ratio * self.label_rate / (
-            cfg.data.fs / cfg.data.hop_len)
+        self.accdoa_silent_weight = float(cfg.training.get("accdoa_silent_weight", 0.0))
 
-        self.model = init_train_(model, torch.Generator().manual_seed(seed)).to(self.device)
         # both seeded before every step (seed_step)
         self.dropout_generator = torch.Generator(device=self.device)
         self.augment_generator = torch.Generator()
@@ -157,8 +309,6 @@ class SeldTrainer:
         self.optimizer = make_optimizer(
             self.model.parameters(), total_steps, cfg.training.get("optimizer", "adam"),
             tuple(sched.milestones), tuple(sched.lrs), tuple(sched.moms))
-        self.loss_weight = tuple(cfg.training.get("loss_weight", (0.3, 0.7)))
-        self.accdoa_silent_weight = float(cfg.training.get("accdoa_silent_weight", 0.0))
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info("model parameters: %.2fM | steps/epoch: %d | interp ratio: %.1f",
                     n_params / 1e6, self.steps_per_epoch, self.interp_ratio)
@@ -373,81 +523,6 @@ class SeldTrainer:
                     logger.info("New best valSeld %.4f saved", best_seld)
             self.save(ckpt_dir, f"epoch{epoch:03d}", meta)
         return self.model
-
-    # ------------------------------------------------------------------
-    @torch.inference_mode()
-    def eval_step(self, x: torch.Tensor):
-        """(event_prob, doa, event_logit) at label rate, the model in eval mode."""
-        self.model.eval()
-        out = self.model(x)
-        event_logit = interpolate_index_repeat(out["event_frame_logit"], self.interp_ratio)
-        doa = interpolate_index_repeat(out["doa_frame_output"], self.interp_ratio)
-        if self.output_format == "accdoa":
-            return sed_from_accdoa(doa, self.n_classes), doa, event_logit
-        return torch.sigmoid(event_logit), doa, event_logit
-
-    def val_losses(self, event_logit, doa_pred, sed_gt, doa_gt, n_real: int):
-        """Validation (total, sed, doa) losses with the training formulas:
-        prediction frames trimmed to the targets', padded rows past n_real masked
-        out of both terms."""
-        n = min(event_logit.shape[1], sed_gt.shape[1])
-        logit, tgt = event_logit[:, :n], sed_gt[:, :n]
-        row = (torch.arange(logit.shape[0], device=logit.device) < n_real).to(logit.dtype)
-        mask = tgt * row[:, None, None]
-        if self.output_format == "accdoa":
-            doa_l = accdoa_mse(doa_pred[:, :n], doa_gt[:, :n], mask, self.n_classes, n_real * n)
-            return doa_l, torch.zeros_like(doa_l), doa_l
-        sed_l = bce_with_logits(logit, tgt, row_weights=row)
-        c = self.n_classes
-        doa_l = sum(masked_reg_loss(doa_pred[:, :n, i * c:(i + 1) * c],
-                                    doa_gt[:, :n, i * c:(i + 1) * c], mask) for i in range(3))
-        total = self.loss_weight[0] * sed_l + self.loss_weight[1] * doa_l
-        return total, sed_l, doa_l
-
-    def predict_split(self, split_data, submission_dir: str) -> list[str]:
-        """Predict a val/test split (one chunk batch a call, in clip order) and write
-        one submission CSV per clip; returns the CSV names. The mean validation
-        losses go to `last_val_losses`."""
-        os.makedirs(submission_dir, exist_ok=True)
-        ds = SeldChunkDataset(split_data)
-        bs = min(max(split_data.chunks_per_clip, 8), max(1, len(ds)))
-        probs, doas = [], []
-        sums = {"val_loss": 0.0, "val_sed_loss": 0.0, "val_doa_loss": 0.0}
-        n_loss = 0
-        for x, sed_gt, doa_gt, _names, n_real in batch_iterator(ds, bs):
-            event_prob, doa, event_logit = self.eval_step(torch.from_numpy(x).to(self.device))
-            if np.any(sed_gt):
-                losses = self.val_losses(event_logit, doa,
-                                         torch.from_numpy(sed_gt).to(self.device),
-                                         torch.from_numpy(doa_gt).to(self.device), n_real)
-                for k, v in zip(sums, losses):
-                    sums[k] += float(v) * n_real  # weighted by real rows
-                n_loss += n_real
-            probs.append(event_prob.cpu().numpy()[:n_real])
-            doas.append(doa.cpu().numpy()[:n_real])
-        probs, doas = np.concatenate(probs, axis=0), np.concatenate(doas, axis=0)
-
-        counts = split_data.clip_chunk_counts
-        label_frames = np.minimum(split_data.clip_label_frames, self.max_label_frames)
-        written = []
-        i = 0
-        for ci, name in enumerate(split_data.unique_clip_names):
-            k, n_label = int(counts[ci]), int(label_frames[ci])
-            if k == 1:
-                ep, dp = probs[i][:n_label], doas[i][:n_label]
-            else:
-                ep = combine_chunks(probs[i:i + k], split_data.label_chunk_len,
-                                    split_data.label_chunk_hop, n_label)
-                dp = combine_chunks(doas[i:i + k], split_data.label_chunk_len,
-                                    split_data.label_chunk_hop, n_label)
-            fn = name + ".csv"
-            write_classwise_csv(os.path.join(submission_dir, fn), ep, dp, self.n_classes,
-                                sed_threshold=self.sed_threshold, max_frames=n_label,
-                                version=self.eval_version)
-            written.append(fn)
-            i += k
-        self.last_val_losses = {k: v / n_loss for k, v in sums.items()} if n_loss else {}
-        return written
 
     def validate(self) -> dict:
         tmp_dir = os.path.join(self.submission_dir, "_temp")

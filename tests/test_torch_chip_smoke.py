@@ -1,7 +1,8 @@
 """chip_smoke.py's CPU-side pieces: the K1 comparison that phase 2 holds the
 kernel to (validity masks, feature tolerance, MIC phases read on the circle), the
-SASS instruction mix it prints, and phases 8, 9 and 10 cut down to run on the
-CPU."""
+SASS instruction mix it prints, phase 13's helpers (extraction batches and the
+launch check, the TTA fold, the byte comparison of CSVs), and phases 8-12 cut down
+to run on the CPU (phase 13's in test_torch_chip_smoke_infer.py)."""
 import numpy as np
 import pytest
 
@@ -199,15 +200,48 @@ def test_phase12_trains_augmented_and_resumes_on_the_cpu(capsys):
     assert "step losses within" in text and "trailing 3 spatial channels 0" in text
 
 
+def test_extraction_batches_and_the_launch_check():
+    """extract_split_to_store's calls: equal lengths batch, 8 a call."""
+    assert chip_smoke.extraction_batches([4800] * 2) == 1
+    assert chip_smoke.extraction_batches([4800] * 9 + [100, 100, 7]) == 4
+    assert chip_smoke.extraction_batches([]) == 0
+    chip_smoke.check_infer_launches({"salsa_spatial": 2, "noise_floor": 2}, 2, "x")
+    for launches in ({"salsa_spatial": 3, "noise_floor": 2}, {"salsa_spatial": 2},
+                     {"salsa_spatial": 2, "noise_floor": 2, "extra": 1}):
+        with pytest.raises(AssertionError, match="one K1 and one K2 launch"):
+            chip_smoke.check_infer_launches(launches, 2, "x")
+
+
+def test_tta_fold_printed_at_the_test_chunk():
+    """The fold phase 13 prints: 16 FOA variants, 2e8 elements a dispatch."""
+    assert chip_smoke.tta_fold(16, (2, 7, 4800, 200)) == 8
+    assert chip_smoke.tta_fold(16, (8, 7, 4800, 200)) == 2
+    assert chip_smoke.tta_fold(16, (2, 7, 10, 200)) == 16
+    assert chip_smoke.tta_fold(16, (2, 7, 4800, 200), 1.0) == 1
+
+
+def test_differing_files_compares_bytes(tmp_path):
+    a, b = tmp_path / "a", tmp_path / "b"
+    a.mkdir()
+    b.mkdir()
+    for d in (a, b):
+        (d / "one.csv").write_bytes(b"0,1,0,10,20\n")
+        (d / "two.csv").write_bytes(b"3,0,0,-180,0\n")
+    assert chip_smoke.differing_files(str(a), str(b)) == []
+    (b / "two.csv").write_bytes(b"3,0,0,-180,0\r\n")  # one byte more
+    (a / "three.csv").write_text("")
+    assert chip_smoke.differing_files(str(a), str(b)) == ["three.csv", "two.csv"]
+
+
 def test_main_runs_every_phase_and_imports_nothing_of_salsa_tpu():
-    """main() calls phases 0-12 in order; the script imports neither jax nor
+    """main() calls phases 0-13 in order; the script imports neither jax nor
     salsa_tpu (only salsa_tpu_torch), at the top or inside a function."""
     import ast
     import inspect
     import re
 
     calls = re.findall(r"\bphase(\d+)\(", inspect.getsource(chip_smoke.main))
-    assert [int(c) for c in calls] == list(range(13))
+    assert [int(c) for c in calls] == list(range(14))
     tree = ast.parse(inspect.getsource(chip_smoke))
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]

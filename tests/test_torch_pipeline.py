@@ -309,6 +309,31 @@ HYGIENE = textwrap.dedent("""
         synthetic_sanity.write_corpus(tmp, 2, 0, "mic")
         assert len(os.listdir(os.path.join(tmp, "task3", "mic_dev"))) == 2
 
+    # inference with TTA, the threshold sweep and the ensemble
+    import salsa_tpu_torch.cli.ensemble as cli_ensemble
+    import salsa_tpu_torch.cli.infer as cli_infer
+    import salsa_tpu_torch.scripts.quality_evidence as quality_evidence
+    from salsa_tpu_torch.train import ensemble, threshold, tta
+
+    assert callable(cli_infer.main) and callable(quality_evidence.main)
+    swap = tta.ChannelSwapTTA("foa", 2, n_input_channels=7)
+    xs = swap.transform_group(torch.ones(2, 7, 3, 4), range(len(swap)))
+    back = swap.inverse_doa(torch.ones(2, 3, 6), 5)
+    assert xs.shape == (32, 7, 3, 4) and back.shape == (2, 3, 6), (xs.shape, back.shape)
+    with tempfile.TemporaryDirectory() as tmp:
+        for m in (0, 1):
+            os.makedirs(os.path.join(tmp, f"m{m}"))
+            np.savez(os.path.join(tmp, f"m{m}", "clip.npz"),
+                     event_frame_pred=np.full((1, 4, 2), 0.5 + 0.1 * m, np.float32),
+                     doa_frame_pred=np.ones((1, 4, 6), np.float32))
+        fused = ensemble.ensemble_predictions([os.path.join(tmp, "m0"), os.path.join(tmp, "m1")])
+        assert np.allclose(fused["clip"][0], 0.55), fused
+        assert threshold.DEFAULT_THRESHOLDS[0] == 0.1
+        ck = [checkpoint.save_checkpoint(tmp, f"e{i}", {"w": np.full(3, float(i), np.float32)},
+                                         {}, i) for i in (1, 3)]
+        avg = cli_ensemble.main(["--ckpts", *ck, "--out-ckpt", os.path.join(tmp, "avg.msgpack")])
+        assert checkpoint.restore_variables(avg)[0]["w"].tolist() == [2.0, 2.0, 2.0]
+
     leaked = sorted(m for m in sys.modules if blocked(m))
     assert not leaked, leaked
     print("HYGIENE_OK")
