@@ -90,8 +90,8 @@ def inference(exp_config: str, exp_group_dir: str = "./outputs", exp_suffix: str
                 "checkpoints — run `cli.infer --tune-threshold` first")
         logger.info("using persisted tuned sed_threshold %.2f", tuned)
     d = cfg.data
-    # the encoder named by the experiment: build_model refuses PannResNet22TPU and
-    # compute_dtype, naming their ROADMAP item
+    # the encoder named by the experiment: a PannResNet22TPU tree loads strictly
+    # into PannResNet22 and would serve another network
     model = build_model(encoder=cfg.model.encoder.to_dict(), decoder=cfg.model.decoder.to_dict(),
                         n_classes=d.n_classes, output_format=d.get("output_format", "reg_xyz"))
     tta = None

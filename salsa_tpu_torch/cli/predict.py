@@ -102,8 +102,8 @@ def predict(exp_config: str, wav_dir: str, out_dir: str,
         logger.info("serving with tuned sed_threshold %.2f", tuned)
     d = cfg.data
     extractor = make_extractor(cfg.feature_type, d.audio_format, **feature_kwargs(cfg))
-    # the encoder named by the experiment: a PannResNet22TPU tree would load into
-    # PannResNet22 and serve another network, so build_model refuses it
+    # the encoder named by the experiment: a PannResNet22TPU tree loads strictly
+    # into PannResNet22 and would serve another network
     model = build_model(
         encoder=cfg.model.encoder.to_dict(), decoder=cfg.model.decoder.to_dict(),
         n_classes=d.n_classes, output_format=d.get("output_format", "reg_xyz"),

@@ -4,10 +4,13 @@
 arrays) onto the reference's torch names, which are the port's module names
 (`encoder.conv_block1.*`, `encoder.resnet.layer{L}.{i}.*`,
 `decoder.gru.weight_ih_l0[_reverse]`, `decoder.event_fc_1`, ...). It is a numpy
-copy of the part of `salsa_tpu.interop.torch_export` (and `torch_ckpt`'s walk of
-the encoder) that the port's models need: the PannResNet22 encoder and the
-`gru` / `bigru` decoder with its heads. LSTM and transformer decoders are refused:
-the port has no module to load them into yet.
+copy of `salsa_tpu.interop.torch_export` (and `torch_ckpt`'s walk of the
+encoder): the PannResNet22 / PannResNet22TPU encoder (one tree), the recurrent
+decoders (`decoder.gru.*` or `decoder.lstm.*`, the module named by the gate count:
+3 GRU, 4 LSTM), the transformer decoder (`decoder.pe.pe`, the positional table
+salsa_tpu recomputes, and `decoder.decoder_layer.layers.{i}.*`: flax's per-head
+q/k/v kernels (d, heads, head_dim) packed into `in_proj_weight` rows [q; k; v])
+and the heads.
 
 `torch_state_dict_to_flax` is its inverse (the port's counterpart of
 `salsa_tpu.interop.torch_ckpt.torch_state_dict_to_flax`, without a flax template):
@@ -19,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from salsa_tpu_torch.models.layers import sinusoid_position_encoding
 
 _HEAD_MAP = {
     "event_fc1": "event_fc_1", "event_fc2": "event_fc_2",
@@ -92,29 +97,60 @@ def _export_encoder(params: dict, stats: dict, out: dict) -> None:
             out[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
 
 
-def _export_decoder(params: dict, out: dict) -> None:
-    dec = params["decoder"]
-    unported = sorted(k for k in dec if k.startswith("TransformerEncoderLayer_"))
-    if unported:
-        raise NotImplementedError(f"transformer decoder ({unported[0]}, ...): the port has "
-                                  "no transformer decoder yet")
-    unmapped = set(dec) - {"RNNStack_0"} - set(_HEAD_MAP)
-    if unmapped:
-        raise ValueError(f"cannot map decoder modules {sorted(unmapped)}")
-    if "RNNStack_0" not in dec:
-        raise ValueError("decoder has no RNNStack_0: not a gru/bigru SeldDecoder")
-    for layer_name, p in dec["RNNStack_0"].items():
+N_HEADS = 8  # the transformer's heads (reference nhead=8)
+_RNN_MODULES = {3: "gru", 4: "lstm"}  # gates per cell -> the reference's module name
+_TF_LINEAR = (("LayerNorm_0", "norm1", "scale"), ("LayerNorm_1", "norm2", "scale"),
+              ("Dense_0", "linear1", "kernel"), ("Dense_1", "linear2", "kernel"))
+
+
+def _export_rnn(stack: dict, out: dict) -> None:
+    for layer_name, p in stack.items():
         gates = np.shape(p["wi"])[1] // np.shape(p["wh"])[0]
-        if gates != 3:
-            raise NotImplementedError(f"RNN layer {layer_name} has {gates} gates per cell: "
-                                      "the port loads GRU (3) stacks only")
+        if gates not in _RNN_MODULES:
+            raise ValueError(f"RNN layer {layer_name} has {gates} gates per cell: neither "
+                             "GRU (3) nor LSTM (4)")
         layer, direction = layer_name.split("_")
         sfx = "" if direction == "fwd" else "_reverse"
-        key = f"decoder.gru.{{}}_l{layer[1:]}{sfx}"
+        key = f"decoder.{_RNN_MODULES[gates]}.{{}}_l{layer[1:]}{sfx}"
         out[key.format("weight_ih")] = _get(p, ("wi",)).T
         out[key.format("weight_hh")] = _get(p, ("wh",)).T
         out[key.format("bias_ih")] = _get(p, ("bi",))
         out[key.format("bias_hh")] = _get(p, ("bh",))
+
+
+def _export_transformer(dec: dict, tf_layers: list[str], out: dict) -> None:
+    d_model = np.shape(dec[tf_layers[0]]["MultiHeadDotProductAttention_0"]["query"]["kernel"])[0]
+    out["decoder.pe.pe"] = sinusoid_position_encoding(2000, d_model).T[None]
+    for li, lname in enumerate(tf_layers):
+        lp, prefix = dec[lname], f"decoder.decoder_layer.layers.{li}."
+        att = lp["MultiHeadDotProductAttention_0"]
+        d = np.shape(att["query"]["kernel"])[0]
+        out[prefix + "self_attn.in_proj_weight"] = np.concatenate(
+            [_get(att[nm], ("kernel",)).reshape(d, d).T for nm in ("query", "key", "value")],
+            axis=0)
+        out[prefix + "self_attn.in_proj_bias"] = np.concatenate(
+            [_get(att[nm], ("bias",)).reshape(d) for nm in ("query", "key", "value")], axis=0)
+        out[prefix + "self_attn.out_proj.weight"] = _get(att["out"], ("kernel",)).reshape(d, d).T
+        out[prefix + "self_attn.out_proj.bias"] = _get(att["out"], ("bias",))
+        for flax_name, name, weight in _TF_LINEAR:
+            w = _get(lp[flax_name], (weight,))
+            out[prefix + f"{name}.weight"] = w.T if weight == "kernel" else w
+            out[prefix + f"{name}.bias"] = _get(lp[flax_name], ("bias",))
+
+
+def _export_decoder(params: dict, out: dict) -> None:
+    dec = params["decoder"]
+    tf_layers = sorted((k for k in dec if k.startswith("TransformerEncoderLayer_")),
+                       key=lambda k: int(k.rsplit("_", 1)[1]))
+    unmapped = set(dec) - {"RNNStack_0"} - set(_HEAD_MAP) - set(tf_layers)
+    if unmapped:
+        raise ValueError(f"cannot map decoder modules {sorted(unmapped)}")
+    if "RNNStack_0" not in dec and not tf_layers:
+        raise ValueError("decoder has neither RNNStack_0 nor transformer layers")
+    if "RNNStack_0" in dec:
+        _export_rnn(dec["RNNStack_0"], out)
+    if tf_layers:
+        _export_transformer(dec, tf_layers, out)
     for ours, theirs in _HEAD_MAP.items():
         if ours in dec:
             out[f"decoder.{theirs}.weight"] = _get(dec[ours], ("kernel",)).T
@@ -123,8 +159,8 @@ def _export_decoder(params: dict, out: dict) -> None:
 
 def flax_to_torch_state_dict(params: dict, batch_stats: dict) -> dict[str, np.ndarray]:
     """Flax SeldNet (params, batch_stats) -> reference-named state_dict of numpy
-    arrays (float32; `num_batches_tracked` int64 zeros). PannResNet22 + gru/bigru
-    only; raises NotImplementedError on an LSTM or transformer decoder."""
+    arrays (float32; `num_batches_tracked` int64 zeros), key for key and array
+    for array `salsa_tpu.interop.torch_export.flax_to_torch_state_dict`'s."""
     out: dict[str, np.ndarray] = {}
     _export_encoder(params, batch_stats, out)
     _export_decoder(params, out)
@@ -150,17 +186,19 @@ def _encoder_layers(sd: dict) -> tuple[int, ...]:
 
 
 def torch_state_dict_to_flax(state_dict) -> tuple[dict, dict]:
-    """Reference-named state_dict (PannResNet22 + gru/bigru decoder and heads) ->
-    flax SeldNet (params, batch_stats) as nested dicts of float32 numpy arrays:
-    the inverse of `flax_to_torch_state_dict`. The tree is built from the names
-    alone, with no flax template; `num_batches_tracked` is dropped. Raises
-    NotImplementedError on an LSTM or transformer decoder and ValueError on a
-    name it cannot place."""
+    """Reference-named state_dict (the PannResNet22 tree, a gru/bigru/lstm/bilstm
+    or transformer decoder and the heads) -> flax SeldNet (params, batch_stats) as
+    nested dicts of float32 numpy arrays: the inverse of
+    `flax_to_torch_state_dict` (the transformer's as `salsa_tpu.interop.
+    torch_ckpt.transformer_layer_params`, 8 heads). The tree is built from the
+    names alone, with no flax template; `num_batches_tracked` and the
+    positional table `decoder.pe.pe` (which salsa_tpu recomputes) are dropped.
+    Raises ValueError on a name it cannot place."""
     sd = {k: np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v)
           for k, v in state_dict.items()}
     params: dict = {}
     stats: dict = {}
-    used = {k for k in sd if k.endswith(".num_batches_tracked")}
+    used = {k for k in sd if k.endswith(".num_batches_tracked") or k == "decoder.pe.pe"}
 
     def take(key: str) -> np.ndarray:
         if key not in sd:
@@ -196,21 +234,30 @@ def torch_state_dict_to_flax(state_dict) -> tuple[dict, dict]:
             _set(stats, ("encoder",) + path + ("mean",), take(f"{key}.running_mean"))
             _set(stats, ("encoder",) + path + ("var",), take(f"{key}.running_var"))
 
-    # the decoder: GRU layers and directions, then the heads
-    unported = sorted(k for k in sd if k.startswith(("decoder.lstm.", "decoder.decoder_layer.")))
-    if unported:
-        raise NotImplementedError(f"{unported[0]}: the port has no LSTM or transformer "
-                                  "decoder yet")
+    # the decoder: recurrent layers and directions or transformer layers, then
+    # the heads
+    found = [m for m in (*_RNN_MODULES.values(), "decoder_layer")
+             if any(k.startswith(f"decoder.{m}.") for k in sd)]
+    if len(found) > 1:
+        raise ValueError(f"cannot place decoder.{found[0]} and decoder.{found[1]} in one "
+                         "SeldNet tree: a decoder has one sequence model")
+    for mod in _RNN_MODULES.values():
+        layer = 0
+        while f"decoder.{mod}.weight_ih_l{layer}" in sd:
+            for sfx, direction in (("", "fwd"), ("_reverse", "bwd")):
+                if sfx and f"decoder.{mod}.weight_ih_l{layer}{sfx}" not in sd:
+                    continue
+                key = f"decoder.{mod}.{{}}_l{layer}{sfx}"
+                _set(params, ("decoder", "RNNStack_0", f"l{layer}_{direction}"), {
+                    "wi": np.ascontiguousarray(take(key.format("weight_ih")).T),
+                    "wh": np.ascontiguousarray(take(key.format("weight_hh")).T),
+                    "bi": take(key.format("bias_ih")), "bh": take(key.format("bias_hh"))})
+            layer += 1
     layer = 0
-    while f"decoder.gru.weight_ih_l{layer}" in sd:
-        for sfx, direction in (("", "fwd"), ("_reverse", "bwd")):
-            if sfx and f"decoder.gru.weight_ih_l{layer}{sfx}" not in sd:
-                continue
-            key = f"decoder.gru.{{}}_l{layer}{sfx}"
-            _set(params, ("decoder", "RNNStack_0", f"l{layer}_{direction}"), {
-                "wi": np.ascontiguousarray(take(key.format("weight_ih")).T),
-                "wh": np.ascontiguousarray(take(key.format("weight_hh")).T),
-                "bi": take(key.format("bias_ih")), "bh": take(key.format("bias_hh"))})
+    while f"decoder.decoder_layer.layers.{layer}.self_attn.in_proj_weight" in sd:
+        prefix = f"decoder.decoder_layer.layers.{layer}."
+        _set(params, ("decoder", f"TransformerEncoderLayer_{layer}"),
+             _transformer_layer(lambda name, _p=prefix: take(_p + name)))
         layer += 1
     for ours, theirs in _HEAD_MAP.items():
         if f"decoder.{theirs}.weight" in sd:
@@ -219,8 +266,30 @@ def torch_state_dict_to_flax(state_dict) -> tuple[dict, dict]:
                 "bias": take(f"decoder.{theirs}.bias")})
     left = sorted(set(sd) - used)
     if left:
-        raise ValueError(f"cannot place {left[:4]} in a PannResNet22 + gru/bigru SeldNet tree")
+        raise ValueError(f"cannot place {left[:4]} in a PannResNet22 SeldNet tree")
     return params, stats
+
+
+def _transformer_layer(get) -> dict:
+    """One reference transformer layer's tensors (`get(name)`) -> salsa_tpu's flax
+    TransformerEncoderLayer tree: the packed q/k/v rows unpacked into kernels
+    (d, heads, head_dim) and biases (heads, head_dim), the output kernel
+    (heads, head_dim, d)."""
+    in_w, in_b = get("self_attn.in_proj_weight"), get("self_attn.in_proj_bias")
+    d = in_w.shape[1]
+    hd = d // N_HEADS
+    tree = {"MultiHeadDotProductAttention_0": {
+        name: {"kernel": np.ascontiguousarray(in_w[i * d:(i + 1) * d].T.reshape(d, N_HEADS, hd)),
+               "bias": np.ascontiguousarray(in_b[i * d:(i + 1) * d].reshape(N_HEADS, hd))}
+        for i, name in enumerate(("query", "key", "value"))}}
+    tree["MultiHeadDotProductAttention_0"]["out"] = {
+        "kernel": np.ascontiguousarray(get("self_attn.out_proj.weight").T.reshape(N_HEADS, hd, d)),
+        "bias": get("self_attn.out_proj.bias")}
+    for flax_name, name, weight in _TF_LINEAR:
+        w = get(f"{name}.weight")
+        tree[flax_name] = {weight: np.ascontiguousarray(w.T) if weight == "kernel" else w,
+                           "bias": get(f"{name}.bias")}
+    return tree
 
 
 def load_flax_variables(model: nn.Module, params: dict, batch_stats: dict) -> nn.Module:

@@ -1,21 +1,35 @@
 """SELD decoder (counterpart of `salsa_tpu.models.decoders` and `models/rnn.py`):
-frequency pooling -> 2-layer GRU/BiGRU (dropout `rnn_dropout`, 0.3, between
-layers) -> SED head FC->relu->FC and three DOA heads with tanh, concatenated
-(x | y | z) per class; dropout `head_dropout`, 0.2, before each head layer.
-Dropout acts only in training mode, drawn from each `layers.Dropout`'s generator.
-`output_format` is accepted for config compatibility; the pipeline applies it.
+frequency pooling -> sequence decoder -> SED head FC->relu->FC and three DOA
+heads with tanh, concatenated (x | y | z) per class; dropout `head_dropout`, 0.2,
+before each head layer. Dropout acts only in training mode, drawn from each
+`layers.Dropout`'s generator. `output_format` is accepted for config
+compatibility; the pipeline applies it.
 
-The recurrence is `nn.GRU`, whose gate order (r, z, n) and candidate
-n = tanh(W_in x + b_in + r * (W_hn h + b_hn)) are the flax GRU's. Module names
-are the reference's torch names (`gru`, `event_fc_1`, ...): `gru` is the 2-layer
-stack and holds the weights. With rnn_dropout > 0 in training mode its layers run
-one at a time, each a one-layer `nn.GRU` called on that layer's weights
-(`torch.func.functional_call`), so that the dropout between them is drawn as the
-other dropouts are (nn.GRU's built-in dropout draws from torch's global
-generator). Otherwise the stack runs as one call: one layer at a time read
-14-19 % slower on the serving request's (4, 300, 512) on an H100 (16.64 against
-14.54 ms and 13.67 against 11.52 ms in two runs of `chip_smoke.py` phase 5), the
-outputs bit-equal.
+Sequence decoders (`decoder_type`):
+  * gru / bigru: `nn.GRU`, whose gate order (r, z, n) and candidate
+    n = tanh(W_in x + b_in + r * (W_hn h + b_hn)) are the flax GRU's;
+  * lstm / bilstm: `nn.LSTM`, gate order (i, f, g, o) as salsa_tpu's LSTMLayer;
+  * transformer: the reference's `pe` buffer (1, d_model, 2000) of the
+    0.1-scaled sin/cos table added to the input, then two post-LN encoder layers
+    (`layers.TransformerEncoderLayer`) at d_model = the encoder's channels;
+    longer sequences than the table raise.
+The recurrent stacks have 2 layers, dropout `rnn_dropout` (0.3) between them.
+Module names are the reference's torch names (`gru`, `lstm`, `pe`,
+`decoder_layer.layers.{i}`, `event_fc_1`, ...). With rnn_dropout > 0 in training
+mode a recurrent stack runs one layer at a time, each a one-layer module called
+on that layer's weights (`torch.func.functional_call`), so that the dropout
+between them is drawn as the other dropouts are (the built-in dropout of
+nn.GRU/nn.LSTM draws from torch's global generator). Otherwise the stack runs as
+one call: one layer at a time read 14-19 % slower on the serving request's
+(4, 300, 512) GRU on an NVIDIA H100 80GB HBM3 at 700 W (16.64 against 14.54 ms and
+13.67 against 11.52 ms in two runs of `chip_smoke.py` phase 5), the outputs
+bit-equal.
+
+`compute_dtype` ('bfloat16') follows flax's casts: the input and the frequency
+pooling in bf16; the recurrences and the transformer in float32 (salsa_tpu's
+RNNStack and transformer have no dtype, so their float32 parameters promote the
+bf16 input); the head Linears in bf16, their outputs cast to float32 before the
+tanh. The outputs are float32 in every case.
 """
 from __future__ import annotations
 
@@ -23,7 +37,45 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from salsa_tpu_torch.models.layers import Dropout
+from salsa_tpu_torch.models.layers import (
+    Dropout,
+    Linear,
+    TransformerEncoderLayer,
+    resolve_dtype,
+    sinusoid_position_encoding,
+)
+
+RNN_TYPES = {"gru": nn.GRU, "bigru": nn.GRU, "lstm": nn.LSTM, "bilstm": nn.LSTM}
+POS_LEN = 2000  # the positional table's length (reference PositionalEncoding pos_len)
+
+
+class PositionalEncoding(nn.Module):
+    """The reference's `pe` module: buffer `pe` (1, d_model, pos_len), the
+    0.1-scaled sin/cos table, added to a (B, T, d_model) sequence."""
+
+    def __init__(self, d_model: int, pos_len: int = POS_LEN):
+        super().__init__()
+        table = sinusoid_position_encoding(pos_len, d_model).T[None]
+        self.register_buffer("pe", torch.from_numpy(table.copy()))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[1] > self.pe.shape[2]:
+            raise ValueError(f"a sequence of {x.shape[1]} frames is longer than the "
+                             f"transformer's positional table ({self.pe.shape[2]})")
+        return x + self.pe[0, :, :x.shape[1]].T
+
+
+class TransformerStack(nn.Module):
+    """`layers.{i}`: the reference's nn.TransformerEncoder attribute layout."""
+
+    def __init__(self, d_model: int, n_layers: int = 2):
+        super().__init__()
+        self.layers = nn.ModuleList(TransformerEncoderLayer(d_model) for _ in range(n_layers))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x)
+        return x
 
 
 class SeldDecoder(nn.Module):
@@ -33,54 +85,70 @@ class SeldDecoder(nn.Module):
                  head_dropout: float = 0.2, rnn_dropout: float = 0.3,
                  compute_dtype: str | None = None):
         super().__init__()
-        if decoder_type not in ("gru", "bigru"):
-            raise NotImplementedError(
-                f"decoder_type '{decoder_type}' is not ported yet (lstm, bilstm and "
-                "transformer: ROADMAP queue 1, slice 2)")
+        if decoder_type not in (*RNN_TYPES, "transformer"):
+            raise ValueError(f"unknown decoder type '{decoder_type}'")
         if freq_pool not in ("avg", "max", "avg_max"):
             raise ValueError(f"unknown freq pool '{freq_pool}'")
-        if compute_dtype is not None:
-            raise NotImplementedError(
-                "compute_dtype (bf16 autocast) is not ported yet: ROADMAP queue 1, slice 4")
+        self.compute_dtype = resolve_dtype(compute_dtype)
         self.freq_pool = freq_pool
-        bidirectional = decoder_type == "bigru"
-        self.gru = nn.GRU(n_output_channels, decoder_size, num_layers=2, batch_first=True,
-                          bidirectional=bidirectional)
+        self.decoder_type = decoder_type
         self.rnn_dropout = Dropout(rnn_dropout)
-        fc = decoder_size * (2 if bidirectional else 1)
-        # one-layer GRUs with no weights of their own (a tuple is not registered as
-        # submodules): each runs on its layer's weights of `gru`
-        self._layers = tuple(nn.GRU(n_in, decoder_size, batch_first=True,
-                                    bidirectional=bidirectional, device="meta")
-                             for n_in in (n_output_channels, fc))
+        if decoder_type == "transformer":
+            self.pe = PositionalEncoding(n_output_channels)
+            self.decoder_layer = TransformerStack(n_output_channels)
+            fc = n_output_channels
+        else:
+            rnn_cls = RNN_TYPES[decoder_type]
+            bidirectional = decoder_type.startswith("bi")
+            # registered under the reference's name: `gru` or `lstm`
+            setattr(self, decoder_type.removeprefix("bi"),
+                    rnn_cls(n_output_channels, decoder_size, num_layers=2, batch_first=True,
+                            bidirectional=bidirectional))
+            fc = decoder_size * (2 if bidirectional else 1)
+            # one-layer modules with no weights of their own (a tuple is not
+            # registered as submodules): each runs on its layer's weights of the stack
+            self._layers = tuple(rnn_cls(n_in, decoder_size, batch_first=True,
+                                         bidirectional=bidirectional, device="meta")
+                                 for n_in in (n_output_channels, fc))
         self.head_dropout = Dropout(head_dropout)
         for name in ("event", "x", "y", "z"):
-            setattr(self, f"{name}_fc_1", nn.Linear(fc, fc // 2))
-            setattr(self, f"{name}_fc_2", nn.Linear(fc // 2, n_classes))
+            setattr(self, f"{name}_fc_1", Linear(fc, fc // 2, compute_dtype=self.compute_dtype))
+            setattr(self, f"{name}_fc_2", Linear(fc // 2, n_classes,
+                                                 compute_dtype=self.compute_dtype))
+
+    @property
+    def rnn(self) -> nn.RNNBase:
+        """The recurrent stack (`gru` or `lstm`)."""
+        return getattr(self, self.decoder_type.removeprefix("bi"))
 
     def _head(self, h: torch.Tensor, name: str) -> torch.Tensor:
         h = torch.relu(getattr(self, f"{name}_fc_1")(self.head_dropout(h)))
-        return getattr(self, f"{name}_fc_2")(self.head_dropout(h))
+        return getattr(self, f"{name}_fc_2")(self.head_dropout(h)).float()
 
     def _per_layer(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, T', C) -> (B, T', fc) through the GRU stack a layer at a time, with
-        rnn_dropout between the layers."""
-        for layer, gru in enumerate(self._layers):
-            weights = {name: getattr(self.gru, name.replace("_l0", f"_l{layer}"))
-                       for name, _ in gru.named_parameters()}
-            x = functional_call(gru, weights, (x,))[0]
+        """(B, T', C) -> (B, T', fc) through the recurrent stack a layer at a time,
+        with rnn_dropout between the layers."""
+        for layer, rnn in enumerate(self._layers):
+            weights = {name: getattr(self.rnn, name.replace("_l0", f"_l{layer}"))
+                       for name, _ in rnn.named_parameters()}
+            x = functional_call(rnn, weights, (x,))[0]
             if layer < len(self._layers) - 1:
                 x = self.rnn_dropout(x)
         return x
 
     def _recur(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, T', C) -> (B, T', fc) through the GRU stack."""
+        """(B, T', C) -> (B, T', fc) through the sequence decoder, in float32."""
+        x = x.float()
+        if self.decoder_type == "transformer":
+            return self.decoder_layer(self.pe(x))
         if self.training and self.rnn_dropout.p > 0:
             return self._per_layer(x)
-        return self.gru(x)[0]
+        return self.rnn(x)[0]
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         """x: (B, C, T', F') encoder output -> framewise outputs at T'."""
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         if self.freq_pool == "avg":
             x = x.mean(dim=3)
         elif self.freq_pool == "max":

@@ -50,7 +50,7 @@ def main(argv=None, device="cuda") -> dict:
     ap.add_argument("--epochs", type=int, default=96)
     ap.add_argument("--seeds", type=int, nargs="+", default=[33],
                     help="data+init seeds; several give mean±sd per arm")
-    ap.add_argument("--encoder", default="PannResNet22")
+    ap.add_argument("--encoder", default="PannResNet22TPU")
     ap.add_argument("--arms", nargs="+", default=["off", "feature", "full"])
     ap.add_argument("--workroot", default=tempfile.gettempdir())
     args = ap.parse_args(argv)

@@ -19,10 +19,10 @@ On the synthetic corpus of `salsa_tpu_torch.scripts.synthetic_sanity`:
      each mode has its own operating point.
 
 Prints one JSON line per measurement, as the original does, and a last
-`{"quality_evidence": {...}}` line. Where the original trains bf16
-PannResNet22TPU on extracted features, the port trains fp32 PannResNet22 from the
-wavs, features extracted on the card inside every step: it has no bf16 autocast
-and no extract CLI yet (ROADMAP queue 1). Each epoch's checkpoint of the
+`{"quality_evidence": {...}}` line. The model is the original's, bf16
+PannResNet22TPU; where the original trains on extracted features, the port trains
+from the wavs, features extracted on the card inside every step (it has no
+extract CLI yet, ROADMAP queue 1). Each epoch's checkpoint of the
 full-width CRNN is ~135 MB, so the epoch checkpoints a later stage does not read
 are deleted as soon as a member is trained (each member's best stays).
 
@@ -53,7 +53,8 @@ def _write_exp(root: str, data_dir: str, meta_dir: str, seed: int, epochs: int,
     """<root>/exp.yml: the synthetic corpus's experiment (every member shares the
     name exp; the suffix tells them apart). With tail_const, the last 30 % of
     training runs at a constant lr, SWA's averaging phase."""
-    cfg = experiment_config(data_dir, meta_dir, "salsa", "foa", seed, epochs)
+    cfg = experiment_config(data_dir, meta_dir, "salsa", "foa", seed, epochs,
+                            encoder="PannResNet22TPU")
     if tail_const:
         cfg["training"]["lr_scheduler"] = {"milestones": [0.0, 0.1, 0.55, 0.7, 1.0],
                                            "lrs": [3e-4, 3e-4, 3e-4, 1e-4, 1e-4],

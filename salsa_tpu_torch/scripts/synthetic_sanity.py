@@ -10,9 +10,10 @@ split. A healthy build drives LE to a few degrees and F1 near 1.
 
 The corpus is the same code as `scripts/synthetic_sanity.py`'s, so one seed gives
 the same wavs and ground truth. The port always trains from wav (it has no
-extract CLI; `--from-wav` is accepted for the original's command line) and in
-fp32 PannResNet22 (it has no bf16 autocast yet). It prints the same
-`{"synthetic_sanity": {...}}` line.
+extract CLI; `--from-wav` is accepted for the original's command line), with the
+original's model: `compute_dtype: bfloat16` on the encoder and the decoder, the
+encoder from `--encoder` (PannResNet22 by default, as the original's). It prints
+the same `{"synthetic_sanity": {...}}` line.
 
 Usage: python -m salsa_tpu_torch.scripts.synthetic_sanity [--clips 24] [--epochs 20]
            [--workdir DIR] [--aug full|feature|off]
@@ -130,7 +131,7 @@ def experiment_config(data_dir: str, meta_dir: str, feature_type: str, fmt: str,
                       epochs: int, aug: str = "full", output_format: str = "reg_xyz",
                       accdoa_silent_weight: float = 0.0,
                       encoder: str = "PannResNet22") -> dict:
-    """The original script's experiment, trained from wav in fp32."""
+    """The original script's experiment (bf16 compute), trained from wav."""
     fmax_doa = {("foa", "salsa"): 9000, ("mic", "salsa"): 4000}.get((fmt, feature_type), 2000)
     n_in = {"melspec": 4}.get(feature_type, 10 if feature_type.endswith("gcc") else 7)
     return {
@@ -144,9 +145,11 @@ def experiment_config(data_dir: str, meta_dir: str, feature_type: str, fmt: str,
                  "test_chunk_hop_len_s": CLIP_SECONDS + 0.1, "n_classes": N_CLASSES,
                  "output_format": output_format, "max_file_len_s": CLIP_SECONDS},
         "model": {
-            "encoder": {"name": encoder, "n_input_channels": n_in},
+            "encoder": {"name": encoder, "n_input_channels": n_in,
+                        "compute_dtype": "bfloat16"},
             "decoder": {"name": "SeldDecoder", "decoder_type": "bigru",
-                        "decoder_size": 128, "freq_pool": "avg"},
+                        "decoder_size": 128, "freq_pool": "avg",
+                        "compute_dtype": "bfloat16"},
         },
         "training": {"train_batch_size": 16, "optimizer": "adam",
                      "accdoa_silent_weight": accdoa_silent_weight,
@@ -203,6 +206,10 @@ def run(args, device="cuda") -> dict:
     trainer = train(exp_path, exp_group_dir=os.path.join(root, "outputs"),
                     exp_suffix="_sanity", device=device)
     print(f"training: {time.time() - t0:.1f}s", flush=True)
+    if device != "cpu":  # every time is the card's: its name and power limit beside it
+        from salsa_tpu_torch.scripts.timing import smi
+
+        print(f"card: {smi('name,power.limit')}", flush=True)
     return trainer.validate()
 
 

@@ -94,10 +94,6 @@ def refuse_unported(cfg) -> None:
          or (torch.distributed.is_available() and torch.distributed.is_initialized()),
          "training in more than one process", 11),
     ]
-    for part in ("encoder", "decoder"):
-        dtype = cfg.get("model", {}).get(part, {}).get("compute_dtype")
-        refused.append((dtype is not None, f"model.{part}.compute_dtype: {dtype} "
-                                           "(bf16 autocast)", 10))
     for hit, what, item in refused:
         if hit:
             raise NotImplementedError(f"{what} is not ported yet: ROADMAP queue 1, item {item}")

@@ -208,7 +208,7 @@ def test_torch_state_dict_to_flax_equals_salsa_tpu(decoder_type):
 def test_torch_state_dict_to_flax_refuses_what_it_cannot_place():
     model = tseld.build_model(encoder=ENC, decoder=_dec("gru"), n_classes=3)
     sd = dict(model.state_dict())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="decoder.gru and decoder.lstm"):
         torch_state_dict_to_flax({**sd, "decoder.lstm.weight_ih_l0": np.zeros((4, 4))})
     with pytest.raises(ValueError, match="cannot place"):
         torch_state_dict_to_flax({**sd, "decoder.extra.weight": np.zeros(2)})

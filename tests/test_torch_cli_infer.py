@@ -359,14 +359,6 @@ def test_infer_refusals(experiment):
 
     with pytest.raises(ValueError, match="h5py"):
         port(_write_config(root, "no_wav", from_wav=False))
-    enc_tpu = _write_config(root, "tpu", edit=lambda c: c["model"]["encoder"].update(
-        name="PannResNet22TPU"))
-    with pytest.raises(NotImplementedError, match="PannResNet22TPU"):
-        port(enc_tpu)
-    bf16 = _write_config(root, "bf16", edit=lambda c: c["model"]["decoder"].update(
-        compute_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        port(bf16)
     with pytest.raises(FileNotFoundError, match="train first"):
         tinfer.inference(experiment["config"]["reg_xyz"], group, "_untrained", splits=["val"],
                          device="cpu")

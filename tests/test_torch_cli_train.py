@@ -204,9 +204,9 @@ def test_train_refusals(experiment, monkeypatch):
     with pytest.raises(ValueError, match="'full' or 'feature'"):
         cli_train.train(_write_config(root, "aug_mode.yml", device_augment="swap"), group,
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="PannResNet22TPU"):
+    with pytest.raises(ValueError, match="unknown compute_dtype"):
         cli_train.train(experiment["config"], group, device="cpu",
-                        overrides=["model.encoder.name=PannResNet22TPU"])
+                        overrides=["model.decoder.compute_dtype=float8"])
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli_train.train(experiment["config"], group)

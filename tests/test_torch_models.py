@@ -108,7 +108,7 @@ def _flax_tree(rng, decoder_type, size=16):
     return flax_init(rng, model, np.zeros((1, 7, 64, 32), np.float32))
 
 
-@pytest.mark.parametrize("decoder_type", ["gru", "bigru"])
+@pytest.mark.parametrize("decoder_type", ["gru", "bigru", "lstm", "bilstm", "transformer"])
 def test_converter_equals_salsa_tpu_export(rng, decoder_type):
     """The port's numpy converter gives salsa_tpu's state_dict key for key (in
     order) and array for array."""
@@ -119,14 +119,6 @@ def test_converter_equals_salsa_tpu_export(rng, decoder_type):
     for k in want:
         assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-
-
-@pytest.mark.parametrize("decoder_type", ["lstm", "bilstm", "transformer"])
-def test_converter_refuses_unported_decoders(rng, decoder_type):
-    params, stats = _flax_tree(rng, decoder_type)
-    assert j_flax_to_torch_state_dict(params, stats)  # salsa_tpu exports these
-    with pytest.raises(NotImplementedError):
-        flax_to_torch_state_dict(params, stats)
 
 
 @pytest.mark.parametrize("ratio,n_in", [(2, 8), (3, 5), (0.5, 8), (0.25, 12), (1.5, 6),
@@ -149,13 +141,19 @@ def test_configs_equal_seld_yml():
     assert model.decoder.event_fc_2.out_features == 12
 
 
-def test_unported_variants_raise():
+def test_unknown_variants_raise():
+    """Every network salsa_tpu builds is built; a name it does not know raises."""
     enc = {"name": "PannResNet22", "n_input_channels": 7}
-    for dtype in ("lstm", "bilstm", "transformer"):
-        with pytest.raises(NotImplementedError):
-            tseld.build_model(encoder=enc, decoder={"decoder_type": dtype})
-    with pytest.raises(NotImplementedError):
-        tseld.build_model(encoder={"name": "PannResNet22TPU"}, decoder={})
+    for kw in ({"decoder_type": "rnn"}, {"freq_pool": "mean"}, {"compute_dtype": "float8"}):
+        with pytest.raises(ValueError):
+            tseld.build_model(encoder=enc, decoder=kw)
+    for name in ("PannResNet22TPU", "PannResNet22"):
+        for dtype in (None, "float32", "bfloat16"):
+            tseld.build_model(encoder={"name": name, "compute_dtype": dtype}, decoder={})
+    with pytest.raises(ValueError):
+        tseld.build_model(encoder={"name": "PannResNet38"}, decoder={})
+    with pytest.raises(ValueError):
+        tseld.build_model(encoder={**enc, "compute_dtype": "half"}, decoder={})
 
 
 def test_init_random_is_seeded_and_nontrivial():

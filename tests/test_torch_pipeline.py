@@ -206,6 +206,21 @@ HYGIENE = textwrap.dedent("""
     assert np.isfinite(ev).all() and np.isfinite(doa).all()
 
     import salsa_tpu_torch.interop as interop
+
+    # the rest of the zoo: PannResNet22TPU in bf16, the LSTM and transformer decoders
+    for enc_name, dec_type, dtype in (("PannResNet22TPU", "bilstm", "bfloat16"),
+                                      ("PannResNet22", "transformer", None)):
+        zoo = seld.init_random_(seld.build_model(
+            encoder={**configs.MODEL["encoder"], "name": enc_name, "compute_dtype": dtype},
+            decoder={"decoder_type": dec_type, "decoder_size": 8, "compute_dtype": dtype},
+            n_classes=2), torch.Generator().manual_seed(0))
+        interop.load_flax_variables(zoo, *interop.torch_state_dict_to_flax(zoo.state_dict()))
+        zoo_pipe = pipeline.SeldInferencePipeline(
+            registry.make_extractor("salsa", "foa"), zoo, None,
+            (np.zeros((4, 1, 200), np.float32), np.ones((4, 1, 200), np.float32)),
+            2.0, 2, device="cpu")
+        ev, doa = zoo_pipe(np.random.default_rng(1).standard_normal((4, 9600)).astype(np.float32))
+        assert ev.dtype == np.float32 and np.isfinite(ev).all() and np.isfinite(doa).all()
     import salsa_tpu_torch.scripts.bench_noise_floor as bench_k2
     import salsa_tpu_torch.scripts.bench_salsa_spatial as bench_k1
     import salsa_tpu_torch.scripts.probe_pallas_conv as probe_conv

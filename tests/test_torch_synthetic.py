@@ -51,9 +51,9 @@ def test_corpus_equals_the_original_script(tmp_path, fmt):
 
 @pytest.mark.parametrize("aug", ["full", "feature", "off"])
 def test_experiment_config_reads_back(tmp_path, aug):
-    """The experiment the port trains: the original's, from wav, fp32 (no
-    compute_dtype), with the arm's device_augment; written by the port's writer,
-    read back equal by its reader and by PyYAML."""
+    """The experiment the port trains: the original's, from wav, bf16 compute on
+    the encoder and the decoder, with the arm's device_augment; written by the
+    port's writer, read back equal by its reader and by PyYAML."""
     cfg = synthetic_sanity.experiment_config("/d/task3", "/d/meta", "salsa", "foa", 11, 96, aug)
     path = str(tmp_path / "exp.yml")
     save_config(cfg, path)
@@ -62,7 +62,9 @@ def test_experiment_config_reads_back(tmp_path, aug):
         assert yaml.safe_load(f) == cfg
     assert cfg["training"]["device_augment"] == {"full": True, "feature": "feature",
                                                  "off": False}[aug]
-    assert cfg["training"]["from_wav"] and "compute_dtype" not in str(cfg["model"])
+    assert cfg["training"]["from_wav"]
+    assert cfg["model"]["encoder"]["compute_dtype"] == "bfloat16"
+    assert cfg["model"]["decoder"]["compute_dtype"] == "bfloat16"
     assert cfg["training"]["val_interval"] == 24 and cfg["data"]["fmax_doa"] == 9000
 
 

@@ -305,8 +305,6 @@ REFUSALS = [
     ({"training": {"device_data_shard": True}}, "device_data_shard", 11),
     ({"training": {"remat": True}}, "remat", 10),
     ({"training": {"from_wav_mode": "precompute"}}, "precompute", 8),
-    ({"model": {"encoder": {"compute_dtype": "bfloat16"}}}, "bf16", 10),
-    ({"model": {"decoder": {"compute_dtype": "bfloat16"}}}, "bf16", 10),
 ]
 
 
@@ -314,6 +312,22 @@ REFUSALS = [
 def test_trainer_refuses_unported_options(cfg, what, item):
     with pytest.raises(NotImplementedError, match=rf"{what}.*item {item}\b"):
         refuse_unported(AttrDict(cfg))
+
+
+@pytest.mark.parametrize("part", ["encoder", "decoder"])
+def test_trainer_takes_the_compute_dtype(part):
+    """compute_dtype is no refusal: bfloat16 builds a model that computes in it,
+    and a name the port does not run raises ValueError."""
+    refuse_unported(AttrDict({"model": {part: {"compute_dtype": "bfloat16"}}}))
+    enc, dec = {"n_input_channels": 7}, {"decoder_type": "gru", "decoder_size": 8}
+    model = build_model(encoder={**enc, **({"compute_dtype": "bfloat16"} if part == "encoder"
+                                           else {})},
+                        decoder={**dec, **({"compute_dtype": "bfloat16"} if part == "decoder"
+                                           else {})})
+    assert getattr(model, part).compute_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="compute_dtype 'float8'"):
+        build_model(encoder={**enc, "compute_dtype": "float8"} if part == "encoder" else enc,
+                    decoder={**dec, "compute_dtype": "float8"} if part == "decoder" else dec)
 
 
 def test_trainer_refuses_more_than_one_process(monkeypatch):

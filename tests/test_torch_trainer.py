@@ -87,10 +87,11 @@ def trainer_config(feature_type="salsa", audio_format="foa", n_steps=N_STEPS):
     }
 
 
-def train_both(root, feature_type="salsa", audio_format="foa", n_steps=N_STEPS):
-    """Both trainers after n_steps steps from one flax init, their per-step losses
-    and the weights (a generator: salsa_tpu's dropout stays patched off until it
-    is closed)."""
+def train_both(root, feature_type="salsa", audio_format="foa", n_steps=N_STEPS, enc=ENC,
+               dec=DEC):
+    """Both trainers after n_steps steps from one flax init of the model (enc, dec),
+    their per-step losses and the weights (a generator: salsa_tpu's dropout stays
+    patched off until it is closed)."""
     rng = np.random.default_rng(20261018)
     names, meta_dir = _write_synth_corpus(root, rng, n_clips=4, seconds=4.0)
     with open(os.path.join(meta_dir, "train.csv"), "w") as f:
@@ -130,14 +131,14 @@ def train_both(root, feature_type="salsa", audio_format="foa", n_steps=N_STEPS):
     patch = pytest.MonkeyPatch()
     patch.setattr(jdropout, "dropout", lambda x, key, rate: x)  # salsa_tpu's dropout off
     try:
-        jt = JTrainer(model=j_build_model(encoder=ENC, decoder=DEC, n_classes=N_CLASSES),
+        jt = JTrainer(model=j_build_model(encoder=enc, decoder=dec, n_classes=N_CLASSES),
                       cfg=JAttrDict(cfg), train_data=j_split, val_data=j_val,
                       gt_meta_dir=gt_dir, submission_dir=os.path.join(root, "jax_subs"),
                       seed=SEED, scaler=scaler)
         # the step counter as the step leaves it (int32, replicated): one compile
         jt.state = jt.state.replace(step=replicate(jt.mesh, jnp.asarray(0, jnp.int32)))
         init = jax.device_get((jt.state.params, jt.state.batch_stats))
-        tt = SeldTrainer(model=build_model(encoder=ENC, decoder=DEC, n_classes=N_CLASSES),
+        tt = SeldTrainer(model=build_model(encoder=enc, decoder=dec, n_classes=N_CLASSES),
                          cfg=AttrDict(cfg), train_data=t_split, val_data=t_val,
                          gt_meta_dir=gt_dir, submission_dir=os.path.join(root, "torch_subs"),
                          seed=SEED, scaler=scaler, device="cpu")
