@@ -103,7 +103,23 @@ Phases, each printing what it found; any failure raises and exits non-zero:
      block dispatch), `cli.infer --tta`, and `--resume` from 2 to 3 epochs; then
      configs/seld.yml with the lstm, bilstm and transformer decoders in fp32: a
      4 x 60 s request each card against CPU at phase 4's gate, the first training
-     step's loss against the CPU's within 1e-4.
+     step's loss against the CPU's within 1e-4;
+ 15. the feature-store workflow of configs/seld.yml as written (its three paths
+     pointed at the temp tree, phase 9's step cut) on phase 9's clips:
+     `cli.extract --feature-type salsa` (configs/tnsse2021_salsa.yml) with one K1
+     and one K2 launch per equal-length batch, two stored clips against the CPU's
+     plain extraction at K1's bound, the scaler bit-equal to StreamingScaler over
+     the stored clips, a `--keep-existing` rerun extracting nothing; `cli.train`
+     from the store with the host transforms (K1 = K2 = 0, the first step against
+     the CPU's on the same draws, the step split into the prefetch wait, the copy,
+     forward and backward and the optimizer, a profiled step, peak memory,
+     checkpoints); training.device_data (its first batch bit-equal to the host
+     path's, timed steps, bfloat16 storage), from_wav_mode precompute (K1 and K2 at
+     startup only) and training.remat (a step within 1e-4 of the plain step,
+     dropout on, both peaks); `cli.predict` of the trained best with the store's
+     scaler (CSVs byte-identical to the in-memory pipeline's), `cli.infer --splits
+     val` from the store (K1 = K2 = 0, against the same call on the CPU) and
+     `cli.evaluate`.
 The second-to-last line is a JSON summary of the kernels, each with its time,
 its plain version's, its bound (the larger of its bytes over the memory rate and
 its operations over the peak rate of their type) and, where one PyTorch call
@@ -132,10 +148,13 @@ import torch
 
 from salsa_tpu_torch import configs
 from salsa_tpu_torch.cli import ensemble as cli_ensemble
+from salsa_tpu_torch.cli import extract as cli_extract
 from salsa_tpu_torch.cli import evaluate as cli_evaluate
 from salsa_tpu_torch.cli import infer as cli_infer
 from salsa_tpu_torch.cli import predict as cli_predict
 from salsa_tpu_torch.cli import train as cli_train
+from salsa_tpu_torch.data.dataset import prefetch
+from salsa_tpu_torch.data.feature_store import FeatureStore, StreamingScaler
 from salsa_tpu_torch.data.wav_database import length_groups
 from salsa_tpu_torch.features import chunked
 from salsa_tpu_torch.dsp.stft import stft_planes
@@ -187,6 +206,7 @@ from salsa_tpu_torch.train.trainer import SeldPredictor, SeldTrainer
 from salsa_tpu_torch.train.tta import tta_fold
 from salsa_tpu_torch.utils.audio_io import read_wav, wav_info, write_wav
 from salsa_tpu_torch.utils.config import apply_overrides, load_config, save_config
+from salsa_tpu_torch.utils.experiments import configure_logging
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "golden", "reference_features.npz")
@@ -3000,6 +3020,399 @@ def phase14(dev, seconds: float = 60.0, request_seconds=(60.0, 60.0, 20.7), over
     return out
 
 
+# phase 15: the feature-store workflow of configs/seld.yml as written, its three
+# paths pointed at the temp tree and phase 9's step cut: cli.extract writes the
+# store of phase 9's seeded clips (configs/tnsse2021_salsa.yml), cli.train trains
+# from it with the host transforms, then the resident, precompute and remat
+# variants, and cli.predict, cli.infer and cli.evaluate from it
+TNSSE_SALSA_YML = os.path.join(REPO, "configs", "tnsse2021_salsa.yml")
+STORE_OVERRIDES = ("training.max_epochs=2", "data.train_fraction=0.5")
+EXTRACT_BATCH = 4  # cli.extract --batch-size: the 6 clips go up in two batches, 4 and 2
+DROPOUT_ON = ("model.encoder.p_dropout=0.2", "model.decoder.head_dropout=0.2",
+              "model.decoder.rnn_dropout=0.2")
+
+
+def counted(fn):
+    """(fn(), {K1, K2 launches}) with both counts set to 0 just before fn()."""
+    salsa_spatial.launches = noise_floor_mask.launches = 0
+    out = fn()
+    return out, {"salsa_spatial": salsa_spatial.launches,
+                 "noise_floor": noise_floor_mask.launches}
+
+
+def store_extract(dev, exp: dict, root: str, tag: str = "15") -> dict:
+    """`cli.extract --feature-type salsa` of phase 9's six clips on `dev`, K1 and K2
+    counted (one launch each per equal-length batch); two stored clips against the
+    CPU's plain extraction at K1's bound; the scaler against StreamingScaler over
+    the stored clips, bit-equal; a `--keep-existing` rerun that extracts nothing."""
+    cuda = dev.type == "cuda"
+    data = load_config(TNSSE_SALSA_YML)
+    data.data_dir, data.feature_dir = os.path.dirname(exp["wav_dir"]), os.path.join(root,
+                                                                                   "features")
+    data_path = os.path.join(root, "tnsse2021_salsa.yml")
+    save_config(data, data_path)
+    wavs = sorted(os.listdir(exp["wav_dir"]))
+    audio_s = sum(wav_info(os.path.join(exp["wav_dir"], w))[1] for w in wavs) / FS
+    t0 = time.perf_counter()
+    store_dir, launches = counted(lambda: cli_extract.extract_features(
+        data_path, "salsa", batch_size=EXTRACT_BATCH, splits=["foa_dev"], device=dev))
+    if cuda:
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    n_batches = sum(
+        1 if len({wav_info(os.path.join(exp["wav_dir"], w))[1] for w in group}) == 1
+        else len(group) for group in (wavs[i:i + EXTRACT_BATCH]
+                                      for i in range(0, len(wavs), EXTRACT_BATCH)))
+    log(tag, f"cli.extract --feature-type salsa --batch-size {EXTRACT_BATCH}: {len(wavs)} clips, "
+             f"{audio_s:g} audio-s in {wall:.3f} s host clock, disk writes included "
+             f"({audio_s / wall:.1f}x realtime); launches {launches} [{CARD}]")
+    want = {"salsa_spatial": n_batches, "noise_floor": n_batches} if cuda else \
+        {"salsa_spatial": 0, "noise_floor": 0}
+    if launches != want:
+        raise AssertionError(f"cli.extract launched {launches}, expected {want} (one K1 and one "
+                             f"K2 launch per equal-length batch of {len(wavs)} clips)")
+    store = FeatureStore(store_dir, "foa")
+    if sorted(store.clip_names("dev")) != sorted(w[:-4] for w in wavs):
+        raise AssertionError(f"{store_dir}: clips {store.clip_names('dev')}, expected {wavs}")
+    ex = make_extractor("salsa", "foa", fs=FS, n_fft=N_FFT, hop_length=HOP, fmax_doa=9000.0)
+    errs = []
+    for w in (wavs[0], wavs[-1]):
+        stored = torch.from_numpy(store.read_clip("dev", w[:-4]))[None]
+        t0 = time.perf_counter()
+        want_x = ex(torch.from_numpy(read_wav(os.path.join(exp["wav_dir"], w))[0])[None])
+        cpu_s = time.perf_counter() - t0
+        np.testing.assert_allclose(stored[:, :4].numpy(), want_x[:, :4].numpy(), atol=5e-3,
+                                   rtol=5e-3, err_msg=f"{w}: stored spectrograms")
+        errs.append(compare_spatial(stored[:, 4:], want_x[:, 4:],
+                                    f"stored {w} {tuple(stored.shape)} vs the CPU's plain "
+                                    f"extraction ({cpu_s:.1f} s)", phase=tag))
+    scaler = StreamingScaler(ex.n_spec_channels)
+    for name in store.clip_names("dev"):
+        scaler.update(store.read_clip("dev", name))
+    for got, want_s in zip(store.read_scaler(), scaler.finalize()):
+        if not np.array_equal(got, want_s):
+            raise AssertionError("the store's scaler differs from StreamingScaler over its clips")
+    log(tag, f"{store.scaler_path}: bit-equal to StreamingScaler over the {len(wavs)} stored "
+             "clips on the host")
+    stamps = LogStamps()
+    cli_logger = configure_logging()  # as cli.extract's main() logs
+    cli_logger.addFilter(stamps)
+    try:
+        _, rerun = counted(lambda: cli_extract.extract_features(
+            data_path, "salsa", splits=["foa_dev"], keep_existing=True, device=dev))
+    finally:
+        cli_logger.removeFilter(stamps)
+    if rerun != {"salsa_spatial": 0, "noise_floor": 0} or not any(
+            "resume: 0 clips left to extract" in m for _, m in stamps.marks):
+        raise AssertionError(f"--keep-existing rerun: launches {rerun}, log {stamps.marks}")
+    log(tag, f"--keep-existing rerun: 0 clips left to extract, launches {rerun}")
+    return {"dir": store_dir, "launches": launches, "batches": n_batches, "wall_s": wall,
+            "audio_s": audio_s, "realtime": audio_s / wall, "max_abs_err": max(errs),
+            "data_config": data_path}
+
+
+def store_first_step(tr, dev, tag: str = "15", bound: float = 1e-4) -> float:
+    """The store-fed trainer's first step's loss with every dropout off: the card
+    against the CPU on the same batch, whose host transforms drew once (they must
+    change it). Returns the relative difference; raises beyond `bound`."""
+    for m in tr.model.modules():
+        if isinstance(m, Dropout):
+            m.p, m.generator = 0.0, None
+    model_cpu = copy.deepcopy(tr.model).cpu()
+    ids = tr._epoch_order(0)[:tr.batch_size]
+    raw = np.stack([tr.train_dataset.fetch_raw(int(i))[0] for i in ids])
+    x, sed, doa = tr.batch(ids)
+    changed = float((x.cpu().numpy() != raw).mean())
+    if changed == 0:
+        raise AssertionError("the host transforms left the first batch unchanged")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        loss_cpu = float(tr.loss(model_cpu.train()(x.cpu()), sed.cpu(), doa.cpu())[0])
+        cpu_s = time.perf_counter() - t0
+        loss_dev = float(tr.loss(tr.model.train()(x), sed, doa)[0])
+    rel = abs(loss_dev - loss_cpu) / abs(loss_cpu)
+    log(tag, f"first step's loss (batch {tr.batch_size} from the store, host transforms "
+             f"changed {changed:.1%} of the cells, dropout off): {dev.type} {loss_dev:.7f}, "
+             f"CPU {loss_cpu:.7f} ({cpu_s:.1f} s), relative difference {rel:.2e} (bound "
+             f"{bound:g})")
+    if not rel < bound:
+        raise AssertionError(f"first step's loss: {loss_dev} on {dev} vs {loss_cpu} on the CPU")
+    return rel
+
+
+def timed_store_steps(tr, dev, n_steps: int) -> dict:
+    """n_steps host-fed steps as the epoch loop runs them, a prefetch thread building
+    the next batch meanwhile, each split into the host's wait on the prefetch
+    queue (host clock), the copy to the card, forward and backward, and the
+    optimizer (CUDA events; host clock on the CPU); `step` is the host clock from
+    the wait to the optimizer's end. Medians of steps 3 on."""
+    def batches():
+        epoch = tr.max_epochs
+        while True:
+            yield from tr.host_batches(epoch)
+            epoch += 1
+
+    parts = {"wait": [], "copy": [], "fwd_bwd": [], "optimizer": [], "step": []}
+    it = prefetch(batches())
+    try:
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            b = next(it)
+            wait = (time.perf_counter() - t0) * 1e3
+            tr.seed_step()
+            if dev.type == "cuda":
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                ev[0].record()
+                batch = tr.to_device(b)
+                ev[1].record()
+                tr.forward_backward(*tr.augment_batch(*batch))
+                ev[2].record()
+                tr.optimizer.step()
+                ev[3].record()
+                ev[3].synchronize()
+                t = [ev[k].elapsed_time(ev[k + 1]) for k in range(3)]
+            else:
+                marks = [time.perf_counter()]
+                batch = tr.to_device(b)
+                marks.append(time.perf_counter())
+                tr.forward_backward(*tr.augment_batch(*batch))
+                marks.append(time.perf_counter())
+                tr.optimizer.step()
+                marks.append(time.perf_counter())
+                t = [(marks[k + 1] - marks[k]) * 1e3 for k in range(3)]
+            for key, v in zip(parts, (wait, *t, (time.perf_counter() - t0) * 1e3)):
+                parts[key].append(v)
+    finally:
+        it.close()
+    return {k: statistics.median(v[2:]) for k, v in parts.items()}
+
+
+def store_variants(dev, config: str, group: str, timed: int, tag: str = "15") -> dict:
+    """training.device_data (its first batch against the host path's, transforms
+    off; timed steps, resident bytes, peak memory; bfloat16 storage's one step),
+    from_wav_mode: precompute (launches at setup and in the steps; timed steps) and
+    training.remat (a step against the plain step on one batch, dropout on, with
+    both peaks)."""
+    cuda = dev.type == "cuda"
+    out = {}
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else float("nan")
+
+    def reset():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    host = cli_train.build_trainer(config, group, "_host", device=dev)
+    host.train_dataset.joint_transform = host.train_dataset.transform = None
+    reset()
+    dd = cli_train.build_trainer(config, group, "_dd", device=dev,
+                                 overrides=["training.device_data=true"])
+    ids = dd._epoch_order(0)[:dd.batch_size]
+    same = all(torch.equal(a, b) for a, b in zip(host.batch(ids), dd.batch(ids)))
+    if not same:
+        raise AssertionError("device_data's first batch differs from the host path's")
+    del host
+    out["dd_step"] = timed_steps(dd, dev, timed)
+    out["dd_resident_gb"] = dd.resident_bytes / 1e9
+    out["dd_peak_gib"] = peak_gib()
+    log(tag, f"device_data: first batch {tuple(dd.batch(ids)[0].shape)} bit-equal to the host "
+             f"path's for the same chunks (transforms off); {dd.resident_bytes / 1e9:.3f} GB "
+             f"resident; step, median of steps 3-{timed}: {out['dd_step']['step']:.2f} ms = "
+             f"gather {out['dd_step']['extract']:.2f} + forward and backward "
+             f"{out['dd_step']['fwd_bwd']:.2f} + optimizer {out['dd_step']['optimizer']:.2f} "
+             f"ms; peak memory {out['dd_peak_gib']:.2f} GiB [{CARD}]")
+    del dd
+    reset()
+    half = cli_train.build_trainer(config, group, "_dd16", device=dev, overrides=[
+        "training.device_data=true", "training.device_data_dtype=bfloat16"])
+    loss16 = float(half.train_step(half._epoch_order(0)[:half.batch_size])["loss"])
+    if not np.isfinite(loss16):
+        raise AssertionError(f"device_data_dtype bfloat16: loss {loss16}")
+    log(tag, f"device_data_dtype bfloat16: {half.resident_bytes / 1e9:.3f} GB resident, one "
+             f"step's loss {loss16:.5f}")
+    del half
+    reset()
+
+    pre, launches = counted(lambda: cli_train.build_trainer(
+        config, group, "_pre", device=dev,
+        overrides=["training.from_wav=true", "training.from_wav_mode=precompute"]))
+    tr_lens = [wav_info(os.path.join(pre.cfg.gt_meta_root_dir, "foa_dev", f"{n}.wav"))[1]
+               for n in pre.train_data.unique_clip_names]
+    va_lens = [wav_info(os.path.join(pre.cfg.gt_meta_root_dir, "foa_dev", f"{n}.wav"))[1]
+               for n in VAL_CLIPS]
+    n_setup = 2 * extraction_batches(tr_lens) + extraction_batches(va_lens)
+    want = {"salsa_spatial": n_setup, "noise_floor": n_setup} if cuda else {
+        "salsa_spatial": 0, "noise_floor": 0}
+    if not (pre.device_data and launches == want):
+        raise AssertionError(f"precompute: device_data {pre.device_data}, setup launches "
+                             f"{launches}, expected {want} (the scaler fit, the train split "
+                             "and the val split)")
+    out["pre_step"], step_launches = counted(lambda: timed_steps(pre, dev, timed))
+    if step_launches != {"salsa_spatial": 0, "noise_floor": 0}:
+        raise AssertionError(f"precompute's steps launched {step_launches}")
+    out["pre_launches"] = launches
+    log(tag, f"from_wav_mode precompute: setup launches {launches} (the scaler fit, the train "
+             f"split and the val split, {n_setup} batches), {timed} steps launched "
+             f"{step_launches}; setup {', '.join(f'{k} {v:.3f} s' for k, v in pre.setup_seconds.items())}; "
+             f"step {out['pre_step']['step']:.2f} ms = gather {out['pre_step']['extract']:.2f} + "
+             f"forward and backward {out['pre_step']['fwd_bwd']:.2f} + optimizer "
+             f"{out['pre_step']['optimizer']:.2f} ms [{CARD}]")
+    del pre
+    reset()
+
+    runs = {}
+    for remat in (False, True):
+        tr = cli_train.build_trainer(config, group, f"_remat{int(remat)}", device=dev,
+                                     overrides=[*DROPOUT_ON, f"training.remat={str(remat).lower()}"])
+        batch = tr.batch(tr._epoch_order(0)[:tr.batch_size]) if not runs else runs[False][2]
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev) / 2**30
+        loss = float(tr.step_on(*batch)["loss"])
+        peak = peak_gib() - base if cuda else float("nan")
+        weights = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+        runs[remat] = (loss, peak, batch, weights, tr.remat_blocks)
+        del tr
+        reset()
+    (l0, p0, _, w0, _), (l1, p1, _, w1, n_blocks) = runs[False], runs[True]
+    rel = abs(l1 - l0) / abs(l0)
+    w_err = max(float((w1[k].float() - w0[k].float()).abs().max()) for k in w0
+                if not k.endswith("num_batches_tracked"))
+    # the weights are read, not held: Adam's first step moves each by about lr times
+    # the sign of its gradient, and cuDNN's weight gradients sum in no fixed order
+    log(tag, f"remat ({n_blocks} encoder blocks recomputed), one step with dropout on, on the "
+             f"plain step's batch: loss {l1:.7f} vs {l0:.7f} (relative {rel:.2e}, bound 1e-4), "
+             f"weights after it within {w_err:.2e}; the step's peak above its start "
+             f"{p1:.2f} GiB vs {p0:.2f} GiB plain [{CARD}]")
+    if not rel < 1e-4:
+        raise AssertionError(f"remat step's loss {l1} vs the plain step's {l0}")
+    out.update(remat_rel=rel, remat_peak_gib=p1, plain_peak_gib=p0)
+    return out
+
+
+def phase15(dev, seconds: float = 60.0, overrides=(), timed: int = TIMED_STEPS) -> dict:
+    """The feature-store workflow on `dev`: `cli.extract` (store_extract),
+    `cli.train` of configs/seld.yml from the store with the host transforms (K1 =
+    K2 = 0; the first step against the CPU's; the step split; a profiled step with
+    its idle share; peak memory; checkpoints), the resident, precompute and remat
+    variants (store_variants), then `cli.predict` of the trained best with the
+    store's scaler (serve_from_disk: CSVs byte-identical to the in-memory
+    pipeline's), `cli.infer --splits val` from the store (K1 = K2 = 0; scores
+    against the same call on the CPU) and `cli.evaluate`."""
+    cuda = dev.type == "cuda"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = write_train_experiment(tmp, seconds, overrides=overrides)
+        out["extract"] = store_extract(dev, exp, tmp)
+        cfg = load_config(SELD_YML)
+        apply_overrides(cfg, [f"feature_root_dir={out['extract']['dir']}",
+                              f"gt_meta_root_dir={exp['cfg'].gt_meta_root_dir}",
+                              f"split_meta_dir={exp['cfg'].split_meta_dir}", *STORE_OVERRIDES,
+                              *overrides])
+        os.makedirs(os.path.join(tmp, "store"))
+        config = os.path.join(tmp, "store", os.path.basename(SELD_YML))
+        save_config(cfg, config)
+        group = os.path.join(tmp, "store_outputs")
+        exp_dir = os.path.join(group, cfg.mode, cfg.data.audio_format, cfg.feature_type,
+                               os.path.splitext(os.path.basename(config))[0])
+
+        tr = cli_train.build_trainer(config, group, "_check", device=dev)
+        out["first_step_rel"] = store_first_step(tr, dev)
+        del tr
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        tr, train_launches = counted(lambda: cli_train.train(config, group, device=dev))
+        if cuda:
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else float("nan")
+        n_steps = tr.steps_per_epoch * tr.max_epochs
+        log("15", f"cli.train from the store: {len(tr.train_data)} chunks of {tr.chunk_len} "
+                  f"frames, {tr.max_epochs} epochs of {tr.steps_per_epoch} steps at batch "
+                  f"{tr.batch_size}, host transforms {type(tr.train_dataset.joint_transform).__name__}"
+                  f" + {type(tr.train_dataset.transform).__name__}: {wall:.2f} s host clock; "
+                  f"launches {train_launches}; read {tr.setup_seconds['read']:.3f} s; peak "
+                  f"memory {peak:.2f} GiB [{CARD}]")
+        if train_launches != {"salsa_spatial": 0, "noise_floor": 0}:
+            raise AssertionError(f"cli.train from the store launched {train_launches}")
+        ckpts = sorted(os.listdir(os.path.join(exp_dir, "models", "checkpoint")))
+        want = [f"epoch{e:03d}.{x}" for e in range(tr.max_epochs) for x in ("json", "msgpack")]
+        if ckpts != want or not os.path.isfile(os.path.join(exp_dir, "models", "best",
+                                                            "best.msgpack")):
+            raise AssertionError(f"{exp_dir}/models/checkpoint: {ckpts}, expected {want}")
+        out["step"] = timed_store_steps(tr, dev, timed)
+        st = out["step"]
+        chunk_s = tr.chunk_len * cfg.data.hop_len / cfg.data.fs
+        log("15", f"store-fed step, median of steps 3-{timed}: {st['step']:.2f} ms host clock = "
+                  f"wait on the prefetch queue {st['wait']:.2f} + copy {st['copy']:.2f} + "
+                  f"forward and backward {st['fwd_bwd']:.2f} + optimizer {st['optimizer']:.2f} "
+                  f"ms; {1e3 / st['step']:.2f} steps/s, {tr.batch_size * chunk_s * 1e3 / st['step']:.1f}x "
+                  f"realtime [{CARD}]")
+        out.update(train_launches=train_launches, peak_gib=peak, n_steps=n_steps,
+                   train_s=wall)
+        if cuda:
+            b = next(iter(tr.host_batches(tr.max_epochs + 5)))
+            nbytes = sum(t.numel() * t.element_size() for t in b)
+            out["profile"] = profile_table(lambda: tr.step_on(*tr.to_device(b)), "15",
+                                           "one store-fed step (copy included)", top=12,
+                                           upload_bytes=nbytes)
+        del tr
+        if cuda:
+            torch.cuda.empty_cache()
+        out.update(store_variants(dev, config, group, timed))
+
+        # serve the trained best with the store's scaler, byte-identical to the
+        # in-memory pipeline (before infer, whose log records would read as restores)
+        best = os.path.join(exp_dir, "models", "best", "best.msgpack")
+        params, stats, _ = ckpt_restore_variables(best)
+        served = {"config": config, "group": group, "wav_dir": exp["val_wav_dir"],
+                  "gt_root": exp["cfg"].gt_meta_root_dir, "cfg": cfg,
+                  "log": os.path.join(exp_dir, "logs", "log.txt"),
+                  "scaler": FeatureStore(out["extract"]["dir"], "foa").scaler_path,
+                  "served": best, "weights": {"params": params, "batch_stats": stats},
+                  "scenes": tuple((n, seconds, FS) for n in VAL_CLIPS)}
+        out["serve"] = serve_from_disk(dev, served, os.path.join(tmp, "serve"), tag="15")
+
+        store_exp = {"group": group, "exp_dir": exp_dir}
+        res, launches, rec = counted_infer(dev, store_exp, config, "", os.path.join(tmp, "inf"))
+        if launches != {"salsa_spatial": 0, "noise_floor": 0}:
+            raise AssertionError(f"cli.infer from the store launched {launches}")
+        t0 = time.perf_counter()
+        res_cpu = cli_infer.inference(config, group, splits=["val"], device="cpu")
+        cpu_s = time.perf_counter() - t0
+        got = load_dumps(os.path.join(tmp, "inf", "pred"))
+        want_d = load_dumps(os.path.join(exp_dir, "outputs", "predictions", "val"))
+        errs = [np.abs(got[n][k] - want_d[n][k]) for n in got
+                for k in ("event_frame_pred", "doa_frame_pred")]
+        share = min(float(np.mean(e <= 2e-3)) for e in errs)
+        worst = max(float(e.max()) for e in errs)
+        diffs = {k: abs(res["val"][k] - res_cpu["val"][k]) for k in res["val"]}
+        log("15", f"cli.infer --splits val from the store: launches {launches}, "
+                  f"{rec['wall_s']:.3f} s host clock (predict {rec['predict_s']:.3f} s), peak "
+                  f"{rec['peak_gib']:.2f} GiB [{CARD}]; the same call on the CPU {cpu_s:.1f} s: "
+                  f"dumps within 2e-3 on {share:.4%} of cells, max {worst:.2e}; scores "
+                  + ", ".join(f"{k} {res['val'][k]:.4f}/{res_cpu['val'][k]:.4f}"
+                              for k in res["val"]))
+        if share < 0.999 or worst > 2e-2 or max(v for k, v in diffs.items()
+                                                 if k != "LE") > 0.02 or diffs["LE"] > 1.0:
+            raise AssertionError(f"cli.infer on {dev} vs the CPU: {share}, {worst}, {diffs}")
+        scores = cli_evaluate.main(["--output-dir", os.path.join(tmp, "inf", "csv"),
+                                    "--gt-meta-root-dir", exp["cfg"].gt_meta_root_dir,
+                                    "--n-classes", str(cfg.data.n_classes)])
+        if any(abs(scores[k] - res["val"][k]) > 1e-12 for k in scores):
+            raise AssertionError(f"cli.evaluate {scores} vs cli.infer {res['val']}")
+        log("15", "cli.evaluate of the infer's CSVs prints its scores: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in scores.items()))
+        out.update(infer_launches=launches, scores=res["val"], scores_cpu=res_cpu["val"])
+    return out
+
+
+
 def main() -> None:
     card = phase0()
     dev = torch.device("cuda", 0)
@@ -3031,6 +3444,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     tpu = phase14(dev, fp32={"request_ms": times["request_ms"], "crnn_ms": times["crnn_ms"],
                              "step_ms": aug["step"]["step"], "peak_gib": aug["peak_gib"]})
+    torch.cuda.empty_cache()
+    store = phase15(dev)
     # library_ms: one PyTorch call computing the same function, where there is one
     # (cuDNN bf16 for K4, timed by the probe); none exists for K1-K3. `launches` is
     # phase 4's serving run; K1's and K2's train_* keys are phase 9's cli.train,
@@ -3041,7 +3456,9 @@ def main() -> None:
     # cli.train of configs/seld.yml, its resumed call, the augmented
     # configs/seld_salsa_lite.yml run (0), infer_* phase 13's cli.infer of the val
     # split, plain and --tta (reg_xyz), tpu_recipe_* phase 14's configs/seld_tpu.yml
-    # runs: its three requests and its cli.train
+    # runs: its three requests and its cli.train, extract_* phase 15's cli.extract of
+    # the store, precompute_* its from_wav_mode precompute setup (the steps launch
+    # none) and store_train_* its cli.train from the store (0)
     kernels = [
         {"name": "salsa_spatial", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/salsa_spatial.cu",
@@ -3064,7 +3481,11 @@ def main() -> None:
          "infer_launches": infer["reg_xyz"]["launches"]["salsa_spatial"],
          "infer_tta_launches": infer["reg_xyz"]["tta_launches"]["salsa_spatial"],
          "tpu_recipe_launches": tpu["requests"]["launches"]["salsa_spatial"],
-         "tpu_recipe_train_launches": tpu["train"]["launches"]["salsa_spatial"]},
+         "tpu_recipe_train_launches": tpu["train"]["launches"]["salsa_spatial"],
+         "extract_launches": store["extract"]["launches"]["salsa_spatial"],
+         "extract_max_abs_err": store["extract"]["max_abs_err"],
+         "precompute_launches": store["pre_launches"]["salsa_spatial"],
+         "store_train_launches": store["train_launches"]["salsa_spatial"]},
         {"name": "noise_floor", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/noise_floor.cu",
          "replaces": "salsa_tpu/features/salsa.py:82",
@@ -3088,7 +3509,10 @@ def main() -> None:
          "infer_launches": infer["reg_xyz"]["launches"]["noise_floor"],
          "infer_tta_launches": infer["reg_xyz"]["tta_launches"]["noise_floor"],
          "tpu_recipe_launches": tpu["requests"]["launches"]["noise_floor"],
-         "tpu_recipe_train_launches": tpu["train"]["launches"]["noise_floor"]},
+         "tpu_recipe_train_launches": tpu["train"]["launches"]["noise_floor"],
+         "extract_launches": store["extract"]["launches"]["noise_floor"],
+         "precompute_launches": store["pre_launches"]["noise_floor"],
+         "store_train_launches": store["train_launches"]["noise_floor"]},
         {"name": "salsa_spatial_probe", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/salsa_spatial_probe.cu",
          "replaces": "scripts/probe_salsa_kernel.py:67",

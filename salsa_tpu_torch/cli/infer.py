@@ -1,8 +1,10 @@
-"""Inference CLI (counterpart of `salsa_tpu.cli.infer` for `training.from_wav`
-experiments), on the first CUDA card: restores the best (or latest) checkpoint,
-extracts each split from its wavs on the card (for SALSA K2 and K1 on every
-extraction batch), predicts it, writes submission CSVs and prediction dumps, and
-scores them where ground truth exists.
+"""Inference CLI (counterpart of `salsa_tpu.cli.infer`), on the first CUDA card:
+restores the best (or latest) checkpoint, reads each split from the experiment's
+feature store (`feature_root_dir`, normalized with the store's scaler; nothing is
+extracted) or, for a `training.from_wav` experiment, extracts it from its wavs on
+the card (for SALSA K2 and K1 on every extraction batch, with the scaler training
+saved), predicts it, writes submission CSVs and prediction dumps, and scores them
+where ground truth exists.
 
     python -m salsa_tpu_torch.cli.infer --exp-config configs/seld.yml \
         --exp-group-dir ./outputs --exp-suffix _run1 --splits val test \
@@ -16,9 +18,9 @@ other splits at it; `--use-tuned-threshold` applies a persisted one. The dumps a
 `outputs/predictions/<split>/<clip>.npz` (`salsa_tpu` writes `.h5`; this host has
 no h5py), which `cli.ensemble` fuses.
 
-Experiments without `training.from_wav` are refused: their HDF5 feature store needs
-h5py. The extractor takes the keys the model was trained with, `eig_method`
-included (`cli.predict.feature_kwargs`), which `salsa_tpu`'s infer drops.
+For a from-wav experiment the extractor takes the keys the model was trained
+with, `eig_method` included (`cli.predict.feature_kwargs`), which `salsa_tpu`'s
+infer drops.
 """
 from __future__ import annotations
 
@@ -72,11 +74,7 @@ def inference(exp_config: str, exp_group_dir: str = "./outputs", exp_suffix: str
     `tune_threshold`."""
     device = resolve_device(device)
     cfg = manage_experiments(exp_config, exp_group_dir, exp_suffix, is_train=False)
-    if not cfg.get("training", {}).get("from_wav", False):
-        raise ValueError(
-            "the port infers from raw wavs only (training.from_wav: true): the HDF5 "
-            "feature store of other experiments needs h5py, which this package does "
-            "not use")
+    from_wav = cfg.get("training", {}).get("from_wav", False)
     tuned: float | None = None
     if tune_threshold:
         # calibrate on val first, then apply the tuned operating point to the
@@ -105,27 +103,37 @@ def inference(exp_config: str, exp_group_dir: str = "./outputs", exp_suffix: str
         path = ckpt.latest_checkpoint(cfg.dir.model.checkpoint)
     if path is None:
         raise FileNotFoundError("no checkpoint found; train first")
-    scaler_path = os.path.join(os.path.dirname(cfg.dir.model.best), "feature_scaler.npz")
-    if not os.path.isfile(scaler_path):
-        raise FileNotFoundError(f"{scaler_path} not found — was this experiment trained "
-                                "with training.from_wav?")
-    blob = np.load(scaler_path)
-    scaler = (blob["mean"], blob["std"])
+    if from_wav:
+        scaler_path = os.path.join(os.path.dirname(cfg.dir.model.best), "feature_scaler.npz")
+        if not os.path.isfile(scaler_path):
+            raise FileNotFoundError(f"{scaler_path} not found — was this experiment trained "
+                                    "with training.from_wav?")
+        blob = np.load(scaler_path)
+        scaler = (blob["mean"], blob["std"])
+        extractor = make_extractor(cfg.feature_type, d.audio_format, **feature_kwargs(cfg))
+    else:
+        db = build_database_from_cfg(cfg)  # the feature store and its scaler
+        if not db.store.has_scaler():
+            raise FileNotFoundError(f"{db.store.scaler_path} not found: run cli.extract for "
+                                    "the experiment's feature store (feature_root_dir)")
     params, batch_stats, _step = ckpt.restore_variables(path)
     predictor = SeldPredictor(load_flax_variables(model, params, batch_stats), cfg, device)
-    extractor = make_extractor(cfg.feature_type, d.audio_format, **feature_kwargs(cfg))
 
     version = str(cfg.get("eval_version", "2021"))
     split_meta_dir = cfg.get("split_meta_dir")
     results: dict = {}
     for split in splits:
-        # a from-wav experiment carries no feature store: extract the split on the
-        # device with the scaler training persisted
         t0 = time.perf_counter()
-        store = extract_split_to_store(extractor, split_filenames(split, split_meta_dir),
-                                       _audio_dir(cfg, split), d.fs, scaler, device=device)
-        data = build_database_from_cfg(cfg, store).load_split(
-            split, split_meta_dir=split_meta_dir, stage="inference")
+        if from_wav:
+            # a from-wav experiment carries no feature store: extract the split on
+            # the device with the scaler training persisted
+            store = extract_split_to_store(extractor, split_filenames(split, split_meta_dir),
+                                           _audio_dir(cfg, split), d.fs, scaler, device=device)
+            data = build_database_from_cfg(cfg, store).load_split(
+                split, split_meta_dir=split_meta_dir, stage="inference")
+        else:
+            data = db.load_split(split, split_meta_dir=split_meta_dir, stage="inference",
+                                 preload=d.get("preload", True))
         extract_s = time.perf_counter() - t0
         logger.info("[%s] restored %s (meta: %s)", split, path, ckpt.load_metadata(path))
         if tta is not None:
@@ -137,8 +145,9 @@ def inference(exp_config: str, exp_group_dir: str = "./outputs", exp_suffix: str
         t0 = time.perf_counter()
         written = predictor.predict_split(data, sub_dir, tta=tta, output_pred_dir=pred_dir)
         logger.info("[%s] wrote %d submissions to %s", split, len(written), sub_dir)
-        logger.info("[%s] extracted in %.2f s, predicted in %.2f s (host clock)", split,
-                    extract_s, time.perf_counter() - t0)
+        logger.info("[%s] %s in %.2f s, predicted in %.2f s (host clock)", split,
+                    "extracted" if from_wav else "read from the store", extract_s,
+                    time.perf_counter() - t0)
 
         gt_dir = os.path.join(cfg.gt_meta_root_dir,
                               "metadata_eval" if split == "eval" else "metadata_dev")

@@ -1,6 +1,7 @@
 """Direct wav -> submission CSV serving CLI (counterpart of the batch path of
 `salsa_tpu.cli.predict`): serves a trained `salsa_tpu` experiment (YAML config,
-flax msgpack checkpoint with its JSON sidecar, `feature_scaler.npz`) over a
+flax msgpack checkpoint with its JSON sidecar, the feature store's scaler or
+`feature_scaler.npz`) over a
 directory of multichannel wavs through `SeldInferencePipeline`, on the first CUDA
 card:
 
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from salsa_tpu_torch.cli._errors import cli_entry
+from salsa_tpu_torch.data.feature_store import FeatureStore
 from salsa_tpu_torch.features.registry import make_extractor
 from salsa_tpu_torch.models.seld import build_model
 from salsa_tpu_torch.pipeline import SeldInferencePipeline
@@ -40,19 +42,16 @@ from salsa_tpu_torch.utils.experiments import logger, manage_experiments
 
 
 def _load_scaler(cfg, audio_format: str):
-    """Train-split scaler for serving: `feature_scaler.npz` beside the checkpoints.
-    `salsa_tpu` reads the feature store's h5 scaler first where the experiment has
-    one; this package cannot read HDF5, and serving the npz instead could serve
-    another scaler, so an h5 scaler is refused."""
+    """Train-split scaler for serving, as `salsa_tpu` reads it: the feature store's
+    (`<feature_root_dir>/<fmt>_feature_scaler`, `.npz` or, through h5py, `.h5`)
+    where the experiment has one, else the `feature_scaler.npz` a from-wav run
+    saved beside the checkpoints."""
     root = cfg.get("feature_root_dir")
+    if root:
+        store = FeatureStore(root, audio_format)
+        if store.has_scaler():
+            return store.read_scaler()
     npz = os.path.join(os.path.dirname(cfg.dir.model.best), "feature_scaler.npz")
-    h5 = os.path.join(root, f"{audio_format}_feature_scaler.h5") if root else None
-    if h5 and os.path.isfile(h5):
-        raise ValueError(
-            f"the experiment's scaler is the feature store's {h5}, which this package "
-            f"cannot read (no h5py); salsa_tpu serves with it ahead of {npz}, so that "
-            f"file is not taken in its place. Write the h5's mean and std to {npz} and "
-            "set feature_root_dir: null, or serve with salsa_tpu")
     if os.path.isfile(npz):
         blob = np.load(npz)
         return blob["mean"], blob["std"]

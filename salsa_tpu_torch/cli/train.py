@@ -1,24 +1,35 @@
-"""Training CLI, raw-wav fused mode (counterpart of the `training.from_wav` branch of
-`salsa_tpu.cli.train`), on the first CUDA card:
+"""Training CLI (counterpart of `salsa_tpu.cli.train`), on the first CUDA card:
 
     python -m salsa_tpu_torch.cli.train --exp-config configs/seld.yml \
-        --exp-group-dir ./outputs [--exp-suffix _run1] \
-        --set training.from_wav=true --set feature_root_dir=null
+        --exp-group-dir ./outputs [--exp-suffix _run1] [--resume] [--seed N] \
+        [--set KEY=VALUE ...]
 
-It reads the train split's wavs, fits the feature scaler on the card (for SALSA
-with K1 and K2; every feature type of `salsa_tpu` is taken), saves it as
-`models/feature_scaler.npz`, extracts the val split, and trains with the chunks
-extracted inside every step (`train.trainer.SeldTrainer`), writing
-`epochNNN` and `best` checkpoints in flax's msgpack format. The experiment it
-leaves is served by `salsa_tpu_torch.cli.predict` and by `salsa_tpu.cli.predict`.
+A config with `feature_root_dir` and no `training.from_wav` (configs/seld.yml as
+written) trains from the feature store `cli.extract` wrote: the train and val
+splits are read from it (`data.preload`, default true; false reads each chunk
+window from disk), normalized with the store's scaler, and the host transforms of
+`data.transforms` augment each train chunk on the host (`training.data_workers`
+threads read the windows), each batch copied to the card while the next is built.
+`training.device_data: true` keeps the train split on the card instead (float32,
+or bfloat16 with `training.device_data_dtype`), and each step gathers its windows
+there; the host transforms are then bypassed.
+
+`training.from_wav: true` trains from raw wavs: it reads the train split's wavs,
+fits the feature scaler on the card (for SALSA with K1 and K2; every feature type
+of `salsa_tpu` is taken), saves it as `models/feature_scaler.npz`, extracts the
+val split, and extracts the chunks inside every step. With `training.from_wav_mode:
+precompute` the train split is extracted once on the card at startup into memory
+and trained on the `device_data` path (K1 and K2 launch at startup only).
 
 `training.device_augment: true | "feature"` augments every step's batch on the
-device. `--resume` continues from the latest checkpoint of the experiment's
-`models/checkpoint` (weights, BatchNorm statistics and Adam's state) at the
-epoch after the one it recorded; each step's dropout and augmentation draws are
-a function of (seed, step), so the resumed epochs are the uninterrupted run's.
-A config without `training.from_wav: true` is refused (the HDF5 feature store
-needs h5py).
+device, in place of the host transforms. `training.remat: true` recomputes the
+encoder's activations in the backward pass. `--resume` continues from the latest
+checkpoint of the experiment's `models/checkpoint` (weights, BatchNorm statistics
+and Adam's state) at the epoch after the one it recorded; each step's dropout and
+augmentation draws are a function of (seed, step), so the resumed epochs are the
+uninterrupted run's. Checkpoints are written as `epochNNN` and `best` in flax's
+msgpack format; the experiment is served by `salsa_tpu_torch.cli.predict` and by
+`salsa_tpu.cli.predict`.
 """
 from __future__ import annotations
 
@@ -32,6 +43,7 @@ import torch
 from salsa_tpu_torch.cli._errors import cli_entry
 from salsa_tpu_torch.data.database import SeldDatabase
 from salsa_tpu_torch.data.meta import split_filenames
+from salsa_tpu_torch.data.transforms import build_train_transforms
 from salsa_tpu_torch.data.wav_database import (
     MemoryFeatureStore,
     extract_split_to_store,
@@ -47,7 +59,9 @@ from salsa_tpu_torch.utils.config import apply_overrides
 from salsa_tpu_torch.utils.experiments import logger, manage_experiments
 
 
-def build_database_from_cfg(cfg, store) -> SeldDatabase:
+def build_database_from_cfg(cfg, store=None) -> SeldDatabase:
+    """The config's database: over `store`, else the FeatureStore at
+    `feature_root_dir`."""
     return SeldDatabase(
         feature_root_dir=cfg.get("feature_root_dir"),
         store=store,
@@ -71,17 +85,13 @@ def build_trainer(exp_config: str, exp_group_dir: str = "./outputs", exp_suffix:
                   device: torch.device | str = "cuda") -> SeldTrainer:
     """Everything `train` does before the first step, on `device` (the first CUDA
     card unless the caller asks for the CPU): returns the trainer, whose
-    `setup_seconds` holds the host-clock seconds of reading the wavs, the scaler
-    fit, the tracker checkpoints and the val extraction."""
+    `setup_seconds` holds the host-clock seconds of reading the splits (from the
+    store, or the wavs, the scaler fit, the train split's precompute, the tracker
+    checkpoints and the val extraction)."""
     device = resolve_device(device)
     cfg = manage_experiments(exp_config, exp_group_dir, exp_suffix, is_train=True)
     if overrides:
         apply_overrides(cfg, overrides)
-    if not cfg.get("training", {}).get("from_wav", False):
-        raise ValueError(
-            "the port trains from raw wavs only: set training.from_wav: true (the "
-            "HDF5 feature store of salsa_tpu's other training modes needs h5py, "
-            "which this package does not use)")
     refuse_unported(cfg)
     seed = seed if seed is not None else cfg.get("seed", 2021)
 
@@ -92,6 +102,53 @@ def build_trainer(exp_config: str, exp_group_dir: str = "./outputs", exp_suffix:
         cfg.training.max_epochs = cfg.training.best_epoch
     split_meta_dir = cfg.get("split_meta_dir")
     d = cfg.data
+    # built before any data is read: an unported model config refuses at once
+    model = build_model(encoder=cfg.model.encoder.to_dict(), decoder=cfg.model.decoder.to_dict(),
+                        n_classes=d.n_classes, output_format=d.get("output_format", "reg_xyz"))
+    seconds = {}
+    scaler = None
+    if cfg.training.get("from_wav", False):
+        train_data, val_data, scaler = _wav_splits(cfg, train_split, val_split, split_meta_dir,
+                                                   device, seconds)
+    else:
+        if not cfg.get("feature_root_dir"):
+            raise ValueError("the config names no feature store (feature_root_dir) and does "
+                             "not train from wavs (training.from_wav): run cli.extract and "
+                             "set feature_root_dir, or set training.from_wav: true")
+        preload = cfg.data.get("preload", True)
+        db = build_database_from_cfg(cfg)
+        if not db.store.has_scaler():
+            raise FileNotFoundError(f"{db.store.scaler_path} not found: run cli.extract for "
+                                    "the config's feature store (feature_root_dir)")
+        t0 = time.perf_counter()
+        train_data = db.load_split(train_split, split_meta_dir=split_meta_dir, stage="fit",
+                                   preload=preload)
+        val_data = (db.load_split(val_split, split_meta_dir=split_meta_dir, stage="inference",
+                                  preload=preload) if val_split else None)
+        seconds["read"] = time.perf_counter() - t0
+    logger.info("train chunks: %d, val chunks: %s", len(train_data),
+                len(val_data) if val_data is not None else "-")
+    joint_t, feat_t = build_train_transforms(
+        cfg.feature_type, d.audio_format, d.n_classes, train_data.feature_chunk_len,
+        train_data.features.shape[2], rng=np.random.default_rng(seed))
+
+    trainer = SeldTrainer(
+        model=model, cfg=cfg, train_data=train_data, val_data=val_data,
+        gt_meta_dir=os.path.join(cfg.gt_meta_root_dir, "metadata_dev"),
+        submission_dir=cfg.dir.output_dir.submission, seed=seed, scaler=scaler,
+        device=device, joint_transform=joint_t, feature_transform=feat_t)
+    trainer.setup_seconds.update(seconds)
+    return trainer
+
+
+def _wav_splits(cfg, train_split: str, val_split: str | None, split_meta_dir, device,
+                seconds: dict):
+    """training.from_wav: (train split, val split, scaler). The train split's wavs
+    are read and the scaler fit on `device` and saved beside the checkpoints; the
+    val split is extracted on `device`. With from_wav_mode 'precompute' the train
+    split is extracted on `device` too, into memory, and the config switched to
+    the device_data path."""
+    d = cfg.data
     audio_dir = cfg.get("audio_root_dir") or os.path.join(
         cfg.gt_meta_root_dir, f"{d.audio_format}_dev")
     extractor = make_extractor(
@@ -99,14 +156,9 @@ def build_trainer(exp_config: str, exp_group_dir: str = "./outputs", exp_suffix:
         win_length=d.get("win_len", d.n_fft), n_mels=d.get("n_mels", 128),
         fmin=d.get("fmin", 50), fmax=d.get("fmax", None), fmin_doa=d.get("fmin_doa", 50),
         fmax_doa=d.get("fmax_doa", None), eig_method=cfg.training.get("eig_method", "auto"))
-    # built before any data is read: an unported model config refuses at once
-    model = build_model(encoder=cfg.model.encoder.to_dict(), decoder=cfg.model.decoder.to_dict(),
-                        n_classes=d.n_classes, output_format=d.get("output_format", "reg_xyz"))
-
     # the chunking geometry: no features are read through this database
     db = build_database_from_cfg(cfg, MemoryFeatureStore({}, None))
     db.n_fft = d.n_fft
-    seconds = {}
     t0 = time.perf_counter()
     train_data = load_wav_split(
         db, train_split, audio_dir, split_meta_dir=split_meta_dir,
@@ -121,9 +173,24 @@ def build_trainer(exp_config: str, exp_group_dir: str = "./outputs", exp_suffix:
     scaler_path = os.path.join(os.path.dirname(cfg.dir.model.best), "feature_scaler.npz")
     os.makedirs(os.path.dirname(scaler_path), exist_ok=True)
     np.savez(scaler_path, mean=scaler[0], std=scaler[1])
-    logger.info("from_wav: %d train clips resident (%s, %.2f GB), scaler fit on %s -> %s",
-                len(train_data.clip_wavs), train_data.waves.dtype,
-                train_data.waves.nbytes / 1e9, device, scaler_path)
+    if cfg.training.get("from_wav_mode", "fused") == "precompute":
+        # the train split extracted once at startup into memory, then the
+        # resident path: no extraction in the steps, no disk
+        t0 = time.perf_counter()
+        store = extract_split_to_store(extractor, split_filenames(train_split, split_meta_dir),
+                                       audio_dir, d.fs, scaler, device=device)
+        train_data = build_database_from_cfg(cfg, store).load_split(
+            train_split, split_meta_dir=split_meta_dir, stage="fit")
+        seconds["precompute"] = time.perf_counter() - t0
+        cfg.training.from_wav = False
+        cfg.training.device_data = True
+        logger.info("from_wav precompute: %d train clips extracted on %s (%.2f GB features) "
+                    "-> resident path", len(train_data.unique_clip_names), device,
+                    train_data.features.nbytes / 1e9)
+    else:
+        logger.info("from_wav: %d train clips resident (%s, %.2f GB), scaler fit on %s -> %s",
+                    len(train_data.clip_wavs), train_data.waves.dtype,
+                    train_data.waves.nbytes / 1e9, device, scaler_path)
     val_data = None
     if val_split:
         t0 = time.perf_counter()
@@ -132,24 +199,16 @@ def build_trainer(exp_config: str, exp_group_dir: str = "./outputs", exp_suffix:
         val_data = build_database_from_cfg(cfg, val_store).load_split(
             val_split, split_meta_dir=split_meta_dir, stage="inference")
         seconds["val_extract"] = time.perf_counter() - t0
-    logger.info("train chunks: %d, val chunks: %s", len(train_data),
-                len(val_data) if val_data is not None else "-")
-
-    trainer = SeldTrainer(
-        model=model, cfg=cfg, train_data=train_data, val_data=val_data,
-        gt_meta_dir=os.path.join(cfg.gt_meta_root_dir, "metadata_dev"),
-        submission_dir=cfg.dir.output_dir.submission, seed=seed, scaler=scaler,
-        device=device)
-    trainer.setup_seconds.update(seconds)
-    return trainer
+    return train_data, val_data, scaler
 
 
 def train(exp_config: str, exp_group_dir: str = "./outputs", exp_suffix: str = "",
           seed: int | None = None, overrides: list[str] | None = None,
           device: torch.device | str = "cuda", resume: bool = False) -> SeldTrainer:
-    """Train an experiment from raw wavs on `device` (the first CUDA card unless
-    the caller asks for the CPU); with `resume`, from the experiment's latest
-    checkpoint where it has one. Returns the trainer after `fit`."""
+    """Train an experiment (from its feature store, or from raw wavs) on `device`
+    (the first CUDA card unless the caller asks for the CPU); with `resume`, from
+    the experiment's latest checkpoint where it has one. Returns the trainer after
+    `fit`."""
     trainer = build_trainer(exp_config, exp_group_dir, exp_suffix, seed, overrides, device)
     resume_path = latest_checkpoint(trainer.cfg.dir.model.checkpoint) if resume else None
     trainer.fit(resume_from=resume_path)

@@ -1,9 +1,8 @@
-"""In-memory chunked SELD database (the store-agnostic part of
-`salsa_tpu.data.database`).
+"""Chunked SELD database (counterpart of `salsa_tpu.data.database`).
 
-Builds frame-wise SED/DOA targets from DCASE metadata CSVs and overlapping chunk
-indices at the two frame rates (feature rate, label rate), over features that a
-store hands over per clip and that the train-split scaler normalizes:
+Loads a split's per-clip features from a feature store, normalizes them with the
+train-split scaler, builds frame-wise SED/DOA targets from DCASE metadata CSVs and
+overlapping chunk indices at the two frame rates (feature rate, label rate):
   * two frame rates: feature fs/hop (80 fps) vs label 10 fps; upsample ratio 8;
   * clips trimmed to 60 s (4800 feature frames / 600 label frames);
   * train chunks 8 s with 0.5 s hop, test 60 s (single chunk per file);
@@ -13,18 +12,21 @@ store hands over per clip and that the train-split scaler normalizes:
     same-class events resolved by writing tracks in increasing-duration order so
     the longest track wins.
 
-The store is injected (`data.wav_database.MemoryFeatureStore`): the HDF5
-`FeatureStore` and the streaming `LazySplitData` need h5py, which the GPU host
-does not have, and are not ported (ROADMAP queue 1).
+The store is the on-disk `data.feature_store.FeatureStore` under
+`feature_root_dir`, or one injected (`data.wav_database.MemoryFeatureStore`, the
+features a from-wav run extracts at startup). `load_split(preload=False)` leaves
+the features on disk: its `LazySplitData` reads each chunk window on access.
 """
 from __future__ import annotations
 
 import copy
 import os
+import threading
 from dataclasses import dataclass, field
 
 import numpy as np
 
+from salsa_tpu_torch.data.feature_store import FeatureStore, open_clip
 from salsa_tpu_torch.data.meta import split_filenames
 
 
@@ -126,13 +128,63 @@ def truncate_clips(split: SplitData, n_clips: int) -> SplitData:
     out.unique_clip_names = split.unique_clip_names[:n_clips]
     out.clip_chunk_counts = split.clip_chunk_counts[:n_clips]
     out.clip_label_frames = split.clip_label_frames[:n_clips]
+    if isinstance(split, LazySplitData):
+        out.clip_of_chunk = split.clip_of_chunk[:n_chunks]
+        out.within_clip_start = split.within_clip_start[:n_chunks]
+        out.clip_feature_frames = split.clip_feature_frames[:n_clips]
     return out
+
+
+@dataclass
+class LazySplitData(SplitData):
+    """A split whose features stay on disk: each access reads the requested chunk
+    window (a memory-mapped `.npy` slice, or an `.h5` hyperslab) and normalizes it.
+    Targets and index tables are the preloaded SplitData's, and so is every window,
+    bit for bit; `features` is a placeholder of shape (C, 0, F).
+
+    For corpora whose features exceed host memory (the whole TNSSE2021 dev split
+    is ~16 GB of float32)."""
+
+    clip_paths: list[str] = field(default_factory=list)      # one per clip (ordered)
+    clip_of_chunk: np.ndarray | None = None                  # chunk -> clip index
+    within_clip_start: np.ndarray | None = None              # chunk -> frame offset
+    clip_feature_frames: np.ndarray | None = None            # clip -> trimmed length
+    normalize_fn: object = None                              # feature -> feature
+    _tls: object = field(default_factory=threading.local, repr=False)
+
+    def _open(self, path: str):
+        """The clip's array-like, one open handle per (thread, clip): h5py handles
+        are not thread-safe."""
+        handles = getattr(self._tls, "handles", None)
+        if handles is None:
+            handles = self._tls.handles = {}
+        if path not in handles:
+            if len(handles) >= 32:  # bound the open handles
+                for _arr, close in handles.values():
+                    close()
+                handles.clear()
+            handles[path] = open_clip(path)
+        return handles[path][0]
+
+    def get_feature_chunk(self, index: int) -> np.ndarray:
+        clip = int(self.clip_of_chunk[index])
+        f0 = int(self.within_clip_start[index])
+        # only up to the clip's trimmed length: frames past it are the pad region
+        n_read = min(self.feature_chunk_len, max(int(self.clip_feature_frames[clip]) - f0, 0))
+        window = self.normalize_fn(np.asarray(self._open(self.clip_paths[clip])[
+            :, f0:f0 + n_read, :]))
+        if window.shape[1] < self.feature_chunk_len:
+            # a clip shorter than the chunk: zero-padded after normalization, as the
+            # preloaded split pads the normalized clip
+            window = np.pad(window, ((0, 0), (0, self.feature_chunk_len - window.shape[1]),
+                                     (0, 0)))
+        return window
 
 
 class SeldDatabase:
     """Feature + ground-truth database for one (feature_type, audio_format) stream,
-    over an injected feature store (`read_clip(split_kind, name)`,
-    `read_scaler()`)."""
+    over the FeatureStore at `feature_root_dir` or an injected store
+    (`read_clip(split_kind, name)`, `read_scaler()`)."""
 
     def __init__(
         self,
@@ -152,10 +204,9 @@ class SeldDatabase:
         store=None,
     ):
         if store is None:
-            raise ValueError(
-                "SeldDatabase needs a feature store: the HDF5 feature store at "
-                f"feature_root_dir={feature_root_dir!r} needs h5py, which this package "
-                "does not use (train with training.from_wav: true)")
+            if not feature_root_dir:
+                raise ValueError("SeldDatabase needs a feature_root_dir or a store")
+            store = FeatureStore(feature_root_dir, audio_format)
         self.store = store
         self.gt_meta_root_dir = gt_meta_root_dir
         self.audio_format = audio_format
@@ -199,9 +250,11 @@ class SeldDatabase:
         return os.path.join(self.gt_meta_root_dir, sub, clip_name + ".csv")
 
     def load_split(self, split: str, split_meta_dir: str | None = None,
-                   stage: str = "fit") -> SplitData:
-        """stage 'fit' -> train chunking; 'inference' -> test chunking. Every
-        clip's features are read from the store and normalized into memory."""
+                   stage: str = "fit", preload: bool = True) -> SplitData:
+        """stage 'fit' -> train chunking; 'inference' -> test chunking. With
+        `preload` every clip's features are read from the store and normalized into
+        memory; without it (a FeatureStore on disk) they stay there and the
+        returned LazySplitData reads each chunk window on access."""
         names = split_filenames(split, split_meta_dir)
         split_kind = "eval" if split == "eval" else "dev"
         if stage == "fit":
@@ -214,15 +267,24 @@ class SeldDatabase:
 
         features, seds, doas, names_per_chunk = [], [], [], []
         f_starts, l_starts = [], []
+        clip_of_chunk, within_clip_start, clip_paths, lazy_clip_frames = [], [], [], []
         clip_chunk_counts, clip_label_frames = [], []
         f_ptr = l_ptr = 0
         chunks_per_clip = 0
-        for name in names:
-            feat = self.normalize(self.store.read_clip(split_kind, name))
-            n_frames = min(feat.shape[1], self.max_label_frames * self.label_upsample)
+        feat_shape = None
+        for clip_idx, name in enumerate(names):
+            if preload:
+                feat = self.normalize(self.store.read_clip(split_kind, name))
+                n_feat_frames = feat.shape[1]
+            else:
+                clip_paths.append(self.store.clip_path(split_kind, name))
+                feat_shape = self.store.clip_shape(split_kind, name)
+                n_feat_frames = feat_shape[1]
+            n_frames = min(n_feat_frames, self.max_label_frames * self.label_upsample)
             n_frames -= n_frames % self.label_upsample
             n_label_frames = n_frames // self.label_upsample
             true_label_frames = n_label_frames
+            trimmed_feat_frames = n_frames  # before any short-clip padding
 
             gt_path = self.gt_meta_path(split, name)
             if gt_path and os.path.isfile(gt_path):
@@ -235,8 +297,9 @@ class SeldDatabase:
             if n_frames < chunk_len:
                 # clip shorter than the chunk window: zero-pad to one full chunk
                 # (the true length is recorded so CSV output stops at real frames)
-                feat = np.pad(feat[:, :n_frames, :],
-                              ((0, 0), (0, chunk_len - n_frames), (0, 0)))
+                if preload:
+                    feat = np.pad(feat[:, :n_frames, :],
+                                  ((0, 0), (0, chunk_len - n_frames), (0, 0)))
                 sed = np.pad(sed, ((0, label_chunk_len - n_label_frames), (0, 0)))
                 doa = np.pad(doa, ((0, label_chunk_len - n_label_frames), (0, 0)))
                 n_frames, n_label_frames = chunk_len, label_chunk_len
@@ -247,20 +310,24 @@ class SeldDatabase:
             if len(starts_f) != len(starts_l):
                 raise ValueError(f"{name}: {len(starts_f)} feature chunks but "
                                  f"{len(starts_l)} label chunks")
+            if not preload:
+                clip_of_chunk.extend([clip_idx] * len(starts_f))
+                within_clip_start.extend(s - f_ptr for s in starts_f)
+                lazy_clip_frames.append(trimmed_feat_frames)
             f_ptr += n_frames
             l_ptr += n_label_frames
             chunks_per_clip = max(chunks_per_clip, len(starts_f))
             clip_chunk_counts.append(len(starts_f))
             clip_label_frames.append(true_label_frames)
-            features.append(feat[:, :n_frames, :])
+            if preload:
+                features.append(feat[:, :n_frames, :])
             seds.append(sed)
             doas.append(doa)
             f_starts.extend(starts_f)
             l_starts.extend(starts_l)
             names_per_chunk.extend([name] * len(starts_f))
 
-        return SplitData(
-            features=np.concatenate(features, axis=1),
+        common = dict(
             sed_targets=np.concatenate(seds, axis=0),
             doa_targets=np.concatenate(doas, axis=0),
             feature_chunk_starts=np.asarray(f_starts, dtype=np.int64),
@@ -274,4 +341,15 @@ class SeldDatabase:
             unique_clip_names=list(names),
             clip_chunk_counts=np.asarray(clip_chunk_counts, dtype=np.int64),
             clip_label_frames=np.asarray(clip_label_frames, dtype=np.int64),
+        )
+        if preload:
+            return SplitData(features=np.concatenate(features, axis=1), **common)
+        return LazySplitData(
+            features=np.zeros((feat_shape[0], 0, feat_shape[2]), dtype=np.float32),
+            clip_paths=clip_paths,
+            clip_of_chunk=np.asarray(clip_of_chunk, dtype=np.int64),
+            within_clip_start=np.asarray(within_clip_start, dtype=np.int64),
+            clip_feature_frames=np.asarray(lazy_clip_frames, dtype=np.int64),
+            normalize_fn=self.normalize,
+            **common,
         )

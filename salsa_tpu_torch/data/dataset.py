@@ -1,12 +1,16 @@
-"""Chunk dataset and host batching (counterpart of `salsa_tpu.data.dataset`, without
-its prefetch thread, worker pool and multi-host sharding).
+"""Chunk dataset, host batching and background prefetch (counterpart of
+`salsa_tpu.data.dataset`, without its multi-process sharding).
 
-`SeldChunkDataset` slices fixed-length windows out of the concatenated split
-arrays; `batch_iterator` yields them in order as fixed-size numpy batches for
-validation, where the overlapping chunks of a clip are recombined downstream.
+`SeldChunkDataset` slices fixed-length windows out of a split (preloaded or lazy)
+and applies the host transforms; `batch_iterator` yields shuffled fixed-size
+batches for training (the incomplete tail dropped only where asked) and in-order
+batches for validation, where the overlapping chunks of a clip are recombined
+downstream; `prefetch` builds batches on a background thread.
 """
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator
 
 import numpy as np
@@ -15,13 +19,17 @@ from salsa_tpu_torch.data.database import SplitData
 
 
 class SeldChunkDataset:
-    def __init__(self, data: SplitData):
+    def __init__(self, data: SplitData, joint_transform=None, transform=None):
         self.data = data
+        self.joint_transform = joint_transform
+        self.transform = transform
 
     def __len__(self) -> int:
         return len(self.data)
 
-    def __getitem__(self, index: int):
+    def fetch_raw(self, index: int):
+        """The chunk's window and label windows, no transform (thread-safe: draws
+        nothing)."""
         d = self.data
         l0 = d.label_chunk_starts[index]
         x = d.get_feature_chunk(index)
@@ -29,19 +37,108 @@ class SeldChunkDataset:
         doa = d.doa_targets[l0 : l0 + d.label_chunk_len]
         return x, sed, doa, d.clip_names[index]
 
+    def apply_transforms(self, item):
+        x, sed, doa, name = item
+        if self.joint_transform is not None:
+            x, sed, doa = self.joint_transform(x, sed, doa)
+        if self.transform is not None:
+            x = self.transform(x)
+        return x, sed, doa, name
+
+    def __getitem__(self, index: int):
+        return self.apply_transforms(self.fetch_raw(index))
+
 
 def batch_iterator(
-    dataset: SeldChunkDataset, batch_size: int,
+    dataset: SeldChunkDataset,
+    batch_size: int,
+    shuffle: bool = False,
+    drop_last: bool = False,
+    rng: np.random.Generator | None = None,
+    pad_to_batch: bool = False,
+    num_workers: int = 0,
 ) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray, list[str], int]]:
-    """Yields (x, sed, doa, clip_names, n_real) batches as stacked numpy arrays, in
-    dataset order. A short tail batch is padded by repeating its last sample, so
-    that every batch has one shape (salsa_tpu's pad_to_batch); n_real counts the
-    unpadded samples."""
-    n = len(dataset)
-    for i in range(0, n, batch_size):
-        idx = list(range(i, min(i + batch_size, n)))
-        n_real = len(idx)
-        idx += [idx[-1]] * (batch_size - n_real)
-        samples = [dataset[j] for j in idx]
-        yield (np.stack([s[0] for s in samples]), np.stack([s[1] for s in samples]),
-               np.stack([s[2] for s in samples]), [s[3] for s in samples], n_real)
+    """Yields (x, sed, doa, clip_names, n_real) batches as stacked numpy arrays.
+
+    With `shuffle`, the order is `rng`'s permutation of the chunks. A short tail
+    batch is dropped with `drop_last`, else padded with `pad_to_batch` by
+    repeating its last sample, so that every batch has one shape; n_real counts
+    the unpadded samples.
+
+    `num_workers` > 0 reads each batch's windows on a thread pool (a lazy split
+    reads from disk on every access); the transforms still run in this thread,
+    in order, so their draws do not depend on the worker count.
+    """
+    order = np.arange(len(dataset))
+    if shuffle:
+        (rng or np.random.default_rng()).shuffle(order)
+    pool = None
+    if num_workers > 0:
+        from concurrent.futures import ThreadPoolExecutor
+
+        pool = ThreadPoolExecutor(num_workers)
+        materialize = lambda idx: [dataset.apply_transforms(it) for it in  # noqa: E731
+                                   pool.map(dataset.fetch_raw, [int(j) for j in idx])]
+    else:
+        materialize = lambda idx: [dataset[int(j)] for j in idx]  # noqa: E731
+    try:
+        for i in range(0, len(order), batch_size):
+            idx = order[i : i + batch_size]
+            if len(idx) < batch_size:
+                if drop_last:
+                    return
+                if pad_to_batch:
+                    idx = np.concatenate([idx, np.repeat(idx[-1:], batch_size - len(idx))])
+            samples = materialize(idx)
+            yield (np.stack([s[0] for s in samples]), np.stack([s[1] for s in samples]),
+                   np.stack([s[2] for s in samples]), [s[3] for s in samples],
+                   min(batch_size, len(order) - i))
+    finally:
+        # on exhaustion and on an early close of the generator
+        if pool is not None:
+            pool.shutdown(wait=False)
+
+
+def prefetch(iterator, depth: int = 2):
+    """Run `iterator` on a background thread, keeping up to `depth` items ready.
+
+    The producer's exceptions are raised at the consumer. Closing this generator
+    early (the trainer stops at steps_per_epoch) stops the producer and closes
+    the inner iterator, so no thread, worker pool or open file is left behind."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    end = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for item in iterator:
+                if not put(item):
+                    break
+            put(end)
+        except BaseException as e:  # noqa: BLE001 - raised at the consumer
+            put(e)
+        finally:
+            if hasattr(iterator, "close"):
+                iterator.close()  # batch_iterator's pool shutdown
+
+    t = threading.Thread(target=producer, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()

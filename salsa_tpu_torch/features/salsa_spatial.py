@@ -269,7 +269,7 @@ def _check_inputs(xr, xi, sig_mask, n_hop, audio_format):
     if xr.shape[1] != C:
         raise NotImplementedError(
             f"the spatial kernel takes {C} channels, got {xr.shape[1]} (other channel "
-            "counts: ROADMAP queue 1, slice 5)")
+            "counts: ROADMAP queue 1, item 7)")
     B, _, n_bins, n_padded = xr.shape
     n_frames = n_padded - 2 * n_hop
     if B < 1 or n_bins < 1 or n_frames < 1:

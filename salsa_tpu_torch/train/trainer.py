@@ -1,43 +1,54 @@
-"""SELD trainer on one device, fused raw-wav path (counterpart of the
-`training.from_wav` branch of `salsa_tpu.train.trainer`).
+"""SELD trainer on one device (counterpart of `salsa_tpu.train.trainer`).
 
-The train split's waveforms stay resident on the card with every chunk's table
-row (clip, start frame, untrimmed frame count, valid frames, label start, tracker
-checkpoint). Each step, in eager PyTorch:
+Three ways feed the train step, each a branch of `salsa_tpu`'s trainer:
 
-  1. extract the batch's chunks (`features.chunked`: for SALSA one windowed-DFT
-     matmul, K2 resumed from the chunks' tracker checkpoints, K1; for the
-     frame-local types their DFT matmuls alone);
-  2. normalize the scaler's channels with the train-split scaler and zero the
-     frames past each chunk's valid length (after normalization, as the feature
-     store pads);
-  3. with `training.device_augment` (true or "feature"), augment the batch
-     (`train.device_augment`: draws on a CPU generator, applied on the device);
-  4. forward the CRNN in training mode (flax's BatchNorm update, dropout from an
-     explicit generator), index-repeat to label rate, the SELD loss, backward;
-  5. one Adam/AdamW update with the scheduled lr and beta1 (`train.state`).
+  * host batches (a feature-store split): `data.dataset.batch_iterator` shuffles
+    the epoch, reads each chunk window (preloaded or lazy) and runs the host
+    transforms (`data.transforms`) on a prefetch thread; each batch goes to the
+    device from pinned memory, non-blocking, while the thread builds the next;
+  * `training.device_data`: the split's features and targets go to the device
+    once (float32, or bfloat16 with `device_data_dtype`), and each step gathers
+    its windows there from the chunks' start frames: the host sends indices;
+  * `training.from_wav` (a WavSplitData split): the waveforms stay resident on
+    the card with every chunk's table row (clip, start frame, untrimmed frame
+    count, valid frames, label start, tracker checkpoint), and each step extracts
+    its chunks (`features.chunked`: for SALSA one windowed-DFT matmul, K2 resumed
+    from the chunks' tracker checkpoints, K1; for the frame-local types their
+    DFT matmuls alone), normalizes the scaler's channels and zeroes the frames
+    past each chunk's valid length (after normalization, as the store pads).
+
+Then, in eager PyTorch: with `training.device_augment` (true or "feature"), the
+batch is augmented on the device (`train.device_augment`: draws on a CPU
+generator; the host transforms are then dropped); the CRNN runs forward in
+training mode (flax's BatchNorm update, dropout from an explicit generator), the
+outputs are index-repeated to label rate, the SELD loss and backward; one
+Adam/AdamW update with the scheduled lr and beta1 (`train.state`). With
+`training.remat` the encoder's blocks recompute their activations in the
+backward pass (`enable_remat`), and the step is the same step.
 
 Each step's randomness is a pure function of (seed, step), as `salsa_tpu` folds
 the step into its key (`jax.random.fold_in`): before every step the dropout and
 the augmentation generators are seeded from (seed, optimizer count), each from a
 stream of its own. So a run resumed from a checkpoint (`fit(resume_from=...)`:
 weights, BatchNorm statistics and Adam's state) takes the steps an uninterrupted
-run takes.
+run takes. The host transforms draw from their own generator, as `salsa_tpu`'s.
 
 The epoch order is `np.random.default_rng((seed, epoch))`'s shuffle, as
 `salsa_tpu`'s; `training.steps_per_dispatch` only groups steps into dispatches
-there and changes nothing here. Validation extracts the val split once per call
-of `cli.train` (K1 and K2), predicts, writes DCASE CSVs and scores them. The
-prediction half (`SeldPredictor`: the eval step, channel-swap TTA folded into the
-batch, the validation losses, CSVs and prediction dumps) is what `cli.infer` runs.
-Checkpoints are flax msgpack (`train.checkpoint`), with the optimizer state in
-optax's layout, so `salsa_tpu` restores them.
+there and changes nothing here. Validation predicts the val split (from the
+store, or extracted once per call of `cli.train` from wavs), writes DCASE CSVs
+and scores them. The prediction half (`SeldPredictor`: the eval step,
+channel-swap TTA folded into the batch, the validation losses, CSVs and
+prediction dumps) is what `cli.infer` runs. Checkpoints are flax msgpack
+(`train.checkpoint`), with the optimizer state in optax's layout, so
+`salsa_tpu` restores them.
 
 Options of `salsa_tpu`'s trainer that this one does not port raise
 NotImplementedError naming their ROADMAP queue 1 item; none is run another way.
 """
 from __future__ import annotations
 
+import functools
 import os
 import shutil
 import time
@@ -45,8 +56,9 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from salsa_tpu_torch.data.dataset import SeldChunkDataset, batch_iterator
+from salsa_tpu_torch.data.dataset import SeldChunkDataset, batch_iterator, prefetch
 from salsa_tpu_torch.data.database import truncate_clips
 from salsa_tpu_torch.data.wav_database import WavSplitData, length_groups
 from salsa_tpu_torch.features.chunked import make_chunk_extractor, salsa_tracker_checkpoints_batch
@@ -54,7 +66,13 @@ from salsa_tpu_torch.features.registry import feature_n_spec_channels
 from salsa_tpu_torch.features.salsa import SalsaParams
 from salsa_tpu_torch.interop import load_flax_variables, torch_state_dict_to_flax
 from salsa_tpu_torch.metrics.scorer import evaluate_submissions
-from salsa_tpu_torch.models.layers import Dropout
+from salsa_tpu_torch.models.layers import (
+    BatchNorm2d,
+    DoubleConvBlock,
+    Dropout,
+    ResNetBasicBlock,
+    ResNetBottleneckBlock,
+)
 from salsa_tpu_torch.models.seld import init_train_, interpolate_index_repeat
 from salsa_tpu_torch.submission import combine_chunks, sed_from_accdoa, write_classwise_csv
 from salsa_tpu_torch.train import checkpoint as ckpt
@@ -84,12 +102,7 @@ def refuse_unported(cfg) -> None:
     port does not run, naming its ROADMAP queue 1 item."""
     t = cfg.get("training", {})
     refused = [
-        (t.get("device_data", False) and not t.get("from_wav", False),
-         "training.device_data (the feature-store resident path)", 10),
         (t.get("device_data_shard", False), "training.device_data_shard", 11),
-        (t.get("remat", False), "training.remat", 10),
-        (t.get("from_wav_mode", "fused") != "fused",
-         f"training.from_wav_mode: {t.get('from_wav_mode')}", 8),
         (int(os.environ.get("WORLD_SIZE", "1")) > 1
          or (torch.distributed.is_available() and torch.distributed.is_initialized()),
          "training in more than one process", 11),
@@ -107,6 +120,55 @@ def resolve_device(device: torch.device | str) -> torch.device:
                            "none (torch.cuda.is_available() is False); pass device='cpu' "
                            "for a CPU run")
     return device
+
+
+REMAT_BLOCKS = (DoubleConvBlock, ResNetBasicBlock, ResNetBottleneckBlock)
+
+
+def _remat_forward(module: torch.nn.Module, forward, *args):
+    """`forward(*args)` under torch.utils.checkpoint in a training forward that
+    records gradients: the block keeps its input alone and recomputes its
+    activations in the backward pass. The recompute replays the block's dropout
+    draws (each explicit generator restored to its state at the block's entry:
+    checkpoint preserves torch's default generators only) and moves its BatchNorm
+    running statistics once (the recompute's update is undone), so that the step
+    equals the plain step."""
+    if not (module.training and torch.is_grad_enabled()):
+        return forward(*args)
+    gens = [m.generator for m in module.modules()
+            if isinstance(m, Dropout) and m.generator is not None]
+    states = [g.get_state() for g in gens]
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    calls = []
+
+    def run(*a):
+        for g, st in zip(gens, states):
+            g.set_state(st)
+        if not calls:  # the forward pass
+            calls.append(1)
+            return forward(*a)
+        kept = [[b.clone() for b in m.buffers()] for m in bns]
+        try:
+            return forward(*a)
+        finally:  # also where checkpoint stops the recompute early
+            with torch.no_grad():
+                for m, bufs in zip(bns, kept):
+                    for b, k in zip(m.buffers(), bufs):
+                        b.copy_(k)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def enable_remat(model: torch.nn.Module) -> int:
+    """`training.remat`: every conv block of the encoder (the stem's double conv,
+    each residual block) recomputes its activations in the backward pass
+    (`_remat_forward`; `salsa_tpu` wraps its model in `jax.checkpoint`). Patches the
+    blocks' `forward` on the instance, so parameters and checkpoints keep their
+    names. Returns the number of blocks."""
+    blocks = [m for m in model.encoder.modules() if isinstance(m, REMAT_BLOCKS)]
+    for m in blocks:
+        m.forward = functools.partial(_remat_forward, m, m.forward)
+    return len(blocks)
 
 
 class SeldPredictor:
@@ -213,7 +275,7 @@ class SeldPredictor:
         probs, doas = [], []
         sums = {"val_loss": 0.0, "val_sed_loss": 0.0, "val_doa_loss": 0.0}
         n_loss = 0
-        for x, sed_gt, doa_gt, _names, n_real in batch_iterator(ds, bs):
+        for x, sed_gt, doa_gt, _names, n_real in batch_iterator(ds, bs, pad_to_batch=True):
             x = torch.from_numpy(x).to(self.device)
             if tta is None:
                 event_prob, doa, event_logit = self.eval_step(x)
@@ -271,13 +333,14 @@ class SeldPredictor:
 class SeldTrainer(SeldPredictor):
     def __init__(self, model, cfg, train_data, val_data, gt_meta_dir: str | None,
                  submission_dir: str, seed: int = 2021, scaler=None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", joint_transform=None,
+                 feature_transform=None):
         refuse_unported(cfg)
-        if not (cfg.training.get("from_wav", False) and isinstance(train_data, WavSplitData)):
-            raise ValueError(
-                "the port trains from raw wavs only (training.from_wav: true with a "
-                "WavSplitData train split): the HDF5 feature store needs h5py, which "
-                "this package does not use")
+        t = cfg.training
+        # from_wav engages only where the train split is wav-resident, and
+        # supersedes device_data (it is the resident mode, fed by waveforms)
+        self.from_wav = bool(t.get("from_wav", False)) and isinstance(train_data, WavSplitData)
+        self.device_data = bool(t.get("device_data", False)) and not t.get("from_wav", False)
         super().__init__(init_train_(model, torch.Generator().manual_seed(seed)), cfg, device)
         self.seed = seed
         self.gt_meta_dir = gt_meta_dir
@@ -285,15 +348,17 @@ class SeldTrainer(SeldPredictor):
         self.train_data = train_data
         self.val_data = val_data
 
-        self.batch_size = cfg.training.train_batch_size
-        if len(train_data) < self.batch_size:
+        self.batch_size = t.train_batch_size
+        if len(train_data) < self.batch_size and (self.from_wav or self.device_data):
             raise ValueError(f"the train split has {len(train_data)} chunks, fewer than a batch "
                              f"of {self.batch_size}: no step could run")
-        self.max_epochs = cfg.training.max_epochs
+        self.max_epochs = t.max_epochs
         train_fraction = cfg.data.get("train_fraction", 1.0)
         self.steps_per_epoch = max(1, int(len(train_data) // self.batch_size * train_fraction))
         total_steps = self.steps_per_epoch * self.max_epochs
-        self.accdoa_silent_weight = float(cfg.training.get("accdoa_silent_weight", 0.0))
+        self.accdoa_silent_weight = float(t.get("accdoa_silent_weight", 0.0))
+        self.chunk_len = train_data.feature_chunk_len
+        self.label_chunk_len = train_data.label_chunk_len
 
         # both seeded before every step (seed_step)
         self.dropout_generator = torch.Generator(device=self.device)
@@ -301,26 +366,70 @@ class SeldTrainer(SeldPredictor):
         for m in self.model.modules():
             if isinstance(m, Dropout):
                 m.generator = self.dropout_generator
-        sched = cfg.training.lr_scheduler
+        self.remat_blocks = enable_remat(self.model) if t.get("remat", False) else 0
+        sched = t.lr_scheduler
         self.optimizer = make_optimizer(
-            self.model.parameters(), total_steps, cfg.training.get("optimizer", "adam"),
+            self.model.parameters(), total_steps, t.get("optimizer", "adam"),
             tuple(sched.milestones), tuple(sched.lrs), tuple(sched.moms))
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info("model parameters: %.2fM | steps/epoch: %d | interp ratio: %.1f",
                     n_params / 1e6, self.steps_per_epoch, self.interp_ratio)
         self.setup_seconds: dict[str, float] = {}
         self.step_losses: list[float] = []  # per-step training loss of the last epoch
-        self._setup_from_wav(train_data, scaler)
+
+        self.augment = None
+        aug = t.get("device_augment", False)
+        if aug:
+            # true: the full stack; "feature": no label-coupled channel swaps
+            self.augment = make_device_augment(
+                cfg.feature_type, cfg.data.audio_format, self.n_classes, self.chunk_len,
+                train_data.features.shape[2], mode=aug if isinstance(aug, str) else "full")
+        host_transforms = joint_transform is not None or feature_transform is not None
+        if self.augment is not None and host_transforms:
+            logger.warning("device_augment enabled: host transforms are ignored")
+            joint_transform = feature_transform = None
+        if self.from_wav:
+            self._setup_from_wav(train_data, scaler)
+        elif self.device_data:
+            if host_transforms and self.augment is None:
+                logger.warning("device_data: host transforms are bypassed — enable "
+                               "training.device_augment for augmentation")
+            self._setup_resident(train_data, t.get("device_data_dtype", "float32"))
+        else:
+            self.train_dataset = SeldChunkDataset(train_data, joint_transform,
+                                                  feature_transform)
 
     # ------------------------------------------------------------------
+    def _setup_resident(self, train_data, dtype: str) -> None:
+        """training.device_data: the split's features (C, T, F) and targets on the
+        device once, and the chunks' feature and label start frames."""
+        if train_data.features.shape[1] == 0:
+            raise ValueError("training.device_data needs a preloaded split (data.preload: "
+                             "true)")
+        if dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"training.device_data_dtype '{dtype}': float32 or bfloat16")
+        dev = self.device
+        t0 = time.perf_counter()
+        self._feats = torch.as_tensor(train_data.features, device=dev).to(
+            torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+        self._sed = torch.from_numpy(train_data.sed_targets).to(dev)
+        self._doa = torch.from_numpy(train_data.doa_targets).to(dev)
+        self._f_start = torch.as_tensor(train_data.feature_chunk_starts, device=dev)
+        self._l_start = torch.as_tensor(train_data.label_chunk_starts, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.resident_bytes = sum(x.numel() * x.element_size()
+                                  for x in (self._feats, self._sed, self._doa))
+        self.setup_seconds["resident_upload"] = time.perf_counter() - t0
+        logger.info("device_data: %d train clips resident (%s, %.2f GB)",
+                    len(train_data.unique_clip_names), dtype, self.resident_bytes / 1e9)
+
     def _setup_from_wav(self, train_data: WavSplitData, scaler) -> None:
         """Resident waveforms, chunk tables and tracker checkpoints on the device."""
         if scaler is None:
             raise ValueError("training.from_wav needs a fitted scaler "
                              "(data.wav_database.fit_scaler_from_waves)")
         cfg, d, dev = self.cfg, self.cfg.data, self.device
-        self.chunk_len = train_data.feature_chunk_len
-        self.label_chunk_len = train_data.label_chunk_len
         self.chunk_fn, p = make_chunk_extractor(
             cfg.feature_type, d.audio_format, self.chunk_len, fs=d.fs, n_fft=d.n_fft,
             hop_length=d.hop_len, win_length=d.get("win_len", None),
@@ -349,13 +458,6 @@ class SeldTrainer(SeldPredictor):
         self._doa = torch.from_numpy(train_data.doa_targets).to(dev)
         self.mean = torch.as_tensor(np.asarray(scaler[0], np.float32), device=dev)
         self.std = torch.as_tensor(np.asarray(scaler[1], np.float32), device=dev)
-        self.augment = None
-        aug = cfg.training.get("device_augment", False)
-        if aug:
-            # true: the full stack; "feature": no label-coupled channel swaps
-            self.augment = make_device_augment(
-                cfg.feature_type, d.audio_format, self.n_classes, self.chunk_len,
-                train_data.features.shape[2], mode=aug if isinstance(aug, str) else "full")
 
     def _tracker_checkpoints(self, train_data: WavSplitData, p: SalsaParams) -> None:
         """The tracker state entering every chunk's first frame, from the dequantized
@@ -393,15 +495,48 @@ class SeldTrainer(SeldPredictor):
         return x * ok[:, None, :, None].to(x.dtype)
 
     def batch(self, chunk_ids):
-        """(x, sed, doa) of the chunks `chunk_ids` (B,): normalized feature chunks
-        (B, C, chunk_len, F) extracted on the device, and their label windows."""
+        """(x, sed, doa) on the device of the chunks `chunk_ids` (B,): normalized
+        feature chunks (B, C, chunk_len, F) and their label windows, extracted from
+        the resident waveforms, gathered from the resident split, or read on the
+        host (with the host transforms, which draw from their generator)."""
+        if not (self.from_wav or self.device_data):
+            samples = [self.train_dataset[int(j)] for j in chunk_ids]
+            return self.to_device(tuple(torch.from_numpy(np.stack([s[k] for s in samples]))
+                                        for k in range(3)))
         i = torch.as_tensor(np.asarray(chunk_ids, np.int64), device=self.device)
+        rows = self._l_start[i][:, None] + torch.arange(self.label_chunk_len, device=self.device)
+        if self.device_data:
+            frames = self._f_start[i][:, None] + torch.arange(self.chunk_len, device=self.device)
+            x = self._feats[:, frames].transpose(0, 1).contiguous().float()
+            return x, self._sed[rows], self._doa[rows]
         state = (None, None) if self._floor_ck is None else (self._floor_ck[i], self._cd_ck[i])
         x = self.chunk_fn(self._waves, self._clip[i], self._f0[i], self._n_full[i], *state,
                           self.wav_scale)
         x = self.normalize(x, self._n_valid[i])
-        rows = self._l_start[i][:, None] + torch.arange(self.label_chunk_len, device=self.device)
         return x, self._sed[rows], self._doa[rows]
+
+    def host_batches(self, epoch: int):
+        """The host path's epoch: at most steps_per_epoch batches (x, sed, doa) of
+        CPU tensors, pinned where the device is a card, in `batch_iterator`'s
+        shuffled order of (seed, epoch), the incomplete tail dropped where the split
+        holds a batch (`salsa_tpu`'s rule), windows read on `training.data_workers`
+        threads. No batch past the epoch's last step is built, so the host
+        transforms' draws do not depend on how far a prefetch thread ran ahead."""
+        it = batch_iterator(
+            self.train_dataset, self.batch_size, shuffle=True, rng=self._shuffle_rng(epoch),
+            drop_last=len(self.train_dataset) >= self.batch_size,
+            num_workers=int(self.cfg.training.get("data_workers", 0)))
+        pin = self.device.type == "cuda"
+        try:
+            for _step, (x, sed, doa, _names, _n) in zip(range(self.steps_per_epoch), it):
+                batch = tuple(torch.from_numpy(a) for a in (x, sed, doa))
+                yield tuple(b.pin_memory() for b in batch) if pin else batch
+        finally:
+            it.close()
+
+    def to_device(self, batch):
+        """A host batch on the device: a non-blocking copy from pinned memory."""
+        return tuple(b.to(self.device, non_blocking=True) for b in batch)
 
     def loss(self, out: dict[str, torch.Tensor], sed: torch.Tensor, doa: torch.Tensor):
         """(total, sed_loss, doa_loss) of the model's framewise outputs `out` on a
@@ -436,21 +571,33 @@ class SeldTrainer(SeldPredictor):
             return x, sed, doa
         return self.augment(self.augment_generator, x, sed, doa)
 
-    def train_step(self, chunk_ids) -> dict[str, torch.Tensor]:
-        """One optimizer step on the chunks `chunk_ids`; returns its losses."""
+    def step_on(self, x, sed, doa) -> dict[str, torch.Tensor]:
+        """One optimizer step on a batch on the device; returns its losses."""
         self.seed_step()
-        metrics = self.forward_backward(*self.augment_batch(*self.batch(chunk_ids)))
+        metrics = self.forward_backward(*self.augment_batch(x, sed, doa))
         self.optimizer.step()
         return metrics
 
+    def train_step(self, chunk_ids) -> dict[str, torch.Tensor]:
+        """One optimizer step on the chunks `chunk_ids`; returns its losses."""
+        return self.step_on(*self.batch(chunk_ids))
+
     # ------------------------------------------------------------------
+    def _shuffle_rng(self, epoch: int) -> np.random.Generator:
+        """The epoch's shuffle generator, a pure function of (seed, epoch)."""
+        return np.random.default_rng((self.seed, epoch))
+
     def _epoch_order(self, epoch: int) -> np.ndarray:
         """The chunk visit order of an epoch, a pure function of (seed, epoch)."""
         order = np.arange(len(self.train_data))
-        np.random.default_rng((self.seed, epoch)).shuffle(order)
+        self._shuffle_rng(epoch).shuffle(order)
         return order
 
     def train_epoch(self, epoch: int) -> dict:
+        if not (self.from_wav or self.device_data):
+            pending = [self.step_on(*self.to_device(b))
+                       for b in prefetch(self.host_batches(epoch))]
+            return self._finish_epoch(pending)
         order = self._epoch_order(epoch)
         usable = min(self.steps_per_epoch * self.batch_size, len(order))
         pending = [self.train_step(order[s * self.batch_size:(s + 1) * self.batch_size])
@@ -467,21 +614,44 @@ class SeldTrainer(SeldPredictor):
         return avgs
 
     # ------------------------------------------------------------------
+    def _host_rngs(self) -> list[np.random.Generator]:
+        """The generators the host transforms draw from (one, from
+        `build_train_transforms`), in order of first use; none off the host path."""
+        ds = getattr(self, "train_dataset", None)
+        found: dict[int, np.random.Generator] = {}
+        stack = [] if ds is None else [ds.joint_transform, ds.transform]
+        while stack:
+            t = stack.pop(0)
+            if t is None:
+                continue
+            if isinstance(getattr(t, "rng", None), np.random.Generator):
+                found.setdefault(id(t.rng), t.rng)
+            stack.extend(getattr(t, "transforms", []) + getattr(t, "choices", []))
+        return list(found.values())
+
     def save(self, ckpt_dir: str, name: str, meta: dict) -> str:
         """Write the model and optimizer as a flax msgpack checkpoint with its
-        sidecar; returns its path."""
+        sidecar; returns its path. The sidecar also keeps the host transforms'
+        generator states (`host_transform_rng`), so that a resumed run draws what
+        the uninterrupted run draws."""
+        rngs = self._host_rngs()
+        if rngs:
+            meta = {**meta, "host_transform_rng": [g.bit_generator.state for g in rngs]}
         params, stats = torch_state_dict_to_flax(self.model.state_dict())
         return ckpt.save_checkpoint(ckpt_dir, name, params, stats, self.optimizer.count, meta,
                                     opt_state=self.optimizer.optax_state(self.model))
 
     def restore(self, path: str) -> int:
         """Restore the weights, BatchNorm statistics and optimizer state of the
-        checkpoint `path` (the port's or `salsa_tpu`'s); returns the epoch to
-        continue from: the sidecar's epoch + 1, or else count // steps_per_epoch."""
+        checkpoint `path` (the port's or `salsa_tpu`'s), and the host transforms'
+        generator states where the sidecar has them; returns the epoch to continue
+        from: the sidecar's epoch + 1, or else count // steps_per_epoch."""
         params, stats, opt_state = ckpt.restore_train_state(path)
         load_flax_variables(self.model, params, stats)
         self.optimizer.load_optax_state(self.model, opt_state)
         meta = ckpt.load_metadata(path)
+        for g, state in zip(self._host_rngs(), meta.get("host_transform_rng", [])):
+            g.bit_generator.state = state
         if "epoch" in meta:
             start_epoch = int(meta["epoch"]) + 1
         else:

@@ -215,13 +215,22 @@ def test_use_tuned_threshold(workspace, tmp_path):
 def test_refusals(workspace, tmp_path):
     wavs, group = str(workspace / "wavs"), str(workspace / "outputs")
     out = str(tmp_path / "out")
-    # salsa_tpu would serve the feature store's h5 scaler ahead of the npz
+    # the feature store's scaler is served ahead of the npz, as salsa_tpu serves it:
+    # salsa_tpu's h5 (through h5py) or the port's npz; both at once are refused
     features = tmp_path / "features"
     features.mkdir()
-    (features / "foa_feature_scaler.h5").write_bytes(b"\x89HDF\r\n\x1a\n")
-    h5 = _write_config(tmp_path, "h5", feature_root_dir=str(features))
-    with pytest.raises(ValueError, match="feature_scaler.npz"):
-        tpredict_mod.predict(h5, wavs, out, group, device="cpu")
+    h5py = pytest.importorskip("h5py")
+    mean, std = np.full((4, 1, 200), 0.5, np.float32), np.full((4, 1, 200), 2.0, np.float32)
+    with h5py.File(features / "foa_feature_scaler.h5", "w") as hf:
+        hf.create_dataset("mean", data=mean)
+        hf.create_dataset("std", data=std)
+    cfg = tpredict_mod.manage_experiments(_write_config(tmp_path, "h5", feature_root_dir=str(
+        features)), group, "")
+    for got, want in zip(tpredict_mod._load_scaler(cfg, "foa"), (mean, std)):
+        np.testing.assert_array_equal(got, want)
+    np.savez(features / "foa_feature_scaler.npz", mean=mean, std=std)
+    with pytest.raises(ValueError, match="two formats"):
+        tpredict_mod._load_scaler(cfg, "foa")
     config = _write_config(workspace, "reg_xyz")
     # the streaming options without --streaming (or --max-lag-ms without --pool)
     for flags in (["--pool"], ["--pcm16"], ["--max-lag-ms", "400"],

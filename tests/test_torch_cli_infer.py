@@ -109,8 +109,9 @@ def experiment(tmp_path_factory):
     group = os.path.join(root, "outputs")
     j_train(config, group)
     exp = os.path.join(group, "crossval", "foa", "salsa", "exp")
-    return {"root": root, "group": group, "exp": exp,
-            "config": {fmt: _write_config(root, fmt, fmt) for fmt in SED_THRESHOLD}}
+    yield {"root": root, "group": group, "exp": exp,
+           "config": {fmt: _write_config(root, fmt, fmt) for fmt in SED_THRESHOLD}}
+    shutil.rmtree(root)  # full-width checkpoints: pytest keeps its last temp trees
 
 
 def _infer(experiment, side, config, out, **kw):
@@ -357,8 +358,11 @@ def test_infer_refusals(experiment):
     def port(config, **kw):
         return tinfer.inference(config, group, splits=["val"], **{"device": "cpu", **kw})
 
-    with pytest.raises(ValueError, match="h5py"):
-        port(_write_config(root, "no_wav", from_wav=False))
+    # an experiment that trained from a store infers from it: without one, there
+    # is no scaler to read
+    with pytest.raises(FileNotFoundError, match="feature_scaler"):
+        port(_write_config(root, "no_wav", edit=lambda c: c.update(
+            feature_root_dir=os.path.join(root, "no_store")), from_wav=False))
     with pytest.raises(FileNotFoundError, match="train first"):
         tinfer.inference(experiment["config"]["reg_xyz"], group, "_untrained", splits=["val"],
                          device="cpu")

@@ -19,7 +19,7 @@ from salsa_tpu.data.feature_store import StreamingScaler as JScaler  # noqa: E40
 from salsa_tpu.features.registry import make_extractor as j_make_extractor  # noqa: E402
 from salsa_tpu_torch.data import dataset, database, meta  # noqa: E402
 from salsa_tpu_torch.data import wav_database as twav  # noqa: E402
-from salsa_tpu_torch.data.feature_store import StreamingScaler  # noqa: E402
+from salsa_tpu_torch.data.feature_store import FeatureStore, StreamingScaler  # noqa: E402
 from salsa_tpu_torch.features.registry import make_extractor  # noqa: E402
 from tests.test_from_wav import E2E_FS, E2E_HOP, E2E_NFFT, _write_synth_corpus  # noqa: E402
 
@@ -125,7 +125,7 @@ def test_scaler_and_val_store_match_salsa_tpu(corpus):
 
     # batching in clip order with the tail padded, and a clip-truncated view
     jb = list(jdataset.batch_iterator(jdataset.SeldChunkDataset(jv), 3, pad_to_batch=True))
-    tb = list(dataset.batch_iterator(dataset.SeldChunkDataset(tv), 3))
+    tb = list(dataset.batch_iterator(dataset.SeldChunkDataset(tv), 3, pad_to_batch=True))
     assert len(tb) == len(jb)
     for (x, sed, doa, nm, n), (jx, jsed, jdoa, jnm, jn) in zip(tb, jb):
         assert x.shape == jx.shape and nm == jnm and n == jn
@@ -143,7 +143,8 @@ def test_batches_run_in_order_with_the_tail_padded(corpus, batch_size):
     c = corpus
     tv = twav.load_wav_split(c["tdb"], "train", c["audio_dir"], split_meta_dir=c["meta_dir"])
     jv = jwav.load_wav_split(c["jdb"], "train", c["audio_dir"], split_meta_dir=c["meta_dir"])
-    tb = list(dataset.batch_iterator(dataset.SeldChunkDataset(tv), batch_size))
+    tb = list(dataset.batch_iterator(dataset.SeldChunkDataset(tv), batch_size,
+                                     pad_to_batch=True))
     jb = list(jdataset.batch_iterator(jdataset.SeldChunkDataset(jv), batch_size,
                                       pad_to_batch=True))
     assert len(tb) == len(jb) == -(-len(tv) // batch_size)
@@ -185,7 +186,11 @@ def test_targets_meta_and_scaler_helpers_equal_salsa_tpu(corpus, rng):
 
 
 def test_database_needs_a_store():
-    with pytest.raises(ValueError, match="h5py"):
-        database.SeldDatabase(feature_root_dir="/data/features", **GEOMETRY)
+    """Without an injected store the database reads the FeatureStore at
+    feature_root_dir; with neither it raises."""
+    db = database.SeldDatabase(feature_root_dir="/data/features", **GEOMETRY)
+    assert isinstance(db.store, FeatureStore) and db.store.root_dir == "/data/features"
+    with pytest.raises(ValueError, match="feature_root_dir or a store"):
+        database.SeldDatabase(feature_root_dir=None, **GEOMETRY)
     with pytest.raises(ValueError, match="wav_dtype"):
         twav.load_wav_split(None, "train", "/nowhere", wav_dtype="bfloat16")

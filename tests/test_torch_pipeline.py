@@ -267,7 +267,7 @@ HYGIENE = textwrap.dedent("""
 
     # the training path: every module of cli.train, and one batch of chunks
     import salsa_tpu_torch.cli.train as cli_train
-    import salsa_tpu_torch.data.database
+    import salsa_tpu_torch.data.database as database
     import salsa_tpu_torch.data.dataset
     import salsa_tpu_torch.data.feature_store
     import salsa_tpu_torch.data.meta
@@ -349,6 +349,41 @@ HYGIENE = textwrap.dedent("""
         avg = cli_ensemble.main(["--ckpts", *ck, "--out-ckpt", os.path.join(tmp, "avg.msgpack")])
         assert checkpoint.restore_variables(avg)[0]["w"].tolist() == [2.0, 2.0, 2.0]
 
+    # the feature-store path: configs/seld.yml from its store (chip_smoke's phase 15,
+    # cut down): cli.extract, cli.train with the host transforms, device_data,
+    # precompute and remat, cli.predict with the store's scaler, cli.infer and
+    # cli.evaluate; then a lazy read
+    import salsa_tpu_torch.cli.extract as cli_extract
+    import salsa_tpu_torch.data.transforms as transforms
+    from salsa_tpu_torch.data.database import LazySplitData
+
+    torch.set_num_threads(2)
+    out = chip_smoke.phase15(torch.device("cpu"), seconds=2.0, timed=3, overrides=(
+        "data.train_chunk_len_s=0.4", "data.train_chunk_hop_len_s=0.2",
+        "training.train_batch_size=2", "model.decoder.decoder_size=8",
+        "data.test_chunk_len_s=2.0", "data.test_chunk_hop_len_s=2.1",
+        "data.max_file_len_s=2.0"))
+    assert out["n_steps"] > 0 and np.isfinite(out["scores"]["seld_error"]), out
+    assert callable(cli_extract.main) and callable(transforms.build_train_transforms)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = cli_extract.feature_dir_of(tmp, "salsa", "foa", "x")
+        from salsa_tpu_torch.data.feature_store import FeatureStore
+
+        fs = FeatureStore(store, "foa")
+        fs.write_clip("dev", "clip", np.arange(7 * 16 * 3, dtype=np.float32).reshape(7, 16, 3))
+        fs.write_scaler(np.zeros((4, 1, 3)), np.ones((4, 1, 3)))
+        os.makedirs(os.path.join(tmp, "meta"))
+        with open(os.path.join(tmp, "meta", "train.csv"), "w") as f:
+            f.write("filename\\nclip\\n")
+        db = database.SeldDatabase(feature_root_dir=store, n_classes=2, fs=800, hop_len=10,
+                                   train_chunk_len_s=0.1, train_chunk_hop_len_s=0.1,
+                                   max_file_len_s=0.2)
+        lazy = db.load_split("train", os.path.join(tmp, "meta"), preload=False)
+        pre = db.load_split("train", os.path.join(tmp, "meta"))
+        assert isinstance(lazy, LazySplitData) and len(lazy) == len(pre) > 1
+        for i in range(len(pre)):
+            assert np.array_equal(lazy.get_feature_chunk(i), pre.get_feature_chunk(i))
+
     leaked = sorted(m for m in sys.modules if blocked(m))
     assert not leaked, leaked
     print("HYGIENE_OK")
@@ -359,7 +394,9 @@ def test_port_imports_nothing_of_jax_or_salsa_tpu():
     """Simulates the GPU host, which has no jax/flax/yaml/h5py/msgpack: a fresh
     process refuses those imports (and salsa_tpu, but not salsa_tpu_torch) and
     still builds and runs the serving path on CPU, reads and writes a checkpoint,
-    and serves and scores an experiment from disk through the CLIs."""
+    serves and scores an experiment from disk through the CLIs, and runs
+    configs/seld.yml's feature-store workflow (cli.extract -> cli.train ->
+    cli.predict, cli.infer, cli.evaluate) and a lazy read."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", HYGIENE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)

@@ -7,7 +7,9 @@ a checkpoint that `salsa_tpu`'s trainer wrote after k steps resumes in the port,
 whose next m losses stay within 3.8e-5 of `salsa_tpu`'s own (dropout 0, no
 augmentation: the two packages' draws differ)."""
 import os
+import pathlib
 import re
+import tempfile
 
 import numpy as np
 import pytest
@@ -26,6 +28,15 @@ from salsa_tpu_torch.train.state import make_optimizer  # noqa: E402
 from tests.test_from_wav import _synth_wave_8k  # noqa: E402
 from tests.test_torch_cli_train import FS, N_CLASSES, TRAIN, VAL, _config  # noqa: E402
 from tests.test_torch_trainer import train_both  # noqa: E402
+
+
+@pytest.fixture
+def scratch():
+    """A temporary directory removed after the test: its full-width checkpoints
+    (135 MB each with Adam's moments) would otherwise stay in the temp trees that
+    pytest keeps from its last runs, and fill the disk."""
+    with tempfile.TemporaryDirectory() as d:
+        yield pathlib.Path(d)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -76,14 +87,14 @@ def _weights(tr):
 
 
 @pytest.mark.parametrize("optimizer", ["adam", "adamw"])
-def test_resume_equals_uninterrupted_steps(corpus, tmp_path, optimizer):
+def test_resume_equals_uninterrupted_steps(corpus, scratch, optimizer):
     """1 epoch (2 steps), the checkpoint, a fresh trainer restored from it and 2
     more epochs equal 3 uninterrupted epochs bit for bit: every step's loss, every
     weight and statistic, Adam's moments. Augmentation (the full stack: FOA
     swaps, shift) and dropout are on, and their draws change the batch."""
     config = _write(corpus, f"resume_{optimizer}.yml", device_augment=True, max_epochs=3,
                     optimizer=optimizer)
-    group = str(tmp_path / "outputs")
+    group = str(scratch / "outputs")
     build = lambda: cli_train.build_trainer(config, group, device="cpu")  # noqa: E731
 
     whole = build()
@@ -101,7 +112,7 @@ def test_resume_equals_uninterrupted_steps(corpus, tmp_path, optimizer):
     first = build()
     first.train_epoch(0)
     assert first.step_losses == losses[0]
-    path = first.save(str(tmp_path / "ck"), "epoch000", {"epoch": 0})
+    path = first.save(str(scratch / "ck"), "epoch000", {"epoch": 0})
 
     resumed = build()
     assert resumed.restore(path) == 1 and resumed.optimizer.count == 2
@@ -123,14 +134,14 @@ def test_resume_equals_uninterrupted_steps(corpus, tmp_path, optimizer):
                                                              whole.optimizer.b1)
 
 
-def test_cli_resume_continues_at_the_sidecar_epoch(corpus, tmp_path, monkeypatch):
+def test_cli_resume_continues_at_the_sidecar_epoch(corpus, scratch, monkeypatch):
     """cli.train for 1 epoch, then resumed with max_epochs 3: it restores epoch000
     (logged), trains epochs 1 and 2 only, and ends where a fresh 3-epoch run ends
     (constant lr, so the total step count does not enter the schedule), bit for
     bit. `--resume` is what sets `resume` (the CLI runs on the card, so the CPU
     runs call `train`)."""
     config = _write(corpus, "cli_resume.yml", device_augment="feature", max_epochs=1)
-    group = str(tmp_path / "outputs")
+    group = str(scratch / "outputs")
     cli_train.train(config, group, device="cpu")
     tr = cli_train.train(config, group, device="cpu", resume=True,
                          overrides=["training.max_epochs=3"])
@@ -141,7 +152,7 @@ def test_cli_resume_continues_at_the_sidecar_epoch(corpus, tmp_path, monkeypatch
     assert re.findall(r"Epoch (\d)/(\d) - loss", log) == [("0", "0"), ("1", "2"), ("2", "2")]
     assert sorted(os.listdir(os.path.join(exp, "models", "checkpoint"))) == [
         f"epoch{e:03d}.{x}" for e in range(3) for x in ("json", "msgpack")]
-    fresh = cli_train.train(config, str(tmp_path / "fresh"), device="cpu",
+    fresh = cli_train.train(config, str(scratch / "fresh"), device="cpu",
                             overrides=["training.max_epochs=3"])
     assert tr.optimizer.count == fresh.optimizer.count == 6
     assert tr.step_losses == fresh.step_losses
@@ -155,9 +166,9 @@ def test_cli_resume_continues_at_the_sidecar_epoch(corpus, tmp_path, monkeypatch
     assert [kw["resume"] for kw in calls] == [True, False]
 
 
-def test_resume_refuses_a_checkpoint_without_optimizer_state(corpus, tmp_path):
+def test_resume_refuses_a_checkpoint_without_optimizer_state(corpus, scratch):
     config = _write(corpus, "no_opt.yml", max_epochs=1)
-    group = str(tmp_path / "outputs")
+    group = str(scratch / "outputs")
     tr = cli_train.train(config, group, device="cpu")
     # the latest checkpoint (by step) is one saved without the optimizer's state
     save_checkpoint(tr.cfg.dir.model.checkpoint, "epoch009",
@@ -183,15 +194,15 @@ def test_load_optax_state_refuses_a_foreign_tree(corpus, tmp_path):
 K_STEPS, M_STEPS = 3, 3
 
 
-def test_salsa_tpu_checkpoint_resumes_in_the_port(tmp_path):
+def test_salsa_tpu_checkpoint_resumes_in_the_port(scratch):
     """salsa_tpu's trainer after 3 steps (one an epoch) writes its checkpoint; the
     port's trainer restores it and takes 3 more steps, whose losses stay within
     3.8e-5 of salsa_tpu's own steps 4-6 (dropout 0 in both, no augmentation)."""
-    both = train_both(str(tmp_path), n_steps=K_STEPS)
+    both = train_both(str(scratch), n_steps=K_STEPS)
     run = next(both)
     try:
         jt, tt = run["jax"], run["torch"]
-        path = jckpt.save_checkpoint(str(tmp_path / "jax_ck"), f"epoch{K_STEPS - 1:03d}",
+        path = jckpt.save_checkpoint(str(scratch / "jax_ck"), f"epoch{K_STEPS - 1:03d}",
                                      jax.device_get(jt.state), {"epoch": K_STEPS - 1})
         want = [jt.train_epoch(e)["loss"] for e in range(K_STEPS, K_STEPS + M_STEPS)]
         assert tt.restore(path) == K_STEPS and tt.optimizer.count == K_STEPS

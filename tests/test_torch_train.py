@@ -301,10 +301,15 @@ def test_combine_chunks_and_sed_from_accdoa_equal_salsa_tpu(rng):
 
 
 REFUSALS = [
-    ({"training": {"from_wav": False, "device_data": True}}, "device_data", 10),
     ({"training": {"device_data_shard": True}}, "device_data_shard", 11),
-    ({"training": {"remat": True}}, "remat", 10),
-    ({"training": {"from_wav_mode": "precompute"}}, "precompute", 8),
+    ({"training": {"from_wav": True, "device_data_shard": True}}, "device_data_shard", 11),
+]
+# the store-fed options are no refusals: device_data, remat and precompute train
+PORTED = [
+    {"training": {"from_wav": False, "device_data": True}},
+    {"training": {"remat": True}},
+    {"training": {"from_wav": True, "from_wav_mode": "precompute"}},
+    {"training": {"device_data": True, "device_data_dtype": "bfloat16", "remat": True}},
 ]
 
 
@@ -312,6 +317,11 @@ REFUSALS = [
 def test_trainer_refuses_unported_options(cfg, what, item):
     with pytest.raises(NotImplementedError, match=rf"{what}.*item {item}\b"):
         refuse_unported(AttrDict(cfg))
+
+
+@pytest.mark.parametrize("cfg", PORTED)
+def test_trainer_takes_the_store_fed_options(cfg):
+    refuse_unported(AttrDict(cfg))
 
 
 @pytest.mark.parametrize("part", ["encoder", "decoder"])

@@ -5,6 +5,8 @@ the bottleneck trunk, the positional table, the weight converter both ways and
 through both packages' checkpoints (Adam's moments included), the training
 initializers, and `cli.train --resume` with an LSTM and a transformer decoder."""
 import os
+import pathlib
+import tempfile
 
 import numpy as np
 import pytest
@@ -39,6 +41,15 @@ from tests.test_torch_models import flax_init  # noqa: E402
 ENCODERS = ("PannResNet22", "PannResNet22TPU")
 DECODERS = ("gru", "bigru", "lstm", "bilstm", "transformer")
 N_CLASSES = 5
+
+
+@pytest.fixture
+def scratch():
+    """A temporary directory removed after the test: its full-width checkpoints
+    (135 MB each with Adam's moments) would otherwise stay in the temp trees that
+    pytest keeps from its last runs, and fill the disk."""
+    with tempfile.TemporaryDirectory() as d:
+        yield pathlib.Path(d)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -195,7 +206,7 @@ def test_converter_both_ways(rng, encoder, decoder_type):
 
 
 @pytest.mark.parametrize("decoder_type", ["lstm", "transformer"])
-def test_checkpoints_cross_both_ways(tmp_path, rng, decoder_type):
+def test_checkpoints_cross_both_ways(scratch, rng, decoder_type):
     """A port checkpoint after two Adam updates restores in salsa_tpu's TrainState
     (weights and Adam's moments), and a salsa_tpu checkpoint with moments loads
     strictly into the port and into its optimizer."""
@@ -212,7 +223,7 @@ def test_checkpoints_cross_both_ways(tmp_path, rng, decoder_type):
         opt.step()
         opt.zero_grad()
     params, stats = torch_state_dict_to_flax(model.state_dict())
-    path = tckpt.save_checkpoint(str(tmp_path / "port"), "epoch001", params, stats, opt.count,
+    path = tckpt.save_checkpoint(str(scratch / "port"), "epoch001", params, stats, opt.count,
                                  {"epoch": 1}, opt_state=opt.optax_state(model))
     restored = jckpt.restore_checkpoint(path, jstate)
     assert int(restored.step) == 2 and int(restored.opt_state.count) == 2
@@ -233,7 +244,7 @@ def test_checkpoints_cross_both_ways(tmp_path, rng, decoder_type):
                                                                           noisy(inner.nu)))
     opt_state = restored.opt_state._replace(
         inner_state=(inner,) + tuple(restored.opt_state.inner_state[1:]))
-    jpath = jckpt.save_checkpoint(str(tmp_path / "jax"), "epoch002",
+    jpath = jckpt.save_checkpoint(str(scratch / "jax"), "epoch002",
                                   restored.replace(opt_state=opt_state), {"epoch": 2})
     p2, s2, o2 = tckpt.restore_train_state(jpath)
     fresh = tseld.build_model(encoder=enc, decoder=dec, n_classes=3)
@@ -321,16 +332,16 @@ def _resume_config(root, decoder_type):
 
 
 @pytest.mark.parametrize("decoder_type", ["lstm", "transformer"])
-def test_cli_resume_with_the_new_decoders(corpus, tmp_path_factory, decoder_type):
+def test_cli_resume_with_the_new_decoders(corpus, scratch, decoder_type):
     """cli.train for 1 epoch, then --resume to 3, equals a fresh 3-epoch run bit for
     bit (dropout and augmentation on, constant lr): the weights and Adam's state of
     every new parameter go through the checkpoint."""
     config = _resume_config(corpus, decoder_type)
-    group = str(tmp_path_factory.mktemp("outputs"))
+    group = str(scratch / "outputs")
     cli_train.train(config, group, device="cpu")
     tr = cli_train.train(config, group, device="cpu", resume=True,
                          overrides=["training.max_epochs=3"])
-    fresh = cli_train.train(config, str(tmp_path_factory.mktemp("fresh")), device="cpu",
+    fresh = cli_train.train(config, str(scratch / "fresh"), device="cpu",
                             overrides=["training.max_epochs=3"])
     assert tr.optimizer.count == fresh.optimizer.count == 6
     assert tr.step_losses == fresh.step_losses
