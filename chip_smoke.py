@@ -119,7 +119,22 @@ Phases, each printing what it found; any failure raises and exits non-zero:
      dropout on, both peaks); `cli.predict` of the trained best with the store's
      scaler (CSVs byte-identical to the in-memory pipeline's), `cli.infer --splits
      val` from the store (K1 = K2 = 0, against the same call on the CPU) and
-     `cli.evaluate`.
+     `cli.evaluate`;
+ 16. data-parallel training (`chip_smoke.py --rank <spec>` is one rank, spawned
+     with torchrun's or salsa_tpu's variables and a timeout of its own):
+     configs/seld.yml from phase 9's clips (3 steps at batch 32 x 8 s) (a) on one
+     rank over NCCL against the same run without a process group (1e-6), (b) on
+     two ranks sharing the card over gloo, 16 rows each, against (a) (1e-4 on the
+     first step, 2e-3 after), K1 and K2 launched once a step in every rank; each
+     rank's step time, time inside its collectives and peak memory; (c)
+     training.device_data_shard on two ranks from a store of the clips against
+     device_data on one rank in the same stratified order (1e-4); (d) that run cut
+     after one epoch and resumed on two ranks (`--resume`; 1e-4); (e)
+     `cli.export_ckpt` of (a)'s best and `cli.import_ckpt` into a new experiment,
+     whose `cli.predict` CSVs are byte-identical to the original's; (f) SALSA of a
+     6-mic array (K2 and the power iteration, no K1) against the CPU at phase 2's
+     mask bound; (g) `utils.profiling`'s device_timer of K1 at the step's shape and
+     its trace.
 The second-to-last line is a JSON summary of the kernels, each with its time,
 its plain version's, its bound (the larger of its bytes over the memory rate and
 its operations over the peak rate of their type) and, where one PyTorch call
@@ -148,8 +163,10 @@ import torch
 
 from salsa_tpu_torch import configs
 from salsa_tpu_torch.cli import ensemble as cli_ensemble
+from salsa_tpu_torch.cli import export_ckpt as cli_export_ckpt
 from salsa_tpu_torch.cli import extract as cli_extract
 from salsa_tpu_torch.cli import evaluate as cli_evaluate
+from salsa_tpu_torch.cli import import_ckpt as cli_import_ckpt
 from salsa_tpu_torch.cli import infer as cli_infer
 from salsa_tpu_torch.cli import predict as cli_predict
 from salsa_tpu_torch.cli import train as cli_train
@@ -182,6 +199,7 @@ from salsa_tpu_torch.kernels.build import (
 from salsa_tpu_torch.interop import torch_state_dict_to_flax
 from salsa_tpu_torch.models.layers import Dropout
 from salsa_tpu_torch.models.seld import build_model, init_random_
+from salsa_tpu_torch.parallel import distributed, mesh
 from salsa_tpu_torch.pipeline import SeldInferencePipeline
 from salsa_tpu_torch.streaming import StreamingExtractor, StreamingSeldPipeline
 from salsa_tpu_torch.scripts import (
@@ -199,12 +217,15 @@ from salsa_tpu_torch.scripts.probe_salsa_kernel import (
 )
 from salsa_tpu_torch.scripts.timing import cuda_ms, smi
 from salsa_tpu_torch.submission import write_classwise_csv
+from salsa_tpu_torch.train.checkpoint import best_checkpoint as ckpt_best
+from salsa_tpu_torch.train.checkpoint import latest_checkpoint as ckpt_latest
 from salsa_tpu_torch.train.checkpoint import restore_variables as ckpt_restore_variables
 from salsa_tpu_torch.train.checkpoint import save_checkpoint
 from salsa_tpu_torch.train.ensemble import ensemble_predictions, write_ensemble
-from salsa_tpu_torch.train.trainer import SeldPredictor, SeldTrainer
+from salsa_tpu_torch.train.trainer import SeldPredictor, SeldTrainer, stratified_order
 from salsa_tpu_torch.train.tta import tta_fold
 from salsa_tpu_torch.utils.audio_io import read_wav, wav_info, write_wav
+from salsa_tpu_torch.utils import profiling
 from salsa_tpu_torch.utils.config import apply_overrides, load_config, save_config
 from salsa_tpu_torch.utils.experiments import configure_logging
 
@@ -3413,6 +3434,426 @@ def phase15(dev, seconds: float = 60.0, overrides=(), timed: int = TIMED_STEPS) 
 
 
 
+# ---------------------------------------------------------------------------
+# phase 16: data-parallel training, the checkpoint interop CLIs, profiling and
+# SALSA at 6 channels
+
+# phase 9's clips and config, cut to one epoch of 3 steps at batch 32 (constant lr:
+# a resumed run's schedule does not depend on its epoch count)
+PARALLEL_OVERRIDES = ("training.max_epochs=1", "data.train_fraction=0.25", CONSTANT_LR)
+# the store path: 2 epochs of 2 steps (420 chunks of the 4 train clips // 32 x 0.2)
+STORE_PARALLEL_OVERRIDES = ("training.device_data=true", "training.device_data_shard=true",
+                            "training.max_epochs=2", "data.train_fraction=0.2", CONSTANT_LR)
+RANK_TIMEOUT_S = 480  # a rank that has not finished by then fails the phase
+TIMED_RANK_STEPS = 4  # steps timed after a rank's run; the median is of steps 2 onward
+SIX_MICS = 6
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(spec: dict, n_ranks: int, tmp: str, launcher: str = "torchrun") -> list[dict]:
+    """Run `chip_smoke.py --rank <spec>` as `n_ranks` processes, each with the
+    environment of its launcher (torchrun's MASTER_ADDR / MASTER_PORT / RANK /
+    WORLD_SIZE / LOCAL_RANK, or SALSA_COORDINATOR / SALSA_NUM_PROCESSES /
+    SALSA_PROCESS_ID) and its own timeout; returns each rank's JSON result in rank
+    order. Any rank that fails or times out fails the phase, with its stderr."""
+    path = os.path.join(tmp, f"rank_spec_{free_port()}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    port, procs = free_port(), []
+    drop = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+            "SALSA_COORDINATOR", "SALSA_NUM_PROCESSES", "SALSA_PROCESS_ID")
+    for r in range(n_ranks):
+        env = {k: v for k, v in os.environ.items() if k not in drop}
+        # the ranks share this process's cores: intra-op threads that outnumber
+        # them spin (a CPU step ran 40x slower)
+        env.update(PYTHONPATH=REPO,
+                   OMP_NUM_THREADS=str(max(1, torch.get_num_threads() // n_ranks)))
+        if launcher == "torchrun":
+            env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(r),
+                       WORLD_SIZE=str(n_ranks), LOCAL_RANK=str(r))
+        else:
+            env.update(SALSA_COORDINATOR=f"127.0.0.1:{port}", SALSA_NUM_PROCESSES=str(n_ranks),
+                       SALSA_PROCESS_ID=str(r))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", path],
+                                      cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    outs, failed = [], []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                out, err = p.communicate(timeout=RANK_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+                failed.append(f"rank {r} of {n_ranks} timed out after {RANK_TIMEOUT_S} s:\n"
+                              f"{err[-2000:]}")
+                continue
+            if p.returncode != 0:
+                failed.append(f"rank {r} of {n_ranks} exited {p.returncode}:\n{err[-3000:]}")
+            else:
+                outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return outs
+
+
+def gloo_cuda_collectives(dev) -> dict[str, str]:
+    """Which collectives the rank's process group takes on tensors of `dev`: each of
+    all_reduce, broadcast and all_gather run once ('ok'), or its error. gloo copies
+    CUDA tensors through the host inside the collective."""
+    out = {}
+    t = torch.full((4,), float(distributed.process_index() + 1), device=dev)
+    tries = {"all_reduce": lambda: torch.distributed.all_reduce(t.clone()),
+             "broadcast": lambda: torch.distributed.broadcast(t.clone(), 0),
+             "all_gather": lambda: torch.distributed.all_gather(
+                 [torch.empty_like(t) for _ in range(distributed.process_count())], t)}
+    for name, fn in tries.items():
+        try:
+            fn()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 - reported, and the phase checks the ones it uses
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    return out
+
+
+def fit_instrumented(tr, dev, resume_from: str | None = None, timed: int = 0) -> dict:
+    """`tr.fit(resume_from)` with K1 and K2 counted from 0 just before it and read just
+    after, every epoch's step losses, the peak memory of the run, the time inside
+    the collectives (CUDA events around every `distributed.all_reduce_sum`), then
+    `timed` more steps each between CUDA events (host clock on the CPU)."""
+    cuda = dev.type == "cuda"
+    spans = []
+    plain_sum = distributed.all_reduce_sum
+
+    def timed_sum(t):
+        if not cuda:
+            spans.append(None)
+            return plain_sum(t)
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = plain_sum(t)
+        ev[1].record()
+        spans.append(ev)
+        return out
+
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    distributed.all_reduce_sum = timed_sum
+    try:
+        with recorded_epochs() as epochs:
+            (_, launches) = counted(lambda: tr.fit(resume_from=resume_from))
+        if cuda:
+            torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else float("nan")
+        steps, colls, n_colls = [], [], []
+        order = tr._epoch_order(tr.max_epochs)
+        for s in range(timed):
+            ids = order[(s * tr.batch_size) % len(order):][:tr.batch_size]
+            spans.clear()
+            if cuda:
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                tr.train_step(ids)
+                ev[1].record()
+                ev[1].synchronize()
+                steps.append(ev[0].elapsed_time(ev[1]))
+                colls.append(sum(ev[0].elapsed_time(ev[1]) for ev in spans))
+            else:
+                t0 = time.perf_counter()
+                tr.train_step(ids)
+                steps.append((time.perf_counter() - t0) * 1e3)
+                colls.append(0.0)
+            n_colls.append(len(spans))
+    finally:
+        distributed.all_reduce_sum = plain_sum
+    med = (lambda v: statistics.median(v[1:]) if len(v) > 1 else (v[0] if v else float("nan")))
+    return {"rank": tr.rank, "n_ranks": tr.n_ranks, "device": str(tr.device),
+            "rows": tr.batch_size // tr.n_ranks, "count": tr.optimizer.count - len(steps),
+            "fit_steps": sum(len(ls) for _, ls in epochs),
+            "steps_per_epoch": tr.steps_per_epoch, "launches": launches,
+            "step_losses": [l for _, ls in epochs for l in ls], "peak_gib": peak,
+            "step_ms": med(steps), "collective_ms": med(colls),
+            "collectives_per_step": n_colls[-1] if n_colls else 0,
+            "device_data_shard": bool(tr.device_data_shard),
+            "backend": (torch.distributed.get_backend() if distributed.is_initialized()
+                        else None)}
+
+
+def stratify_like(tr, n_shards: int) -> None:
+    """Give a one-rank store trainer the epoch order that `n_shards` ranks of
+    device_data_shard take (`stratified_order` over the clips' shards), so that its
+    steps see their global batches."""
+    counts = np.asarray(tr.train_data.clip_chunk_counts)
+    m, _ = mesh.shard_rows(len(counts), n_shards)
+    shard = np.repeat(np.arange(len(counts)), counts) // m
+    ids = [np.flatnonzero(shard == r) for r in range(n_shards)]
+    tr._epoch_order = lambda epoch: stratified_order(ids, tr.batch_size, tr._shuffle_rng(epoch))
+
+
+def rank_main(spec_path: str) -> None:
+    """One rank of a phase-16 run (`chip_smoke.py --rank <spec.json>`): forms the
+    process group from its launcher's environment, builds `cli.train`'s trainer on
+    its card (cuda:{LOCAL_RANK % device_count}, or the spec's device), trains with
+    `fit_instrumented` (resumed from the experiment's latest checkpoint with
+    `resume`) in deterministic mode, and prints its result as one JSON line."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(timeout_s=float(RANK_TIMEOUT_S))
+    try:
+        dev = cli_train.resolve_device(spec.get("device", "cuda"))
+        probe = gloo_cuda_collectives(dev) if distributed.process_count() > 1 else {}
+        with deterministic(dev):
+            tr = cli_train.build_trainer(spec["config"], spec["group"], spec["suffix"],
+                                         overrides=spec.get("overrides"), device=dev)
+            resume = (ckpt_latest(tr.cfg.dir.model.checkpoint) if spec.get("resume") else None)
+            out = fit_instrumented(tr, dev, resume, spec.get("timed", 0))
+        out["collectives"] = probe
+    finally:
+        distributed.shutdown()
+    print(json.dumps(out), flush=True)
+
+
+def compare_losses(got: list[float], want: list[float], what: str, first: float,
+                   rest: float | None = None, tag: str = "16") -> float:
+    """Per-step losses of two runs: the first within `first` relative, every step
+    within `rest` (default `first`); returns the largest relative difference."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{what}: {got} vs {want}")
+    rel = np.abs(got - want) / np.abs(want)
+    log(tag, f"{what}: {len(got)} steps, relative differences {np.array2string(rel, precision=2)}"
+             f" (bounds {first:g} first step, {rest or first:g} every step)")
+    if not (rel[0] <= first and np.all(rel <= (rest or first))):
+        raise AssertionError(f"{what}: {got.tolist()} vs {want.tolist()}")
+    return float(rel.max())
+
+
+def trees_equal(a, b) -> bool:
+    """Two nested dicts of arrays with the same keys and bit-equal arrays."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys()
+                and all(trees_equal(a[k], b[k]) for k in a))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def check_rank_launches(ranks: list[dict], dev, what: str) -> None:
+    """Every rank of a from-wav run launched K1 and K2 once a step of its own rows
+    (none on the CPU, whose plain versions count nothing)."""
+    for r in ranks:
+        n = r["fit_steps"]
+        want = {"salsa_spatial": n, "noise_floor": n} if dev.type == "cuda" else \
+            {"salsa_spatial": 0, "noise_floor": 0}
+        if r["launches"] != want:
+            raise AssertionError(f"{what}: rank {r['rank']} launched {r['launches']} in its "
+                                 f"{n} steps, expected {want}")
+
+
+def report_ranks(ranks: list[dict], what: str, tag: str = "16") -> None:
+    for r in ranks:
+        share = r["collective_ms"] / r["step_ms"] if r["step_ms"] else float("nan")
+        log(tag, f"{what} rank {r['rank']}/{r['n_ranks']} ({r['backend']}, {r['device']}, "
+                 f"{r['rows']} rows): launches {r['launches']}; step {r['step_ms']:.2f} ms, "
+                 f"inside its {r['collectives_per_step']} collectives {r['collective_ms']:.2f} "
+                 f"ms ({share:.1%}); peak memory {r['peak_gib']:.2f} GiB [{CARD}]")
+
+
+def six_channel_salsa(dev, seconds: float = 10.0) -> dict:
+    """SALSA of a seeded 6-mic array on `dev` against the CPU's plain run: K2 on
+    channel 0 and the power iteration (K1 is a 4-channel kernel): one K2 launch, no
+    K1; 11 channels; spectrograms within 5e-3, the spatial channels at phase 2's
+    mask bound on the circle."""
+    rng = np.random.default_rng(SEED + 16)
+    n = int(round(seconds * FS))
+    t = np.arange(n) / FS
+    wave = 0.02 * rng.standard_normal((1, SIX_MICS, n))
+    src = (0.2 * rng.standard_normal(n) + np.sin(2 * np.pi * 1100.0 * t)) * ((t % 5.0) < 3.0)
+    for m, d in enumerate(rng.integers(0, 5, SIX_MICS)):
+        wave[0, m, d:] += src[:n - d]
+    wave = torch.from_numpy(wave.astype(np.float32))
+    ex = make_extractor("salsa", "mic", fs=FS, n_fft=N_FFT, hop_length=HOP, n_mics=SIX_MICS)
+    got, launches = counted(lambda: ex(wave.to(dev)))
+    want = ex(wave)
+    want_launches = ({"salsa_spatial": 0, "noise_floor": 1} if dev.type == "cuda"
+                     else {"salsa_spatial": 0, "noise_floor": 0})
+    if launches != want_launches or got.shape[1] != 2 * SIX_MICS - 1 or (
+            ex.n_channels != 2 * SIX_MICS - 1):
+        raise AssertionError(f"6-channel SALSA: launches {launches}, shape {tuple(got.shape)}")
+    np.testing.assert_allclose(got[:, :SIX_MICS].cpu().numpy(), want[:, :SIX_MICS].numpy(),
+                               atol=5e-3, rtol=5e-3, err_msg="6-channel spectrograms")
+    nb = MIC.upper_bin - MIC.lower_bin
+    err = compare_spatial(got[:, SIX_MICS:, :, :nb].transpose(-1, -2),
+                          want[:, SIX_MICS:, :, :nb].transpose(-1, -2),
+                          f"6-channel SALSA {tuple(got.shape)} on {dev.type} vs the CPU",
+                          phase="16", period=mic_period(MIC, nb))
+    log("16", f"6-channel SALSA ({SIX_MICS} mics, {seconds:g} s): {ex.n_channels} channels, "
+              f"launches {launches}")
+    return {"launches": launches, "max_abs_err": err}
+
+
+def profiling_check(dev, tmp: str, tr_shape=(32, 4, 191, 646)) -> dict:
+    """`utils.profiling.device_timer` on K1 at the training step's shape, and
+    `trace` of one call, whose Chrome trace must name the kernel's launch."""
+    rng = np.random.default_rng(SEED + 17)
+    xr, xi = normal_planes(rng, tr_shape, dev)
+    mask = torch.ones((tr_shape[0], tr_shape[2], tr_shape[3] - 6), dtype=torch.bool, device=dev)
+    s = profiling.device_timer(lambda *a: salsa_spatial(*a, **spatial_kw(FOA)), xr, xi, mask,
+                               iters=7)
+    log_dir = os.path.join(tmp, "trace")
+    with profiling.trace(log_dir):
+        with torch.profiler.record_function("K1 salsa_spatial"):
+            salsa_spatial(xr, xi, mask, **spatial_kw(FOA))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        text = f.read()
+    if "K1 salsa_spatial" not in text:
+        raise AssertionError(f"{log_dir}/trace.json does not hold the traced call")
+    # the kernel's device row needs the profiler's CUDA activity, which a later
+    # profiler session in one process does not always get (phases 5-15 profile)
+    row = "salsa_spatial_kernel" in text
+    log("16", f"profiling.device_timer: K1 at {tr_shape} {s * 1e3:.4f} ms median of 7 "
+              f"(bound {k1_bound(tr_shape)[0]:.4f} ms) [{CARD}]; profiling.trace wrote "
+              f"{len(text)} bytes, the traced call {'with' if row else 'without'} K1's "
+              "device row")
+    return {"k1_ms": s * 1e3, "k1_bound": k1_bound(tr_shape), "trace_bytes": len(text),
+            "kernel_row": row}
+
+
+def phase16(dev, seconds: float = 60.0, overrides=(), timed: int = TIMED_RANK_STEPS,
+            k1_shape=(32, 4, 191, 646)) -> dict:
+    """Data-parallel training of configs/seld.yml from phase 9's clips: (a) one rank
+    over NCCL (gloo on the CPU) against the same run without a process group; (b)
+    two ranks sharing the card over gloo, batch 16 each, against (a), K1 and K2 once
+    a step in every rank; (c) device_data_shard on two ranks from a store of the
+    clips against device_data on one rank in the same order; (d) that run stopped
+    after an epoch and resumed on two ranks; (e) export_ckpt and import_ckpt of
+    (a)'s best, served by cli.predict byte-identically; (f) SALSA at 6 channels;
+    (g) profiling."""
+    cuda = dev.type == "cuda"
+    out = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = write_train_experiment(tmp, seconds, overrides=(*PARALLEL_OVERRIDES, *overrides))
+        spec = {"config": exp["config"], "group": exp["group"], "device": dev.type,
+                "timed": timed}
+        with deterministic(dev):
+            solo = fit_instrumented(cli_train.build_trainer(exp["config"], exp["group"], "_solo",
+                                                            device=dev), dev, timed=timed)
+        if cuda:
+            torch.cuda.empty_cache()
+        one = launch_ranks({**spec, "suffix": "_one"}, 1, tmp)
+        want_backend = "nccl" if cuda else "gloo"
+        if one[0]["n_ranks"] != 1 or one[0]["backend"] != want_backend:
+            raise AssertionError(f"(a) ran {one[0]['n_ranks']} ranks on {one[0]['backend']}")
+        out["one_rel"] = compare_losses(one[0]["step_losses"], solo["step_losses"],
+                                        f"(a) one rank over {want_backend} vs no process group",
+                                        1e-6)
+        check_rank_launches(one, dev, "(a)")
+        two = launch_ranks({**spec, "suffix": "_two"}, 2, tmp)
+        if [r["rank"] for r in two] != [0, 1] or any(
+                r["backend"] != "gloo" or r["rows"] * 2 != solo["rows"] for r in two):
+            raise AssertionError(f"(b) ranks {[(r['rank'], r['backend'], r['rows']) for r in two]}")
+        for name in ("all_reduce", "broadcast"):  # the collectives the trainer runs
+            if two[0]["collectives"][name] != "ok":
+                raise AssertionError(f"(b) gloo {name} on {dev.type} tensors: "
+                                     f"{two[0]['collectives'][name]}")
+        log("16", f"(b) gloo on {dev.type} tensors (host copies inside the collective): "
+                  f"{two[0]['collectives']}")
+        if two[0]["step_losses"] != two[1]["step_losses"]:
+            raise AssertionError("(b) the ranks logged different global losses")
+        out["two_rel"] = compare_losses(two[0]["step_losses"], one[0]["step_losses"],
+                                        "(b) two ranks on one card vs one rank", 1e-4, 2e-3)
+        check_rank_launches(two, dev, "(b)")
+        report_ranks(one + two, "from wav")
+        out.update(solo=solo, one=one[0], two=two)
+
+        # (c) and (d): the store of the clips, device_data_shard on two ranks
+        data = load_config(TNSSE_SALSA_YML)
+        data.data_dir, data.feature_dir = os.path.dirname(exp["wav_dir"]), os.path.join(
+            tmp, "features")
+        data_path = os.path.join(tmp, "tnsse2021_salsa.yml")
+        save_config(data, data_path)
+        store = cli_extract.extract_features(data_path, "salsa", batch_size=EXTRACT_BATCH,
+                                             splits=["foa_dev"], device=dev)
+        os.makedirs(os.path.join(tmp, "store"))
+        cfg = load_config(exp["config"])
+        apply_overrides(cfg, [f"feature_root_dir={store}", "training.from_wav=false",
+                              *STORE_PARALLEL_OVERRIDES])
+        store_cfg = os.path.join(tmp, "store", os.path.basename(exp["config"]))
+        save_config(cfg, store_cfg)
+        sspec = {"config": store_cfg, "group": exp["group"], "device": dev.type}
+        with deterministic(dev):
+            tr = cli_train.build_trainer(store_cfg, exp["group"], "_dd", device=dev)
+            stratify_like(tr, 2)
+            dd = fit_instrumented(tr, dev)
+        del tr
+        shard = launch_ranks({**sspec, "suffix": "_shard"}, 2, tmp)
+        if not all(r["device_data_shard"] for r in shard) or dd["device_data_shard"]:
+            raise AssertionError("(c) device_data_shard did not shard on 2 ranks, or did on 1")
+        out["shard_rel"] = compare_losses(shard[0]["step_losses"], dd["step_losses"],
+                                          "(c) device_data_shard on two ranks vs device_data "
+                                          "on one", 1e-4)
+        first = launch_ranks({**sspec, "suffix": "_resume",
+                              "overrides": ["training.max_epochs=1"]}, 2, tmp)
+        resumed = launch_ranks({**sspec, "suffix": "_resume", "resume": True}, 2, tmp,
+                               launcher="salsa")
+        if resumed[0]["count"] != shard[0]["count"]:
+            raise AssertionError(f"(d) resumed to step {resumed[0]['count']}, the uninterrupted "
+                                 f"run to {shard[0]['count']}")
+        out["resume_rel"] = compare_losses(first[0]["step_losses"] + resumed[0]["step_losses"],
+                                           shard[0]["step_losses"],
+                                           f"(d) {first[0]['count']} + "
+                                           f"{resumed[0]['count'] - first[0]['count']} steps "
+                                           "resumed on two ranks vs uninterrupted", 1e-4)
+
+        # (e) export (a)'s best and import it into a new experiment; both served
+        solo_dir = exp["exp_dir"] + "_solo"
+        ckpt_out = os.path.join(tmp, "exported.ckpt")
+        cli_export_ckpt.main(["--exp-config", exp["config"], "--exp-group-dir", exp["group"],
+                              "--exp-suffix", "_solo", "--out", ckpt_out])
+        imported = cli_import_ckpt.main(["--exp-config", exp["config"], "--torch-ckpt", ckpt_out,
+                                         "--exp-group-dir", exp["group"],
+                                         "--exp-suffix", "_imported"])
+        shutil.copyfile(os.path.join(solo_dir, "models", "feature_scaler.npz"),
+                        os.path.join(exp["exp_dir"] + "_imported", "models", "feature_scaler.npz"))
+        original = ckpt_best(os.path.join(solo_dir, "models", "best"))
+        for a, b in zip(ckpt_restore_variables(original)[:2], ckpt_restore_variables(imported)[:2]):
+            if not trees_equal(a, b):
+                raise AssertionError(f"(e) {imported} differs from {original}")
+        csv_dirs = []
+        for suffix in ("_solo", "_imported"):
+            d = os.path.join(tmp, f"pred{suffix}")
+            cli_predict.predict(exp["config"], exp["val_wav_dir"], d, exp["group"], suffix,
+                                device=dev)
+            csv_dirs.append(d)
+        if differing_files(*csv_dirs):
+            raise AssertionError(f"(e) the imported experiment's CSVs differ: "
+                                 f"{differing_files(*csv_dirs)}")
+        log("16", f"(e) export_ckpt -> import_ckpt of {original}: parameters bit-equal, "
+                  f"cli.predict on {dev.type} writes byte-identical CSVs "
+                  f"({len(os.listdir(csv_dirs[0]))} files)")
+        out["six"] = six_channel_salsa(dev)
+        out["profile"] = profiling_check(dev, tmp, k1_shape)
+    out["seconds"] = time.perf_counter() - t_phase
+    log("16", f"phase 16: {out['seconds']:.1f} s host clock [{CARD}]")
+    return out
+
+
 def main() -> None:
     card = phase0()
     dev = torch.device("cuda", 0)
@@ -3446,6 +3887,8 @@ def main() -> None:
                              "step_ms": aug["step"]["step"], "peak_gib": aug["peak_gib"]})
     torch.cuda.empty_cache()
     store = phase15(dev)
+    torch.cuda.empty_cache()
+    par = phase16(dev)
     # library_ms: one PyTorch call computing the same function, where there is one
     # (cuDNN bf16 for K4, timed by the probe); none exists for K1-K3. `launches` is
     # phase 4's serving run; K1's and K2's train_* keys are phase 9's cli.train,
@@ -3458,7 +3901,10 @@ def main() -> None:
     # split, plain and --tta (reg_xyz), tpu_recipe_* phase 14's configs/seld_tpu.yml
     # runs: its three requests and its cli.train, extract_* phase 15's cli.extract of
     # the store, precompute_* its from_wav_mode precompute setup (the steps launch
-    # none) and store_train_* its cli.train from the store (0)
+    # none) and store_train_* its cli.train from the store (0), parallel_* phase 16's
+    # cli.train on one rank over NCCL and each of two ranks on the card (a count a
+    # rank, K1 and K2 once a step of its rows), six_channel_* its 6-mic SALSA
+    # extraction (K2 only), step_device_timer_ms utils.profiling's K1 time
     kernels = [
         {"name": "salsa_spatial", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/salsa_spatial.cu",
@@ -3485,7 +3931,11 @@ def main() -> None:
          "extract_launches": store["extract"]["launches"]["salsa_spatial"],
          "extract_max_abs_err": store["extract"]["max_abs_err"],
          "precompute_launches": store["pre_launches"]["salsa_spatial"],
-         "store_train_launches": store["train_launches"]["salsa_spatial"]},
+         "store_train_launches": store["train_launches"]["salsa_spatial"],
+         "parallel_one_rank_launches": par["one"]["launches"]["salsa_spatial"],
+         "parallel_rank_launches": [r["launches"]["salsa_spatial"] for r in par["two"]],
+         "six_channel_launches": par["six"]["launches"]["salsa_spatial"],
+         "step_device_timer_ms": par["profile"]["k1_ms"]},
         {"name": "noise_floor", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/noise_floor.cu",
          "replaces": "salsa_tpu/features/salsa.py:82",
@@ -3512,7 +3962,10 @@ def main() -> None:
          "tpu_recipe_train_launches": tpu["train"]["launches"]["noise_floor"],
          "extract_launches": store["extract"]["launches"]["noise_floor"],
          "precompute_launches": store["pre_launches"]["noise_floor"],
-         "store_train_launches": store["train_launches"]["noise_floor"]},
+         "store_train_launches": store["train_launches"]["noise_floor"],
+         "parallel_one_rank_launches": par["one"]["launches"]["noise_floor"],
+         "parallel_rank_launches": [r["launches"]["noise_floor"] for r in par["two"]],
+         "six_channel_launches": par["six"]["launches"]["noise_floor"]},
         {"name": "salsa_spatial_probe", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/salsa_spatial_probe.cu",
          "replaces": "scripts/probe_salsa_kernel.py:67",
@@ -3534,5 +3987,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:  # one rank of phase 16, spawned by launch_ranks
+        rank_main(sys.argv[2])
+    else:
+        main()
     sys.exit(0)

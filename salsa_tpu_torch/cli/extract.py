@@ -15,7 +15,9 @@ batch on the card (for SALSA one K2 and one K1 launch), a group of mixed lengths
 is extracted clip by clip. A short last group is not padded, so that no clip's
 features depend on the clips batched with it. The scaler is fit over every clip
 of the dev folder in sorted order (`StreamingScaler`). Each split's rate is
-logged as x realtime on the host clock, the disk writes included.
+logged as x realtime on the host clock, the disk writes included. SALSA takes the
+channel count of the first wav (2C - 1 feature channels, C of them scaled; C in
+2-16), 4-channel FOA or MIC arrays as configured.
 """
 from __future__ import annotations
 
@@ -31,9 +33,21 @@ from salsa_tpu_torch.cli._errors import cli_entry
 from salsa_tpu_torch.data.feature_store import FeatureStore, StreamingScaler
 from salsa_tpu_torch.features.registry import make_extractor
 from salsa_tpu_torch.train.trainer import resolve_device
-from salsa_tpu_torch.utils.audio_io import read_wav
+from salsa_tpu_torch.utils.audio_io import read_wav, wav_info
 from salsa_tpu_torch.utils.config import load_config
 from salsa_tpu_torch.utils.experiments import configure_logging, logger
+
+
+def first_wav_channels(data_dir: str, splits: list[str]) -> int:
+    """The channel count of the first wav (sorted) of the first split folder that
+    has one; 4 where none has."""
+    for split in splits:
+        audio_dir = os.path.join(data_dir, split)
+        wavs = sorted(f for f in os.listdir(audio_dir) if f.endswith(".wav")) if os.path.isdir(
+            audio_dir) else []
+        if wavs:
+            return wav_info(os.path.join(audio_dir, wavs[0]))[0]
+    return 4
 
 
 def feature_dir_of(feature_dir: str, feature_type: str, audio_format: str,
@@ -67,19 +81,19 @@ def extract_features(
     d = cfg.data
     audio_format = d.get("format", "foa")
     fs = d.fs
+    if splits is None:
+        splits = [f"{audio_format}_dev", f"{audio_format}_eval"]
     extractor = make_extractor(
         feature_type, audio_format, fs=fs, n_fft=d.n_fft, hop_length=d.hop_len,
         win_length=d.get("win_len", d.n_fft), n_mels=d.get("n_mels", 128),
         fmin=d.get("fmin", 50), fmax=d.get("fmax", None), fmin_doa=d.get("fmin_doa", 50),
         fmax_doa=d.get("fmax_doa", None), condition_number=cond_num, n_hopframes=n_hopframes,
         is_tracking=is_tracking, compress_high_freq=is_compress_high_freq,
-        eig_method=eig_method)
+        eig_method=eig_method, n_mics=first_wav_channels(cfg.data_dir, splits))
     feature_dir = feature_dir_of(cfg.feature_dir, feature_type, audio_format,
                                  extractor.description)
     store = FeatureStore(feature_dir, audio_format)
     logger.info("Feature dir: %s", feature_dir)
-    if splits is None:
-        splits = [f"{audio_format}_dev", f"{audio_format}_eval"]
 
     def extract(audios: list[np.ndarray]) -> np.ndarray:
         feats = extractor(torch.from_numpy(np.stack(audios)).to(device))

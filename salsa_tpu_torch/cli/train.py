@@ -30,6 +30,19 @@ augmentation draws are a function of (seed, step), so the resumed epochs are the
 uninterrupted run's. Checkpoints are written as `epochNNN` and `best` in flax's
 msgpack format; the experiment is served by `salsa_tpu_torch.cli.predict` and by
 `salsa_tpu.cli.predict`.
+
+Data-parallel over N processes, one global batch of `train_batch_size` split by
+rows (`train.trainer`), launched by torchrun or as `salsa_tpu`'s are:
+
+    torchrun --nproc_per_node=N -m salsa_tpu_torch.cli.train --exp-config ...
+    SALSA_COORDINATOR=host:port SALSA_NUM_PROCESSES=N SALSA_PROCESS_ID=i \
+        python -m salsa_tpu_torch.cli.train --exp-config ...
+
+The process group forms before anything touches a device
+(`parallel.distributed.initialize`; NCCL with a card a rank, gloo where ranks
+share a card); each rank trains on cuda:{LOCAL_RANK % device_count}. Rank 0
+writes the scaler, the config snapshot, validation and the checkpoints;
+`--resume` restores the checkpoint on every rank.
 """
 from __future__ import annotations
 
@@ -54,7 +67,8 @@ from salsa_tpu_torch.features.chunked import required_pad
 from salsa_tpu_torch.features.registry import make_extractor
 from salsa_tpu_torch.models.seld import build_model
 from salsa_tpu_torch.train.checkpoint import latest_checkpoint
-from salsa_tpu_torch.train.trainer import SeldTrainer, refuse_unported, resolve_device
+from salsa_tpu_torch.parallel import distributed
+from salsa_tpu_torch.train.trainer import SeldTrainer, resolve_device
 from salsa_tpu_torch.utils.config import apply_overrides
 from salsa_tpu_torch.utils.experiments import logger, manage_experiments
 
@@ -87,17 +101,21 @@ def build_trainer(exp_config: str, exp_group_dir: str = "./outputs", exp_suffix:
     card unless the caller asks for the CPU): returns the trainer, whose
     `setup_seconds` holds the host-clock seconds of reading the splits (from the
     store, or the wavs, the scaler fit, the train split's precompute, the tracker
-    checkpoints and the val extraction)."""
+    checkpoints and the val extraction). In a multi-process launch the process
+    group forms first (`distributed.initialize`), and `device` 'cuda' is the
+    rank's card."""
+    distributed.initialize()
     device = resolve_device(device)
-    cfg = manage_experiments(exp_config, exp_group_dir, exp_suffix, is_train=True)
+    cfg = manage_experiments(exp_config, exp_group_dir, exp_suffix,
+                             is_train=distributed.is_primary())
     if overrides:
         apply_overrides(cfg, overrides)
-    refuse_unported(cfg)
     seed = seed if seed is not None else cfg.get("seed", 2021)
 
     mode = cfg.get("mode", "crossval")
     train_split = "train" if mode == "crossval" else "dev"
-    val_split = "val" if mode == "crossval" else None
+    # rank 0 validates: the other ranks read no val split
+    val_split = "val" if mode == "crossval" and distributed.is_primary() else None
     if mode == "eval" and "best_epoch" in cfg.training:
         cfg.training.max_epochs = cfg.training.best_epoch
     split_meta_dir = cfg.get("split_meta_dir")
@@ -171,8 +189,9 @@ def _wav_splits(cfg, train_split: str, val_split: str | None, split_meta_dir, de
     seconds["scaler_fit"] = time.perf_counter() - t0
     # persisted for serving: a from-wav experiment has no feature store to carry it
     scaler_path = os.path.join(os.path.dirname(cfg.dir.model.best), "feature_scaler.npz")
-    os.makedirs(os.path.dirname(scaler_path), exist_ok=True)
-    np.savez(scaler_path, mean=scaler[0], std=scaler[1])
+    if distributed.is_primary():
+        os.makedirs(os.path.dirname(scaler_path), exist_ok=True)
+        np.savez(scaler_path, mean=scaler[0], std=scaler[1])
     if cfg.training.get("from_wav_mode", "fused") == "precompute":
         # the train split extracted once at startup into memory, then the
         # resident path: no extraction in the steps, no disk

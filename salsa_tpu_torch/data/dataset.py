@@ -1,11 +1,13 @@
 """Chunk dataset, host batching and background prefetch (counterpart of
-`salsa_tpu.data.dataset`, without its multi-process sharding).
+`salsa_tpu.data.dataset`).
 
 `SeldChunkDataset` slices fixed-length windows out of a split (preloaded or lazy)
 and applies the host transforms; `batch_iterator` yields shuffled fixed-size
 batches for training (the incomplete tail dropped only where asked) and in-order
 batches for validation, where the overlapping chunks of a clip are recombined
-downstream; `prefetch` builds batches on a background thread.
+downstream; `prefetch` builds batches on a background thread. With
+`process_shard` each rank of a data-parallel run reads and transforms only its
+rows of every global batch.
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ def batch_iterator(
     drop_last: bool = False,
     rng: np.random.Generator | None = None,
     pad_to_batch: bool = False,
+    process_shard: tuple[int, int] | None = None,
     num_workers: int = 0,
 ) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray, list[str], int]]:
     """Yields (x, sed, doa, clip_names, n_real) batches as stacked numpy arrays.
@@ -68,6 +71,14 @@ def batch_iterator(
     `num_workers` > 0 reads each batch's windows on a thread pool (a lazy split
     reads from disk on every access); the transforms still run in this thread,
     in order, so their draws do not depend on the worker count.
+
+    `process_shard=(rank, n_ranks)` is `salsa_tpu`'s multi-process mode: the
+    shuffle is over the whole split (the same order on every same-seeded rank),
+    each rank reads and transforms only its rows [rank * B / n, (rank + 1) * B / n)
+    of each global batch of B, and n_real is that row count. The host transforms
+    then draw on each rank's own generator for its own rows, so their draws are
+    not one process's draws over the whole batch, as in `salsa_tpu`. It needs
+    `drop_last` and a batch that divides by n_ranks (ValueError otherwise).
     """
     order = np.arange(len(dataset))
     if shuffle:
@@ -82,6 +93,17 @@ def batch_iterator(
     else:
         materialize = lambda idx: [dataset[int(j)] for j in idx]  # noqa: E731
     try:
+        if process_shard is not None:
+            rank, n_ranks = process_shard
+            if not drop_last or batch_size % n_ranks:
+                raise ValueError("process_shard needs drop_last and a batch that divides by "
+                                 f"the {n_ranks} ranks, got batch {batch_size}")
+            per = batch_size // n_ranks
+            for i in range(0, len(order) - batch_size + 1, batch_size):
+                samples = materialize(order[i + rank * per:i + (rank + 1) * per])
+                yield (np.stack([s[0] for s in samples]), np.stack([s[1] for s in samples]),
+                       np.stack([s[2] for s in samples]), [s[3] for s in samples], per)
+            return
         for i in range(0, len(order), batch_size):
             idx = order[i : i + batch_size]
             if len(idx) < batch_size:

@@ -129,24 +129,25 @@ def _salsa_from_spectra(re, im, re_pad, im_pad, p: SalsaParams, n_frames: int, s
     bins): log-linear spectrogram, then K2 from `state0` (None: the clip-start
     state; `restart` (B,) bool: these clips start here) and the spatial stage (K1,
     or `salsa_tpu`'s XLA branch). Without tracking K2 does not run and `state0`
-    passes through. Returns (features (B, 7, n_frames, freq_dim), the tracker
-    state after the last frame)."""
+    passes through. Returns (features (B, 2C - 1, n_frames, freq_dim), 7 channels
+    at C = 4, the tracker state after the last frame)."""
     n_band = p.upper_bin - p.lower_bin
     W = _compression_matrix(p.n_fft, p.compress_high_freq, re.device)
-    log_spec = power_to_db((re * re + im * im) @ W.T)        # (B, 4, L, F)
+    log_spec = power_to_db((re * re + im * im) @ W.T)        # (B, C, L, F)
     xr = re_pad[..., p.lower_bin:p.upper_bin].transpose(-1, -2).contiguous()
     xi = im_pad[..., p.lower_bin:p.upper_bin].transpose(-1, -2).contiguous()
     mask, state = tracker_mask(xr, xi, n_frames, p, state0, restart)
-    eig = eig_features_from_planes(xr, xi, mask, p).transpose(-1, -2)  # (B, 3, L, nb)
+    eig = eig_features_from_planes(xr, xi, mask, p).transpose(-1, -2)  # (B, C - 1, L, nb)
     return torch.cat([log_spec, F.pad(eig, (0, p.freq_dim - n_band))], dim=1), state
 
 
 def make_salsa_chunk_fn(p: SalsaParams, chunk_len: int):
-    """Chunk extractor for SALSA (FOA and MIC).
+    """Chunk extractor for SALSA (FOA and MIC, C channels: K1 at 4, the power
+    iteration at the table's other counts).
 
     Returns fn(waves, clips, f0, n_full, floor0, countdown0, wav_scale=1.0) ->
-    (B, 7, chunk_len, freq_dim) float32 features, equal to extract_salsa(clip)[:,
-    :, f0:f0 + chunk_len] for each chunk: waves (n_clips, 4, S) center-padded
+    (B, 2C - 1, chunk_len, freq_dim) float32 features, equal to extract_salsa(clip)[:,
+    :, f0:f0 + chunk_len] for each chunk: waves (n_clips, C, S) center-padded
     resident waveforms; clips, f0, n_full (B,) int64; floor0/countdown0 (B,
     bins_band) the tracker state entering frame f0 (`salsa_tracker_checkpoints`;
     None without tracking). One K2 launch resumed from that state and one K1 launch

@@ -183,9 +183,13 @@ def make_extractor(
     is_tracking: bool = True,
     compress_high_freq: bool = True,
     eig_method: str = "auto",
+    n_mics: int = 4,
 ) -> FeatureExtractor:
     """`salsa_tpu.features.registry.make_extractor` with its defaults, except that
-    eig_method 'auto' is K1 on every device (ROADMAP rule 5)."""
+    eig_method 'auto' is K1 on every device (ROADMAP rule 5). SALSA takes any
+    channel count C = `n_mics` of the table (2-16) and reports its 2C - 1 output
+    channels and C spectrogram channels; `salsa_tpu` reports 7 and 4 at every C
+    (ROADMAP queue 3)."""
     meta = dict(name=feature_type, audio_format=audio_format, hop_length=hop_length)
     if feature_type == "salsa":
         p = salsa_params(audio_format, fs, n_fft, hop_length, win_length, fmin_doa, fmax_doa,
@@ -197,8 +201,9 @@ def make_extractor(
             desc += "_notracking"
         if not compress_high_freq:
             desc += "_nocompress"
-        return FeatureExtractor(n_channels=7, n_features=p.freq_dim, n_spec_channels=4,
-                                description=desc, fn=partial(extract_salsa, params=p), **meta)
+        return FeatureExtractor(n_channels=2 * n_mics - 1, n_features=p.freq_dim,
+                                n_spec_channels=n_mics, description=desc,
+                                fn=partial(extract_salsa, params=p), **meta)
     ff = frame_feature(feature_type, audio_format, fs, n_fft, hop_length, win_length, n_mels,
                        fmin, fmax, fmin_doa, fmax_doa, compress_high_freq)
     return FeatureExtractor(n_channels=ff.n_channels, n_features=ff.n_features,

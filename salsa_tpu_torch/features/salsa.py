@@ -28,10 +28,9 @@ import torch.nn.functional as F
 from salsa_tpu_torch.dsp.filterbank import high_freq_compression_matrix
 from salsa_tpu_torch.dsp.stft import power_to_db, stft_planes
 from salsa_tpu_torch.features.salsa_spatial import (
-    START_S0,
-    START_S1,
     mic_delta,
     salsa_spatial,
+    start_vectors,
 )
 from salsa_tpu_torch.kernels.build import check_launch, load_library
 
@@ -44,8 +43,6 @@ FLOOR_UP_SLOW = np.float32(1.0 + 0.1 * _ALPHA).item()
 FLOOR_DOWN = np.float32(1.0 - _ALPHA).item()
 FLOOR_MIN = 1e-6
 EIG_METHODS = ("auto", "pallas", "power", "eigh")
-NOT_FOUR_CHANNELS = ("SALSA with {} channels is not ported: the power iteration's start "
-                     "vectors are held for 4 channels only (ROADMAP queue 1, item 7)")
 
 
 @dataclass(frozen=True)
@@ -69,8 +66,10 @@ class SalsaParams:
 
     @property
     def uses_k1(self) -> bool:
-        """Whether the spatial stage is K1: 'auto'/'pallas' with tracking. salsa_tpu
-        sends everything else to its XLA branch."""
+        """Whether the spatial stage is K1: 'auto'/'pallas' with tracking (at 4
+        channels; `eig_features_from_planes` sends other counts to the power
+        iteration, as salsa_tpu does). salsa_tpu sends everything else to its XLA
+        branch."""
         return self.is_tracking and self.eig_method in ("auto", "pallas")
 
     @property
@@ -299,11 +298,10 @@ def principal_eigs_power(R: torch.Tensor, n_iters: int = 20):
     time, v = P s0 normalised and refined once with P, lam0 its Rayleigh quotient
     with R; then 3 un-squared steps of R / tr(R) from s1, orthogonalised against v
     each step, for lam1. Returns (lam0, lam1, v). The start vectors are
-    `salsa_tpu`'s for 4 channels (START_S0, START_S1); other channel counts raise.
+    `salsa_tpu`'s for C channels (`salsa_spatial.start_vectors`, C = 2-16; other
+    counts raise NotImplementedError).
     """
-    C = R.shape[-1]
-    if C != 4:
-        raise NotImplementedError(NOT_FOUR_CHANNELS.format(C))
+    s0_np, s1_np = start_vectors(R.shape[-1])
     n_sq = int(np.clip(np.ceil(np.log2(max(n_iters, 2))) - 1, 2, 4))
 
     def matmat(A, B):
@@ -329,8 +327,8 @@ def principal_eigs_power(R: torch.Tensor, n_iters: int = 20):
     for _ in range(n_sq):
         P = matmat(P, P)
         P = P / (trace(P)[..., None, None] + 1e-30).to(R.dtype)
-    s0 = torch.from_numpy(START_S0).to(R.device)
-    s1 = torch.from_numpy(START_S1).to(R.device)
+    s0 = torch.from_numpy(s0_np).to(R.device)
+    s1 = torch.from_numpy(s1_np).to(R.device)
     v = unit(matvec(P, s0.expand(P.shape[:-1])))
     v = unit(matvec(P, v))
     lam0 = rayleigh(R, v)
@@ -376,15 +374,15 @@ def eig_features_from_planes(xr: torch.Tensor, xi: torch.Tensor, sig_mask: torch
                              params: SalsaParams) -> torch.Tensor:
     """Masked principal-eigenvector features, (B, C-1, bins, T), from (B, C, bins,
     T + 2h) re/im planes carrying their covariance context: K1 where
-    `params.uses_k1`, else `eig_features_from_padded`."""
+    `params.uses_k1` and C = 4, else `eig_features_from_padded` (K1 is a 4-channel
+    kernel: other channel counts take the power iteration, as `salsa_tpu` routes
+    them off its Pallas kernel)."""
     p = params
-    if p.uses_k1:
+    if p.uses_k1 and xr.shape[1] == 4:
         return salsa_spatial(
             xr, xi, sig_mask, n_hop=p.n_hopframes, audio_format=p.audio_format,
             condition_number=p.condition_number, lower_bin=p.lower_bin, fs=p.fs,
             n_fft=p.n_fft)
-    if xr.shape[1] != 4:
-        raise NotImplementedError(NOT_FOUR_CHANNELS.format(xr.shape[1]))
     return eig_features_from_padded(torch.complex(xr, xi).permute(0, 2, 3, 1), sig_mask, p)
 
 
@@ -422,10 +420,13 @@ def _compression_matrix(n_fft: int, compress: bool, device: torch.device) -> tor
 
 
 def extract_salsa(waves: torch.Tensor, params: SalsaParams) -> torch.Tensor:
-    """(B, 4, n_samples) -> (B, 7, n_frames, freq_dim) SALSA feature.
+    """(B, C, n_samples) -> (B, 2C - 1, n_frames, freq_dim) SALSA feature, 7
+    channels at C = 4.
 
-    Channels 0-3: log-linear compressed spectrograms; channels 4-6: normalized
-    principal eigenvectors (zero-padded above upper_bin).
+    Channels 0 to C-1: log-linear compressed spectrograms; channels C to 2C-2:
+    normalized principal eigenvectors (zero-padded above upper_bin). K1 computes
+    the eigenvectors at C = 4, the power iteration at C = 2-16 (other counts
+    raise NotImplementedError); K2 tracks channel 0 at any C.
     """
     p = params
     if waves.dim() != 3:

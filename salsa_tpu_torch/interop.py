@@ -16,6 +16,14 @@ and the heads.
 `salsa_tpu.interop.torch_ckpt.torch_state_dict_to_flax`, without a flax template):
 with `train.checkpoint.save_checkpoint` it writes a port model as a checkpoint
 that `salsa_tpu` restores.
+
+Reference (PyTorch / Lightning) checkpoints, both ways (the counterparts of
+`salsa_tpu.interop.torch_ckpt.load_torch_state_dict` and
+`torch_export.save_torch_checkpoint`): `load_torch_state_dict` reads a raw or
+Lightning `.ckpt` with `weights_only=True` (a leading `model.` stripped), and
+`save_torch_checkpoint` writes the Lightning layout. The port's modules carry
+the reference's names, so importing one into a port model is a strict key and
+shape check (`load_reference_state_dict`), not a mapping.
 """
 from __future__ import annotations
 
@@ -298,3 +306,63 @@ def load_flax_variables(model: nn.Module, params: dict, batch_stats: dict) -> nn
     model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
                           strict=True)
     return model
+
+
+def load_torch_state_dict(path: str, *, trust_checkpoint: bool = False) -> dict[str, np.ndarray]:
+    """A reference checkpoint as {key: numpy array}: a raw state_dict or a
+    Lightning checkpoint's `state_dict`, a leading `model.` stripped from every
+    key, non-tensor entries dropped. Loaded with `weights_only=True` (no code runs
+    while unpickling); a file that needs full unpickling raises ValueError unless
+    `trust_checkpoint` (CLI: --trust-checkpoint), for files from a trusted
+    producer only."""
+    try:
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as e:  # noqa: BLE001 - any refusal of the safe loader
+        if not trust_checkpoint:
+            raise ValueError(f"{path} needs full (unsafe) unpickling to load. If you trust its "
+                             "producer, retry with trust_checkpoint=True "
+                             "(CLI: --trust-checkpoint).") from e
+        blob = torch.load(path, map_location="cpu", weights_only=False)
+    state = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
+    out = {}
+    for k, v in state.items():
+        if k.startswith("model."):
+            k = k[len("model."):]
+        if hasattr(v, "detach"):
+            out[k] = v.detach().cpu().numpy()
+    return out
+
+
+def load_reference_state_dict(model: nn.Module, state: dict[str, np.ndarray]) -> nn.Module:
+    """Load a reference-named state_dict into a port model: the keys and shapes
+    must be the model's (a missing `num_batches_tracked`, a counter, reads as 0);
+    anything else raises ValueError naming the missing, unexpected and misshapen
+    keys."""
+    own = model.state_dict()
+    missing = sorted(k for k in own if k not in state and not k.endswith("num_batches_tracked"))
+    unexpected = sorted(k for k in state if k not in own)
+    misshapen = sorted(f"{k} {tuple(np.shape(state[k]))} != {tuple(v.shape)}"
+                       for k, v in own.items()
+                       if k in state and tuple(np.shape(state[k])) != tuple(v.shape))
+    if missing or unexpected or misshapen:
+        raise ValueError(f"the checkpoint does not map onto the config's model: missing "
+                         f"{missing[:6]}, unexpected {unexpected[:6]}, misshapen {misshapen[:6]} "
+                         f"({len(missing)}, {len(unexpected)}, {len(misshapen)} keys) - same "
+                         "encoder and decoder config?")
+    model.load_state_dict({k: torch.from_numpy(np.array(state[k])).to(v.dtype)
+                           if k in state else torch.zeros_like(v) for k, v in own.items()},
+                          strict=True)
+    return model
+
+
+def save_torch_checkpoint(path: str, state_dict: dict[str, np.ndarray],
+                          metadata: dict | None = None) -> str:
+    """Write a Lightning-style checkpoint, `{"state_dict": {"model.<key>": tensor}}`
+    (with `metadata` under `salsa_tpu_export`), which `torch.load(...,
+    weights_only=True)` reads back; returns `path`."""
+    blob = {"state_dict": {f"model.{k}": torch.from_numpy(np.array(v, copy=True))
+                           for k, v in state_dict.items()}}
+    if metadata:
+        blob["salsa_tpu_export"] = dict(metadata)
+    torch.save(blob, path)
+    return path

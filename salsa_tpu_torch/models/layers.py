@@ -17,6 +17,13 @@ variance mean(x^2) - mean(x)^2 in float32 (torch's own update takes the unbiased
 one), and `Dropout` draws its keep mask from an explicit torch.Generator
 (`generator`, set by the trainer; torch's default generator when unset).
 
+Across ranks (a `torch.distributed` group of more than one process, each rank
+holding its rows of one global batch) both keep `salsa_tpu`'s one-global-batch
+semantics: `BatchNorm2d` normalizes by the statistics of the global batch, its
+sums (sum x, sum x^2, count) all-reduced, and its backward all-reduces its two
+sums (`_CrossRankBatchNorm`); `Dropout` draws the global batch's mask from the
+step's generator and keeps the rank's rows. With one rank neither changes.
+
 The compute dtype (`compute_dtype`, flax's per-module `dtype`) is flax's per-op
 arithmetic, not autocast: `Conv2d` and `Linear` cast their input and weights to
 it (float32 sums, results in it), `BatchNorm2d` normalizes a bfloat16 input in
@@ -31,6 +38,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from salsa_tpu_torch.parallel import distributed
 
 COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -90,27 +99,76 @@ def conv1x1(in_features: int, features: int, compute_dtype=None) -> Conv2d:
 FLAX_BN_MOMENTUM = 0.9
 
 
+class _CrossRankBatchNorm(torch.autograd.Function):
+    """Training-mode batch norm over the global batch of the ranks: (sum x,
+    sum x^2, count) per channel over (N, H, W) all-reduced, the global mean and
+    biased variance max(E[x^2] - E[x]^2, 0) in float32. The backward all-reduces
+    (sum g, sum g * xhat) for the input's gradient; the scale's and shift's
+    gradients stay the rank's own sums, which the trainer's gradient all-reduce
+    adds up. Returns (y in x's dtype, mean, var)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float):
+        xf = x.float()
+        C = x.shape[1]
+        count = xf.new_full((1,), float(xf.numel() // C))
+        stats = distributed.all_reduce_sum(
+            torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), count]))
+        n = stats[-1]
+        mean = stats[:C] / n
+        var = torch.clamp(stats[C:2 * C] / n - mean * mean, min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        xhat = (xf - mean[:, None, None]) * invstd[:, None, None]
+        y = xhat * weight[:, None, None] + bias[:, None, None]
+        ctx.save_for_backward(x, mean, invstd, weight)
+        ctx.n = n
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, mean, invstd, weight = ctx.saved_tensors
+        g = gy.float()
+        xhat = (x.float() - mean[:, None, None]) * invstd[:, None, None]
+        C = x.shape[1]
+        local = torch.cat([g.sum(dim=(0, 2, 3)), (g * xhat).sum(dim=(0, 2, 3))])
+        sums = distributed.all_reduce_sum(local.clone())
+        mean_g = (sums[:C] / ctx.n)[:, None, None]
+        mean_gx = (sums[C:] / ctx.n)[:, None, None]
+        gx = (weight * invstd)[:, None, None] * (g - mean_g - xhat * mean_gx)
+        return gx.to(x.dtype), local[C:], local[:C], None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d (same parameters, buffers and eval mode) whose training mode
     normalizes by the batch statistics and then moves the running statistics as
     flax does: ra = 0.9 ra + (1 - 0.9) batch, with the batch variance
     max(mean(x^2) - mean(x)^2, 0) over (N, H, W) in float32. A bfloat16 input is
     normalized in float32 (F.batch_norm's mixed-dtype path: float32 statistics
-    and parameters) and comes out bfloat16."""
+    and parameters) and comes out bfloat16. Across ranks the batch is the global
+    batch (`_CrossRankBatchNorm`)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if distributed.process_count() > 1:
+            y, mean, var = _CrossRankBatchNorm.apply(x, self.weight, self.bias, self.eps)
+            self._move_running_stats(mean.detach(), var.detach())
+            return y
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             xf = x.float()
             mean = xf.mean(dim=(0, 2, 3))
             var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-            m = FLAX_BN_MOMENTUM
-            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
-            self.num_batches_tracked.add_(1)
+            self._move_running_stats(mean, var)
         return y
+
+    @torch.no_grad()
+    def _move_running_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = FLAX_BN_MOMENTUM
+        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        self.num_batches_tracked.add_(1)
 
 
 def batch_norm(features: int) -> BatchNorm2d:
@@ -120,7 +178,10 @@ def batch_norm(features: int) -> BatchNorm2d:
 class Dropout(nn.Module):
     """Inverted dropout (survivors scaled by 1 / (1 - p)) in training mode only,
     its keep mask drawn from `generator` on the input's device. `shared_dims`:
-    dimensions along which one mask is broadcast (flax's broadcast dropout)."""
+    dimensions along which one mask is broadcast (flax's broadcast dropout).
+    Across ranks the mask is the global batch's (dimension 0 times the number of
+    ranks), of which the rank keeps its rows: the draws do not depend on how
+    the batch is split."""
 
     def __init__(self, p: float, shared_dims: tuple[int, ...] = ()):
         super().__init__()
@@ -128,11 +189,21 @@ class Dropout(nn.Module):
         self.shared_dims = tuple(shared_dims)
         self.generator: torch.Generator | None = None
 
+    def keep_mask(self, shape: list[int], device: torch.device) -> torch.Tensor:
+        """A keep mask of `shape` (True where the element survives)."""
+        return torch.rand(shape, generator=self.generator, device=device) >= self.p
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
         shape = [1 if d in self.shared_dims else n for d, n in enumerate(x.shape)]
-        keep = torch.rand(shape, generator=self.generator, device=x.device) >= self.p
+        n_ranks = distributed.process_count()
+        if n_ranks > 1 and 0 not in self.shared_dims:
+            B, r = shape[0], distributed.process_index()
+            shape[0] = B * n_ranks
+            keep = self.keep_mask(shape, x.device)[r * B:(r + 1) * B]
+        else:
+            keep = self.keep_mask(shape, x.device)
         return torch.where(keep, x * (1.0 / (1.0 - self.p)), torch.zeros((), dtype=x.dtype,
                                                                           device=x.device))
 

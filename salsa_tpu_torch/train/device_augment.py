@@ -180,6 +180,10 @@ class AugmentDraws:
     rects: torch.Tensor
     fill_u: torch.Tensor
 
+    def rows(self, sl: slice) -> "AugmentDraws":
+        """The draws of the samples `sl` (a rank's rows of a global batch's draws)."""
+        return AugmentDraws(self.swap[sl], self.offset[sl], self.rects[sl], self.fill_u[sl])
+
     def to(self, device: torch.device | str) -> "AugmentDraws":
         """The draws on `device`, in one host -> device copy (every integer is far
         below 2^24, so a float32 carries it exactly)."""

@@ -5,31 +5,57 @@ reg_xyz: loss = w_sed * BCE(event logits) + w_doa * (MAE_x + MAE_y + MAE_z), whe
 each axis MAE is masked by SED activity and normalized by the number of active
 (frame, class) cells. accdoa: masked MSE on the DOA vector, plus, with
 silent_weight > 0, the reference's silent-region norm penalty.
+
+Across ranks every loss keeps `salsa_tpu`'s global denominators (the mask mass,
+the cell count, the weighted rows of the whole batch): with `global_sum` (the
+trainer passes `parallel.distributed.all_reduce_sum`) each denominator is summed
+over the ranks, so a rank's loss is its own numerator over the global
+denominator, the ranks' losses add up to the global loss and their gradients to
+its gradient. Each rank's mean over its own mask mass, averaged, would not be
+the global masked mean wherever the ranks' masses differ.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+
+GlobalSum = Callable[[torch.Tensor], torch.Tensor] | None
+
+
+def _count(n: int, like: torch.Tensor, global_sum: GlobalSum) -> torch.Tensor:
+    """The count `n` as a tensor beside `like`, summed over the ranks."""
+    t = torch.full((), float(n), dtype=like.dtype, device=like.device)
+    return t if global_sum is None else global_sum(t)
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
-                    row_weights: torch.Tensor | None = None) -> torch.Tensor:
+                    row_weights: torch.Tensor | None = None,
+                    global_sum: GlobalSum = None) -> torch.Tensor:
     """Mean binary cross entropy with logits. With row_weights (leading-dim
     weights, e.g. a 0/1 mask over padded batch rows), the mean runs over weighted
-    rows only."""
+    rows only. With `global_sum` the denominator is summed over the ranks."""
     loss = (torch.clamp(logits, min=0.0) - logits * targets
             + torch.log1p(torch.exp(-torch.abs(logits))))
     if row_weights is None:
-        return loss.mean()
+        if global_sum is None:
+            return loss.mean()
+        return loss.sum() / _count(loss.numel(), loss, global_sum)
     w = row_weights.reshape((-1,) + (1,) * (loss.dim() - 1))
     per_row = loss.numel() // loss.shape[0]
-    return (loss * w).sum() / torch.clamp(row_weights.sum() * per_row, min=1e-8)
+    mass = row_weights.sum() * per_row
+    if global_sum is not None:
+        mass = global_sum(mass)
+    return (loss * w).sum() / torch.clamp(mass, min=1e-8)
 
 
-def masked_reg_loss(pred, target, mask, loss_type: str = "MAE"):
-    """Masked mean regression loss normalized by the mask mass."""
+def masked_reg_loss(pred, target, mask, loss_type: str = "MAE", global_sum: GlobalSum = None):
+    """Masked mean regression loss normalized by the mask mass (summed over the
+    ranks with `global_sum`)."""
     n = min(pred.shape[1], target.shape[1])
     pred, target, mask = pred[:, :n], target[:, :n], mask[:, :n]
-    denom = torch.clamp(mask.sum(), min=1e-8)
+    mass = mask.sum()
+    denom = torch.clamp(mass if global_sum is None else global_sum(mass), min=1e-8)
     if loss_type == "MAE":
         return (torch.abs(pred - target) * mask).sum() / denom
     if loss_type == "MSE":
@@ -37,14 +63,17 @@ def masked_reg_loss(pred, target, mask, loss_type: str = "MAE"):
     raise ValueError(f"unknown reg loss '{loss_type}'")
 
 
-def seld_loss(pred: dict, target: dict, n_classes: int, loss_weight=(0.3, 0.7)):
+def seld_loss(pred: dict, target: dict, n_classes: int, loss_weight=(0.3, 0.7),
+              global_sum: GlobalSum = None):
     """reg_xyz loss. Returns (total, sed_loss, doa_loss)."""
-    sed_l = bce_with_logits(pred["event_frame_logit"], target["event_frame_gt"])
+    sed_l = bce_with_logits(pred["event_frame_logit"], target["event_frame_gt"],
+                            global_sum=global_sum)
     doa_pred, doa_gt = pred["doa_frame_output"], target["doa_frame_gt"]
     mask = target["event_frame_gt"]
     doa_l = sum(
         masked_reg_loss(doa_pred[:, :, i * n_classes:(i + 1) * n_classes],
-                        doa_gt[:, :, i * n_classes:(i + 1) * n_classes], mask)
+                        doa_gt[:, :, i * n_classes:(i + 1) * n_classes], mask,
+                        global_sum=global_sum)
         for i in range(3)
     )
     total = loss_weight[0] * sed_l + loss_weight[1] * doa_l
@@ -53,19 +82,24 @@ def seld_loss(pred: dict, target: dict, n_classes: int, loss_weight=(0.3, 0.7)):
 
 def accdoa_mse(doa_pred, doa_gt, sed_mask, n_classes: int, n_cells):
     """Masked xyz MSE shared by the accdoa training and validation losses: the sum
-    over active (frame, class) cells of |pred - gt|^2, over n_cells."""
+    over active (frame, class) cells of |pred - gt|^2, over n_cells (a number, or
+    a tensor already summed over the ranks)."""
     sq = (doa_pred - doa_gt) ** 2
     xyz = sq[..., :n_classes] + sq[..., n_classes:2 * n_classes] + sq[..., 2 * n_classes:]
     n_cells = torch.as_tensor(n_cells, dtype=xyz.dtype, device=xyz.device)
     return (xyz * sed_mask).sum() / torch.clamp(n_cells, min=1)
 
 
-def accdoa_loss(pred: dict, target: dict, n_classes: int, silent_weight: float = 0.0):
+def accdoa_loss(pred: dict, target: dict, n_classes: int, silent_weight: float = 0.0,
+                global_sum: GlobalSum = None):
     """ACCDOA loss. Returns (total, sed_loss, doa_loss). silent_weight=0 is the
     reference's effective recipe (it computes the silent-region penalty and zeroes
-    it); silent_weight > 0 adds that penalty, same formula."""
+    it); silent_weight > 0 adds that penalty, same formula. With `global_sum` the
+    cell count is the global batch's."""
     sed_gt = target["event_frame_gt"]
     n_cells = sed_gt.shape[0] * sed_gt.shape[1]
+    if global_sum is not None:
+        n_cells = _count(n_cells, sed_gt, global_sum)
     doa_pred, doa_gt = pred["doa_frame_output"], target["doa_frame_gt"]
     doa_l = accdoa_mse(doa_pred, doa_gt, sed_gt, n_classes, n_cells)
     if silent_weight > 0.0:

@@ -1,4 +1,5 @@
-"""SELD trainer on one device (counterpart of `salsa_tpu.train.trainer`).
+"""SELD trainer, data-parallel over ranks (counterpart of
+`salsa_tpu.train.trainer`).
 
 Three ways feed the train step, each a branch of `salsa_tpu`'s trainer:
 
@@ -43,8 +44,25 @@ prediction dumps) is what `cli.infer` runs. Checkpoints are flax msgpack
 (`train.checkpoint`), with the optimizer state in optax's layout, so
 `salsa_tpu` restores them.
 
-Options of `salsa_tpu`'s trainer that this one does not port raise
-NotImplementedError naming their ROADMAP queue 1 item; none is run another way.
+Data parallelism (`parallel.distributed`: one process a rank, one device each)
+keeps `salsa_tpu`'s one-global-batch semantics, so N ranks compute what one
+process computes on the whole batch, up to the order of floating-point sums.
+Every rank walks the same epoch order and takes its rows of each global batch
+(`distributed.local_batch_slice`): the host path reads and transforms only
+those rows (`batch_iterator(process_shard=)`), the resident and from-wav paths
+gather or extract them (on the from-wav path K1 and K2 run on the rank's rows).
+BatchNorm normalizes by the global batch's statistics and dropout and the
+device augmentation draw the global batch's masks and keep the rank's rows
+(`models.layers`); the losses divide by global denominators (`train.losses`),
+and after the backward one flattened all-reduce sums the gradients and the
+step's losses, so every rank takes the same Adam step and logs the global
+losses. `training.device_data_shard` keeps only a rank's block of the clips on
+its device (the store's features re-laid per clip, or the from-wav waveforms),
+with `salsa_tpu`'s shard-stratified epoch order: column block r of every batch
+holds B / N chunks of rank r's clips, and an unbalanced split caps the epoch's
+steps. With one rank it is `device_data` (or plain from-wav), as in `salsa_tpu`.
+Validation, CSVs and checkpoints are rank 0's; every rank restores a checkpoint
+it resumes from.
 """
 from __future__ import annotations
 
@@ -74,6 +92,7 @@ from salsa_tpu_torch.models.layers import (
     ResNetBottleneckBlock,
 )
 from salsa_tpu_torch.models.seld import init_train_, interpolate_index_repeat
+from salsa_tpu_torch.parallel import distributed, mesh
 from salsa_tpu_torch.submission import combine_chunks, sed_from_accdoa, write_classwise_csv
 from salsa_tpu_torch.train import checkpoint as ckpt
 from salsa_tpu_torch.train.device_augment import make_device_augment
@@ -97,29 +116,37 @@ def step_seed(seed: int, step: int, stream: int) -> int:
     return int(np.random.SeedSequence([seed, step, stream]).generate_state(1, np.uint64)[0])
 
 
-def refuse_unported(cfg) -> None:
-    """Raise NotImplementedError for every training option of `salsa_tpu` that the
-    port does not run, naming its ROADMAP queue 1 item."""
-    t = cfg.get("training", {})
-    refused = [
-        (t.get("device_data_shard", False), "training.device_data_shard", 11),
-        (int(os.environ.get("WORLD_SIZE", "1")) > 1
-         or (torch.distributed.is_available() and torch.distributed.is_initialized()),
-         "training in more than one process", 11),
-    ]
-    for hit, what, item in refused:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet: ROADMAP queue 1, item {item}")
-
-
 def resolve_device(device: torch.device | str) -> torch.device:
-    """`device` as a torch.device; a CUDA device on a host without one raises."""
+    """`device` as a torch.device; with more than one rank, 'cuda' without an index
+    is the rank's card (`distributed.local_device`); a CUDA device on a host without
+    one raises."""
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None and distributed.process_count() > 1:
+        device = distributed.local_device()
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("the trainer runs on the CUDA card by default and this host has "
                            "none (torch.cuda.is_available() is False); pass device='cpu' "
                            "for a CPU run")
     return device
+
+
+def stratified_order(shard_chunk_ids: list[np.ndarray], batch_size: int,
+                     rng: np.random.Generator) -> np.ndarray:
+    """`salsa_tpu`'s shard-stratified epoch order over N shards: each shard's chunks
+    shuffled by `rng` in shard order, then every batch's column block r filled
+    with batch_size / N chunks of shard r, for as many batches as every shard can
+    fill."""
+    per = batch_size // len(shard_chunk_ids)
+    streams = []
+    for ids in shard_chunk_ids:
+        ids = ids.copy()
+        rng.shuffle(ids)
+        streams.append(ids)
+    steps = min(len(ids) // per for ids in streams)
+    order = np.empty((steps, len(streams), per), np.int64)
+    for r, ids in enumerate(streams):
+        order[:, r] = ids[:steps * per].reshape(steps, per)
+    return order.reshape(-1)
 
 
 REMAT_BLOCKS = (DoubleConvBlock, ResNetBasicBlock, ResNetBottleneckBlock)
@@ -335,21 +362,29 @@ class SeldTrainer(SeldPredictor):
                  submission_dir: str, seed: int = 2021, scaler=None,
                  device: torch.device | str = "cuda", joint_transform=None,
                  feature_transform=None):
-        refuse_unported(cfg)
         t = cfg.training
         # from_wav engages only where the train split is wav-resident, and
         # supersedes device_data (it is the resident mode, fed by waveforms)
         self.from_wav = bool(t.get("from_wav", False)) and isinstance(train_data, WavSplitData)
         self.device_data = bool(t.get("device_data", False)) and not t.get("from_wav", False)
+        self.n_ranks, self.rank = distributed.process_count(), distributed.process_index()
+        self.batch_size = t.train_batch_size
+        mesh.data_width(self.batch_size, self.n_ranks)  # before any collective
+        self.rows = distributed.local_batch_slice(self.batch_size)  # the rank's batch rows
+        # sharded over the ranks from two on; with one rank it is device_data (or
+        # plain from_wav), as in salsa_tpu
+        self.device_data_shard = (bool(t.get("device_data_shard", False)) and self.n_ranks > 1
+                                  and (self.from_wav or self.device_data))
         super().__init__(init_train_(model, torch.Generator().manual_seed(seed)), cfg, device)
+        mesh.replicate(self.model)  # rank 0's initial weights on every rank
         self.seed = seed
         self.gt_meta_dir = gt_meta_dir
         self.submission_dir = submission_dir
         self.train_data = train_data
         self.val_data = val_data
 
-        self.batch_size = t.train_batch_size
-        if len(train_data) < self.batch_size and (self.from_wav or self.device_data):
+        if len(train_data) < self.batch_size and (self.from_wav or self.device_data
+                                                  or self.n_ranks > 1):
             raise ValueError(f"the train split has {len(train_data)} chunks, fewer than a batch "
                              f"of {self.batch_size}: no step could run")
         self.max_epochs = t.max_epochs
@@ -359,6 +394,8 @@ class SeldTrainer(SeldPredictor):
         self.accdoa_silent_weight = float(t.get("accdoa_silent_weight", 0.0))
         self.chunk_len = train_data.feature_chunk_len
         self.label_chunk_len = train_data.label_chunk_len
+        self._shard_chunk_ids = None  # per rank, the chunks of its clips (device_data_shard)
+        self._feats_shard = None
 
         # both seeded before every step (seed_step)
         self.dropout_generator = torch.Generator(device=self.device)
@@ -372,8 +409,12 @@ class SeldTrainer(SeldPredictor):
             self.model.parameters(), total_steps, t.get("optimizer", "adam"),
             tuple(sched.milestones), tuple(sched.lrs), tuple(sched.moms))
         n_params = sum(p.numel() for p in self.model.parameters())
-        logger.info("model parameters: %.2fM | steps/epoch: %d | interp ratio: %.1f",
-                    n_params / 1e6, self.steps_per_epoch, self.interp_ratio)
+        logger.info("model parameters: %.2fM | steps/epoch: %d | interp ratio: %.1f | "
+                    "rank %d of %d", n_params / 1e6, self.steps_per_epoch, self.interp_ratio,
+                    self.rank, self.n_ranks)
+        if t.get("device_data_shard", False) and not self.device_data_shard:
+            logger.info("training.device_data_shard with one rank (or off the resident "
+                        "paths): the split is not sharded")
         self.setup_seconds: dict[str, float] = {}
         self.step_losses: list[float] = []  # per-step training loss of the last epoch
 
@@ -394,24 +435,31 @@ class SeldTrainer(SeldPredictor):
             if host_transforms and self.augment is None:
                 logger.warning("device_data: host transforms are bypassed — enable "
                                "training.device_augment for augmentation")
-            self._setup_resident(train_data, t.get("device_data_dtype", "float32"))
+            if self.device_data_shard:
+                self._setup_sharded_resident(train_data, t.get("device_data_dtype", "float32"))
+            else:
+                self._setup_resident(train_data, t.get("device_data_dtype", "float32"))
         else:
             self.train_dataset = SeldChunkDataset(train_data, joint_transform,
                                                   feature_transform)
 
     # ------------------------------------------------------------------
-    def _setup_resident(self, train_data, dtype: str) -> None:
-        """training.device_data: the split's features (C, T, F) and targets on the
-        device once, and the chunks' feature and label start frames."""
+    @staticmethod
+    def _resident_dtype(train_data, dtype: str) -> torch.dtype:
         if train_data.features.shape[1] == 0:
             raise ValueError("training.device_data needs a preloaded split (data.preload: "
                              "true)")
         if dtype not in ("float32", "bfloat16"):
             raise ValueError(f"training.device_data_dtype '{dtype}': float32 or bfloat16")
+        return torch.bfloat16 if dtype == "bfloat16" else torch.float32
+
+    def _setup_resident(self, train_data, dtype: str) -> None:
+        """training.device_data: the split's features (C, T, F) and targets on the
+        device once, and the chunks' feature and label start frames."""
+        store_dtype = self._resident_dtype(train_data, dtype)
         dev = self.device
         t0 = time.perf_counter()
-        self._feats = torch.as_tensor(train_data.features, device=dev).to(
-            torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+        self._feats = torch.as_tensor(train_data.features, device=dev).to(store_dtype)
         self._sed = torch.from_numpy(train_data.sed_targets).to(dev)
         self._doa = torch.from_numpy(train_data.doa_targets).to(dev)
         self._f_start = torch.as_tensor(train_data.feature_chunk_starts, device=dev)
@@ -423,6 +471,60 @@ class SeldTrainer(SeldPredictor):
         self.setup_seconds["resident_upload"] = time.perf_counter() - t0
         logger.info("device_data: %d train clips resident (%s, %.2f GB)",
                     len(train_data.unique_clip_names), dtype, self.resident_bytes / 1e9)
+
+    def _setup_sharded_resident(self, train_data, dtype: str) -> None:
+        """training.device_data_shard on the store path: the split re-laid per clip,
+        (n_clips padded to a multiple of the ranks, C, longest clip's frames, F), of
+        which the rank's device holds its block of m clips (`mesh.shard_global`);
+        each chunk's shard-local clip and clip-local start frame; the targets whole
+        on every rank."""
+        store_dtype = self._resident_dtype(train_data, dtype)
+        dev = self.device
+        t0 = time.perf_counter()
+        counts = np.asarray(train_data.clip_chunk_counts)
+        n_clips = len(counts)
+        m = self._clips_a_rank(n_clips)
+        f_starts = np.asarray(train_data.feature_chunk_starts)
+        clip_of_chunk = np.repeat(np.arange(n_clips), counts)
+        offsets = f_starts[np.concatenate([[0], np.cumsum(counts)[:-1]])]  # clip starts
+        lens = np.diff(np.concatenate([offsets, [train_data.features.shape[1]]]))
+        C, _, F = train_data.features.shape
+        block = np.zeros((m, C, int(lens.max()), F), np.float32)
+        for j, ci in enumerate(range(self.rank * m, min((self.rank + 1) * m, n_clips))):
+            block[j, :, :lens[ci]] = train_data.features[:, offsets[ci]:offsets[ci] + lens[ci]]
+        self._feats_shard = torch.from_numpy(block).to(dev).to(store_dtype)
+        self._sed = torch.from_numpy(train_data.sed_targets).to(dev)
+        self._doa = torch.from_numpy(train_data.doa_targets).to(dev)
+        as_long = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)  # noqa: E731
+        self._clip_local = as_long(clip_of_chunk % m)
+        self._f0 = as_long(f_starts - offsets[clip_of_chunk])
+        self._l_start = as_long(train_data.label_chunk_starts)
+        self._set_shards(clip_of_chunk // m)
+        self.resident_bytes = sum(x.numel() * x.element_size()
+                                  for x in (self._feats_shard, self._sed, self._doa))
+        self.setup_seconds["resident_upload"] = time.perf_counter() - t0
+        logger.info("device_data_shard: %d clips over %d ranks (%d a rank, %s, %.2f GB on "
+                    "this rank)", n_clips, self.n_ranks, m, dtype, self.resident_bytes / 1e9)
+
+    def _clips_a_rank(self, n_clips: int) -> int:
+        """The clips a rank holds with device_data_shard (the clips padded to a
+        multiple of the ranks); fewer clips than ranks raise ValueError."""
+        if n_clips < self.n_ranks:
+            raise ValueError(f"device_data_shard needs at least {self.n_ranks} clips (one a "
+                             f"rank); the split has {n_clips}")
+        return mesh.shard_rows(n_clips, self.n_ranks)[0]
+
+    def _set_shards(self, shard_of_chunk: np.ndarray) -> None:
+        """The chunks of each rank's clips, for the stratified epoch order, and the
+        epoch capped at the steps every shard can fill (`salsa_tpu`'s balanced-steps
+        rule)."""
+        self._shard_chunk_ids = [np.flatnonzero(shard_of_chunk == r) for r in range(self.n_ranks)]
+        per = self.batch_size // self.n_ranks
+        balanced = min(len(ids) // per for ids in self._shard_chunk_ids)
+        if balanced < self.steps_per_epoch:
+            logger.warning("device_data_shard: unbalanced clip shards cap the epoch at %d "
+                           "steps (was %d)", balanced, self.steps_per_epoch)
+            self.steps_per_epoch = max(1, balanced)
 
     def _setup_from_wav(self, train_data: WavSplitData, scaler) -> None:
         """Resident waveforms, chunk tables and tracker checkpoints on the device."""
@@ -439,8 +541,24 @@ class SeldTrainer(SeldPredictor):
         self.feature_params = p
         self.n_spec_channels = feature_n_spec_channels(cfg.feature_type)
         self.wav_scale = train_data.wav_scale
-        self._waves = torch.from_numpy(train_data.waves).to(dev)
         clip_of_chunk = train_data.clip_of_chunk
+        clip_table = clip_of_chunk
+        self._clip_base = 0  # the first clip on this rank's device
+        if self.device_data_shard:
+            # the rank's block of clips on its device; the chunk table's clips
+            # shard-local, and the stratified epoch order keeps every rank on its own
+            n_clips = train_data.waves.shape[0]
+            m = self._clips_a_rank(n_clips)
+            self._waves = torch.from_numpy(mesh.shard_global(train_data.waves, self.rank,
+                                                             self.n_ranks)).to(dev)
+            self._clip_base = self.rank * m
+            clip_table = clip_of_chunk % m
+            self._set_shards(clip_of_chunk // m)
+            logger.info("from_wav device_data_shard: %d clips over %d ranks (%d a rank, %.2f "
+                        "GB on this rank)", n_clips, self.n_ranks, m,
+                        self._waves.numel() * self._waves.element_size() / 1e9)
+        else:
+            self._waves = torch.from_numpy(train_data.waves).to(dev)
 
         self._floor_ck = self._cd_ck = None
         if isinstance(p, SalsaParams) and p.is_tracking:
@@ -449,7 +567,7 @@ class SeldTrainer(SeldPredictor):
         as_long = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)  # noqa: E731
         n_valid = np.minimum(train_data.clip_trimmed_frames[clip_of_chunk]
                              - train_data.within_clip_start, self.chunk_len)
-        self._clip = as_long(clip_of_chunk)
+        self._clip = as_long(clip_table)
         self._f0 = as_long(train_data.within_clip_start)
         self._n_full = as_long(train_data.clip_full_frames[clip_of_chunk])
         self._n_valid = as_long(n_valid)
@@ -462,15 +580,20 @@ class SeldTrainer(SeldPredictor):
     def _tracker_checkpoints(self, train_data: WavSplitData, p: SalsaParams) -> None:
         """The tracker state entering every chunk's first frame, from the dequantized
         RESIDENT samples (what the step's tracker reads), clips of equal length
-        batched into K2 launches with collect_states."""
+        batched into K2 launches with collect_states; with device_data_shard, for
+        the chunks of the rank's clips only."""
         dev, clip_of_chunk = self.device, train_data.clip_of_chunk
         t0 = time.perf_counter()
         n_band = p.upper_bin - p.lower_bin
         self._floor_ck = torch.zeros((len(train_data), n_band), dtype=torch.float32, device=dev)
         self._cd_ck = torch.zeros((len(train_data), n_band), dtype=torch.int32, device=dev)
-        for cis in length_groups(train_data.clip_wavs, lambda w: w.shape[1]):
+        base = self._clip_base
+        own = list(range(base, min(base + self._waves.shape[0], len(train_data.clip_wavs))))
+        for group_idx in length_groups([train_data.clip_wavs[ci] for ci in own],
+                                       lambda w: w.shape[1]):
+            cis = [own[j] for j in group_idx]
             s_pad = train_data.clip_wavs[cis[0]].shape[1] + 2 * train_data.wav_pad
-            group = self._waves[cis, :, :s_pad].float() * self.wav_scale
+            group = self._waves[[ci - base for ci in cis], :, :s_pad].float() * self.wav_scale
             starts = [train_data.within_clip_start[clip_of_chunk == ci] for ci in cis]
             for ci, (fl, cd) in zip(cis, salsa_tracker_checkpoints_batch(group, starts, p)):
                 sel = torch.from_numpy(np.flatnonzero(clip_of_chunk == ci)).to(dev)
@@ -479,7 +602,7 @@ class SeldTrainer(SeldPredictor):
             torch.cuda.synchronize(dev)
         self.setup_seconds["tracker_checkpoints"] = time.perf_counter() - t0
         logger.info("from_wav: tracker checkpoints for %d clips in %.1fs",
-                    len(train_data.clip_wavs), self.setup_seconds["tracker_checkpoints"])
+                    len(own), self.setup_seconds["tracker_checkpoints"])
 
     # ------------------------------------------------------------------
     def normalize(self, x: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
@@ -495,16 +618,21 @@ class SeldTrainer(SeldPredictor):
         return x * ok[:, None, :, None].to(x.dtype)
 
     def batch(self, chunk_ids):
-        """(x, sed, doa) on the device of the chunks `chunk_ids` (B,): normalized
-        feature chunks (B, C, chunk_len, F) and their label windows, extracted from
-        the resident waveforms, gathered from the resident split, or read on the
-        host (with the host transforms, which draw from their generator)."""
+        """(x, sed, doa) on the device of the chunks `chunk_ids` (B,), the rank's rows
+        of a batch: normalized feature chunks (B, C, chunk_len, F) and their label
+        windows, extracted from the resident waveforms, gathered from the resident
+        split (or the rank's block of it), or read on the host (with the host
+        transforms, which draw from their generator)."""
         if not (self.from_wav or self.device_data):
             samples = [self.train_dataset[int(j)] for j in chunk_ids]
             return self.to_device(tuple(torch.from_numpy(np.stack([s[k] for s in samples]))
                                         for k in range(3)))
         i = torch.as_tensor(np.asarray(chunk_ids, np.int64), device=self.device)
         rows = self._l_start[i][:, None] + torch.arange(self.label_chunk_len, device=self.device)
+        if self._feats_shard is not None:  # device_data_shard: windows of the rank's clips
+            frames = self._f0[i][:, None] + torch.arange(self.chunk_len, device=self.device)
+            x = self._feats_shard[self._clip_local[i][:, None], :, frames]  # (B, L, C, F)
+            return x.permute(0, 2, 1, 3).contiguous().float(), self._sed[rows], self._doa[rows]
         if self.device_data:
             frames = self._f_start[i][:, None] + torch.arange(self.chunk_len, device=self.device)
             x = self._feats[:, frames].transpose(0, 1).contiguous().float()
@@ -521,10 +649,14 @@ class SeldTrainer(SeldPredictor):
         shuffled order of (seed, epoch), the incomplete tail dropped where the split
         holds a batch (`salsa_tpu`'s rule), windows read on `training.data_workers`
         threads. No batch past the epoch's last step is built, so the host
-        transforms' draws do not depend on how far a prefetch thread ran ahead."""
+        transforms' draws do not depend on how far a prefetch thread ran ahead.
+        With more than one rank, each batch is the rank's rows of the global batch
+        (`batch_iterator(process_shard=)`)."""
+        multi = self.n_ranks > 1
         it = batch_iterator(
             self.train_dataset, self.batch_size, shuffle=True, rng=self._shuffle_rng(epoch),
-            drop_last=len(self.train_dataset) >= self.batch_size,
+            drop_last=multi or len(self.train_dataset) >= self.batch_size,
+            process_shard=(self.rank, self.n_ranks) if multi else None,
             num_workers=int(self.cfg.training.get("data_workers", 0)))
         pin = self.device.type == "cuda"
         try:
@@ -544,18 +676,39 @@ class SeldTrainer(SeldPredictor):
         pred = {k: interpolate_index_repeat(out[k], self.interp_ratio)
                 for k in ("event_frame_logit", "doa_frame_output")}
         target = {"event_frame_gt": sed, "doa_frame_gt": doa}
+        # across ranks: the global batch's denominators, so the ranks' losses add up
+        gsum = distributed.all_reduce_sum if self.n_ranks > 1 else None
         if self.output_format == "reg_xyz":
-            return seld_loss(pred, target, self.n_classes, self.loss_weight)
-        return accdoa_loss(pred, target, self.n_classes, silent_weight=self.accdoa_silent_weight)
+            return seld_loss(pred, target, self.n_classes, self.loss_weight, global_sum=gsum)
+        return accdoa_loss(pred, target, self.n_classes, silent_weight=self.accdoa_silent_weight,
+                           global_sum=gsum)
 
     def forward_backward(self, x, sed, doa) -> dict[str, torch.Tensor]:
         """Training-mode forward, loss and backward; the gradients are left on the
-        parameters for the optimizer's step."""
+        parameters for the optimizer's step. Across ranks the gradients and the
+        losses are then summed over the ranks (`all_reduce_grads`): the global
+        batch's."""
         self.model.train()
         total, sed_l, doa_l = self.loss(self.model(x), sed, doa)
         self.optimizer.zero_grad()
         total.backward()
+        if self.n_ranks > 1:
+            total, sed_l, doa_l = self.all_reduce_grads(torch.stack([total, sed_l, doa_l]))
         return {"loss": total.detach(), "sed_loss": sed_l.detach(), "doa_loss": doa_l.detach()}
+
+    def all_reduce_grads(self, losses: torch.Tensor) -> torch.Tensor:
+        """Every parameter's gradient and the rank's `losses` summed over the ranks
+        in one flattened all-reduce; returns the summed losses. Each rank's loss is
+        its numerator over the global denominator, so the sums are the global
+        batch's loss and gradient."""
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads] + [losses.detach().to(grads[0].dtype)])
+        distributed.all_reduce_sum(flat)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        return flat[offset:]
 
     def seed_step(self) -> None:
         """Seed the dropout and augmentation generators for the next step from
@@ -566,10 +719,14 @@ class SeldTrainer(SeldPredictor):
 
     def augment_batch(self, x, sed, doa):
         """(x, sed, doa) augmented with the step's draws, or as they are without
-        `training.device_augment`."""
+        `training.device_augment`. Across ranks the draws are the global batch's,
+        of which the rank applies its rows'."""
         if self.augment is None:
             return x, sed, doa
-        return self.augment(self.augment_generator, x, sed, doa)
+        if self.n_ranks == 1:
+            return self.augment(self.augment_generator, x, sed, doa)
+        draws = self.augment.draw(self.batch_size, self.augment_generator).rows(self.rows)
+        return self.augment.apply(draws.to(x.device), x, sed, doa)
 
     def step_on(self, x, sed, doa) -> dict[str, torch.Tensor]:
         """One optimizer step on a batch on the device; returns its losses."""
@@ -579,8 +736,9 @@ class SeldTrainer(SeldPredictor):
         return metrics
 
     def train_step(self, chunk_ids) -> dict[str, torch.Tensor]:
-        """One optimizer step on the chunks `chunk_ids`; returns its losses."""
-        return self.step_on(*self.batch(chunk_ids))
+        """One optimizer step on the global batch `chunk_ids`, of which this rank
+        takes its rows; returns the batch's losses."""
+        return self.step_on(*self.batch(np.asarray(chunk_ids)[self.rows]))
 
     # ------------------------------------------------------------------
     def _shuffle_rng(self, epoch: int) -> np.random.Generator:
@@ -588,12 +746,21 @@ class SeldTrainer(SeldPredictor):
         return np.random.default_rng((self.seed, epoch))
 
     def _epoch_order(self, epoch: int) -> np.ndarray:
-        """The chunk visit order of an epoch, a pure function of (seed, epoch)."""
+        """The chunk visit order of an epoch, a pure function of (seed, epoch): a
+        shuffle of the split, or with device_data_shard `salsa_tpu`'s
+        shard-stratified order, in which column block r of every batch holds
+        batch / N chunks of rank r's clips (each shard's chunks shuffled in rank
+        order)."""
+        rng = self._shuffle_rng(epoch)
+        if self._shard_chunk_ids is not None:
+            return stratified_order(self._shard_chunk_ids, self.batch_size, rng)
         order = np.arange(len(self.train_data))
-        self._shuffle_rng(epoch).shuffle(order)
+        rng.shuffle(order)
         return order
 
     def train_epoch(self, epoch: int) -> dict:
+        """One epoch's steps; returns the global batch's mean losses, lr and
+        momentum."""
         if not (self.from_wav or self.device_data):
             pending = [self.step_on(*self.to_device(b))
                        for b in prefetch(self.host_batches(epoch))]
@@ -629,14 +796,28 @@ class SeldTrainer(SeldPredictor):
             stack.extend(getattr(t, "transforms", []) + getattr(t, "choices", []))
         return list(found.values())
 
-    def save(self, ckpt_dir: str, name: str, meta: dict) -> str:
+    def host_rng_meta(self) -> dict:
+        """The host transforms' generator states for the sidecar
+        (`host_transform_rng`, rank 0's), so that a resumed run draws what the
+        uninterrupted run draws; with more than one rank also every rank's
+        (`host_transform_rng_by_rank`), gathered to rank 0: a collective, {} on the
+        other ranks."""
+        states = [g.bit_generator.state for g in self._host_rngs()]
+        by_rank = distributed.gather_objects(states)
+        if not states or by_rank is None:
+            return {}
+        if self.n_ranks == 1:
+            return {"host_transform_rng": states}
+        return {"host_transform_rng": by_rank[0], "host_transform_rng_by_rank": by_rank}
+
+    def save(self, ckpt_dir: str, name: str, meta: dict) -> str | None:
         """Write the model and optimizer as a flax msgpack checkpoint with its
-        sidecar; returns its path. The sidecar also keeps the host transforms'
-        generator states (`host_transform_rng`), so that a resumed run draws what
-        the uninterrupted run draws."""
-        rngs = self._host_rngs()
-        if rngs:
-            meta = {**meta, "host_transform_rng": [g.bit_generator.state for g in rngs]}
+        sidecar (`host_rng_meta` added); returns its path. Every rank calls it and
+        rank 0 writes (None elsewhere)."""
+        meta = {**meta, **self.host_rng_meta()}
+        return self._write(ckpt_dir, name, meta) if distributed.is_primary() else None
+
+    def _write(self, ckpt_dir: str, name: str, meta: dict) -> str:
         params, stats = torch_state_dict_to_flax(self.model.state_dict())
         return ckpt.save_checkpoint(ckpt_dir, name, params, stats, self.optimizer.count, meta,
                                     opt_state=self.optimizer.optax_state(self.model))
@@ -644,13 +825,18 @@ class SeldTrainer(SeldPredictor):
     def restore(self, path: str) -> int:
         """Restore the weights, BatchNorm statistics and optimizer state of the
         checkpoint `path` (the port's or `salsa_tpu`'s), and the host transforms'
-        generator states where the sidecar has them; returns the epoch to continue
-        from: the sidecar's epoch + 1, or else count // steps_per_epoch."""
+        generator states where the sidecar has them (this rank's, where it keeps
+        every rank's of a run on as many ranks); returns the epoch to continue
+        from: the sidecar's epoch + 1, or else count // steps_per_epoch. Every rank
+        restores the same file."""
         params, stats, opt_state = ckpt.restore_train_state(path)
         load_flax_variables(self.model, params, stats)
         self.optimizer.load_optax_state(self.model, opt_state)
         meta = ckpt.load_metadata(path)
-        for g, state in zip(self._host_rngs(), meta.get("host_transform_rng", [])):
+        by_rank = meta.get("host_transform_rng_by_rank", [])
+        states = (by_rank[self.rank] if len(by_rank) == self.n_ranks
+                  else meta.get("host_transform_rng", []))
+        for g, state in zip(self._host_rngs(), states):
             g.bit_generator.state = state
         if "epoch" in meta:
             start_epoch = int(meta["epoch"]) + 1
@@ -661,6 +847,11 @@ class SeldTrainer(SeldPredictor):
         return start_epoch
 
     def fit(self, resume_from: str | None = None):
+        """Train from epoch 0, or from the checkpoint `resume_from` (every rank
+        restores it); rank 0 validates and writes the checkpoints."""
+        # every rank here before the first collective: a slow setup on one rank
+        # (data, tracker checkpoints) does not count against a collective's wait
+        distributed.barrier("fit_start")
         start_epoch = self.restore(resume_from) if resume_from else 0
         best_seld = float("inf")
         ckpt_dir, best_dir = self.cfg.dir.model.checkpoint, self.cfg.dir.model.best
@@ -675,7 +866,9 @@ class SeldTrainer(SeldPredictor):
             logger.info("Epoch %d/%d - loss %.4f (sed %.4f, doa %.4f) - %.1fs elapsed",
                         epoch, self.max_epochs - 1, metrics["loss"], metrics["sed_loss"],
                         metrics["doa_loss"], time.time() - t0)
-            meta: dict[str, Any] = {"epoch": epoch, **metrics}
+            meta: dict[str, Any] = {"epoch": epoch, **metrics, **self.host_rng_meta()}
+            if not distributed.is_primary():
+                continue  # validation and checkpoints are rank 0's
             if self.val_data is not None and (epoch + 1) % val_interval == 0:
                 scores = self.validate()
                 meta.update({f"val{k}": v for k, v in scores.items() if k != "seld_error"})
@@ -685,9 +878,10 @@ class SeldTrainer(SeldPredictor):
                 meta["valSeld"] = scores["seld_error"]
                 if scores["seld_error"] < best_seld:
                     best_seld = scores["seld_error"]
-                    self.save(best_dir, "best", meta)
+                    self._write(best_dir, "best", meta)
                     logger.info("New best valSeld %.4f saved", best_seld)
-            self.save(ckpt_dir, f"epoch{epoch:03d}", meta)
+            self._write(ckpt_dir, f"epoch{epoch:03d}", meta)
+        distributed.barrier("fit_end")  # no rank leaves before rank 0's last checkpoint
         return self.model
 
     def validate(self) -> dict:

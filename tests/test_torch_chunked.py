@@ -273,8 +273,9 @@ def test_helpers_equal_salsa_tpu(rng):
 
 def test_chunk_extractor_refusals():
     """Every fused type and SALSA option is taken; what remains refused: an unknown
-    type or eig_method (ValueError), SALSA with other than 4 channels
-    (NotImplementedError naming its ROADMAP item)."""
+    type or eig_method (ValueError), SALSA with a channel count outside the
+    start-vector table, 2-16 (NotImplementedError naming its ROADMAP item), on K1's
+    path and on the XLA branch."""
     kw = dict(fs=FS, n_fft=N_FFT, hop_length=HOP)
     fn, p = chunked.make_chunk_extractor("salsa", "mic", CHUNK, **kw)
     assert callable(fn) and p.fmax_doa == 4000.0 and p.audio_format == "mic"
@@ -286,12 +287,14 @@ def test_chunk_extractor_refusals():
         fn, ff = chunked.make_chunk_extractor(ft, "mic", CHUNK, **kw)
         assert callable(fn) and ff.n_channels == (7 if ft == "salsa_lite" else 10)
     zero = torch.zeros(1, dtype=torch.long)
-    for opts in ({"is_tracking": False}, {"eig_method": "power"}, {"eig_method": "eigh"}):
+    for opts in ({"is_tracking": False}, {"eig_method": "power"}, {}):
         fn, p = chunked.make_chunk_extractor("salsa", "foa", CHUNK, **opts, **kw)
-        assert not p.uses_k1
+        assert p.uses_k1 == (opts == {})
         nb = p.upper_bin - p.lower_bin
         state = ((torch.zeros((1, nb)), torch.full((1, nb), 3, dtype=torch.int32))
                  if p.is_tracking else (None, None))
-        three = torch.zeros((1, 3, (CHUNK + 8) * HOP + N_FFT))
+        seventeen = torch.zeros((1, 17, (CHUNK + 8) * HOP + N_FFT))
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-            fn(three, zero, zero, zero + CHUNK + 7, *state)
+            fn(seventeen, zero, zero, zero + CHUNK + 7, *state)
+        three = fn(seventeen[:, :3], zero, zero, zero + CHUNK + 7, *state)
+        assert three.shape[1] == 5 and torch.isfinite(three).all()

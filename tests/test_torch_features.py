@@ -3,7 +3,8 @@ feature type of `salsa_tpu_torch.features.registry.make_extractor`, and SALSA
 without tracking and on salsa_tpu's XLA eigensolvers ('power', 'eigh'), held
 against `salsa_tpu.features.registry.make_extractor(..., jit=False)` and against
 the reference golden (tests/golden/reference_features.npz). Also GCC-PHAT on
-silence, the metadata, and the refusals that remain.
+silence, the metadata, SALSA at other channel counts (the start-vector table and
+3, 6 and 8 mics against salsa_tpu's power path), and the refusals that remain.
 
 Bounds against salsa_tpu: spectrogram, IV, GCC and IPD channels within atol
 2e-4, rtol 1e-4 on 99.99 % of cells and within the golden bounds on all (phases
@@ -257,16 +258,74 @@ def test_metadata_equals_salsa_tpu():
 
 
 def test_refusals_that_remain():
-    """An unknown type or eig_method raises ValueError; SALSA with other than 4
-    channels raises NotImplementedError naming its ROADMAP item, on K1's path and
-    on the XLA branch alike."""
+    """An unknown type or eig_method raises ValueError; SALSA with a channel count
+    outside the start-vector table (2-16) raises NotImplementedError naming its
+    ROADMAP item, on K1's path (which hands other counts to the power iteration)
+    and on the XLA power branch alike; the exact eigensolver takes any count."""
     with pytest.raises(ValueError, match="unknown feature type"):
         make_extractor("logmel", "foa")
     with pytest.raises(ValueError, match="eig_method"):
         make_extractor("salsa", "foa", eig_method="jacobi")
-    three = torch.zeros((1, 3, 4800))
-    for kw in ({"eig_method": "power"}, {"is_tracking": False}, {"eig_method": "eigh"}):
+    seventeen = torch.zeros((1, 17, 4800))
+    for kw in ({"eig_method": "power"}, {"is_tracking": False}, {}):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-            make_extractor("salsa", "mic", **kw)(three)
-    with pytest.raises(NotImplementedError):
-        make_extractor("salsa", "mic")(three)
+            make_extractor("salsa", "mic", n_mics=17, **kw)(seventeen)
+    out = make_extractor("salsa", "mic", eig_method="eigh", n_mics=3)(torch.zeros((1, 3, 4800)))
+    assert out.shape[1] == 5 and torch.isfinite(out).all()
+
+
+def test_start_vector_table_equals_jax_random():
+    """The port's start vectors for C = 2-16 are salsa_tpu's draws,
+    jax.random.normal(PRNGKey(20211021), (2, 2, C)), bit for bit; C = 4 is K1's."""
+    from salsa_tpu_torch.features import salsa_spatial as tspatial
+
+    for C in range(2, 17):
+        v = np.asarray(jax.random.normal(jax.random.PRNGKey(20211021), (2, 2, C)))
+        s0, s1 = tspatial.start_vectors(C)
+        assert s0.dtype == s1.dtype == np.complex64 and s0.shape == (C,)
+        np.testing.assert_array_equal(s0, (v[0, 0] + 1j * v[0, 1]).astype(np.complex64))
+        np.testing.assert_array_equal(s1, (v[1, 0] + 1j * v[1, 1]).astype(np.complex64))
+    np.testing.assert_array_equal(tspatial.start_vectors(4)[0], tspatial.START_S0)
+    np.testing.assert_array_equal(tspatial.start_vectors(4)[1], tspatial.START_S1)
+    for C in (1, 17):
+        with pytest.raises(NotImplementedError, match="held for 2-16 channels"):
+            tspatial.start_vectors(C)
+
+
+def array_scene(rng, seconds: float, n_mics: int, fs: int = FS) -> np.ndarray:
+    """(n_mics, n) float32: `scene`'s MIC array with n_mics mics, each hearing the
+    source 0-4 samples late."""
+    n = int(round(seconds * fs))
+    t = np.arange(n) / fs
+    src = (0.3 * rng.standard_normal(n) + np.sin(2 * np.pi * rng.uniform(300, 3000) * t))
+    src *= (t > 0.15 * seconds) & (t < 0.75 * seconds)
+    out = 0.02 * rng.standard_normal((n_mics, n))
+    for m, d in enumerate(rng.integers(0, 5, n_mics)):
+        out[m, d:] += src[:n - d]
+    out[:, n - int(0.2 * fs):] = 0.0
+    return out.astype(np.float32)
+
+
+@pytest.mark.parametrize("n_mics", [3, 6, 8])
+def test_salsa_other_channel_counts_match_salsa_tpu(rng, n_mics):
+    """SALSA of a MIC array of 3, 6 and 8 mics, the port's default (K2, then the
+    power iteration, no K1) against salsa_tpu's power path: 2C - 1 channels, the
+    spectrograms at the bank's bounds and the spatial channels at the SALSA mask
+    bound (masks disagree on < 0.5 % of cells, atol 5e-3 where both are valid,
+    phases on their circle). The port's metadata says 2C - 1 and C; salsa_tpu's
+    says 7 and 4 at every C (ROADMAP queue 3)."""
+    wave = array_scene(rng, 3.0, n_mics)
+    j = j_make_extractor("salsa", "mic", fs=FS, n_fft=N_FFT, hop_length=HOP,
+                         eig_method="power", jit=False)
+    ex = make_extractor("salsa", "mic", fs=FS, n_fft=N_FFT, hop_length=HOP, n_mics=n_mics)
+    assert (ex.n_channels, ex.n_spec_channels) == (2 * n_mics - 1, n_mics)
+    want = np.asarray(j(wave))
+    assert want.shape[0] == 2 * n_mics - 1 and (j.n_channels, j.n_spec_channels) == (7, 4)
+    got = ex(torch.from_numpy(wave)[None])[0].numpy()
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert_bank_close(got[:n_mics], want[:n_mics], "spec")
+    p = ex.fn.keywords["params"]
+    nb = p.upper_bin - p.lower_bin
+    assert not got[n_mics:, :, nb:].any()
+    period = 2 * np.pi / (mic_delta(p.fs, p.n_fft) * np.arange(p.lower_bin, p.upper_bin))
+    assert_spatial_close(got[n_mics:, :, :nb], want[n_mics:, :, :nb], period, f"C={n_mics}")

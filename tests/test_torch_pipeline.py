@@ -384,6 +384,27 @@ HYGIENE = textwrap.dedent("""
         for i in range(len(pre)):
             assert np.array_equal(lazy.get_feature_chunk(i), pre.get_feature_chunk(i))
 
+    # data parallelism, the checkpoint interop CLIs, profiling, SALSA at 6 channels
+    import salsa_tpu_torch.cli.export_ckpt as export_ckpt
+    import salsa_tpu_torch.cli.import_ckpt as import_ckpt
+    import salsa_tpu_torch.parallel.distributed as distributed
+    import salsa_tpu_torch.parallel.mesh as mesh
+    import salsa_tpu_torch.utils.profiling as profiling
+
+    assert callable(distributed.initialize) and mesh.data_width(4, 2) == 2
+    assert profiling.device_timer(lambda: torch.ones(2) * 2, iters=1) >= 0.0
+    six = make_extractor("salsa", "mic", n_mics=6)(torch.zeros((1, 6, 4800)))
+    assert six.shape == (1, 11, 17, 200), six.shape
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = chip_smoke.write_experiment(tmp, scenes=(("one", 1.2, 24000),))
+        ck = export_ckpt.main(["--exp-config", exp["config"], "--exp-group-dir", exp["group"],
+                               "--out", os.path.join(tmp, "x.ckpt")])
+        back = import_ckpt.main(["--exp-config", exp["config"], "--torch-ckpt", ck,
+                                 "--exp-group-dir", os.path.join(tmp, "imported")])
+        a, b = checkpoint.restore_variables(exp["served"])[0], checkpoint.restore_variables(back)[0]
+        assert np.array_equal(a["decoder"]["event_fc1"]["kernel"],
+                              b["decoder"]["event_fc1"]["kernel"])
+
     leaked = sorted(m for m in sys.modules if blocked(m))
     assert not leaked, leaked
     print("HYGIENE_OK")
@@ -396,7 +417,9 @@ def test_port_imports_nothing_of_jax_or_salsa_tpu():
     still builds and runs the serving path on CPU, reads and writes a checkpoint,
     serves and scores an experiment from disk through the CLIs, and runs
     configs/seld.yml's feature-store workflow (cli.extract -> cli.train ->
-    cli.predict, cli.infer, cli.evaluate) and a lazy read."""
+    cli.predict, cli.infer, cli.evaluate) and a lazy read, imports
+    `salsa_tpu_torch.parallel`, the profiling module and the two checkpoint
+    CLIs, round-trips a checkpoint through them and extracts 6-channel SALSA."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", HYGIENE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)

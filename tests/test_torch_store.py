@@ -277,8 +277,9 @@ def test_keep_existing_extracts_only_missing_clips(corpus, tmp_path):
 def test_store_refusals(tmp_path, monkeypatch):
     """A clip or scaler in both formats is refused (ValueError); an .h5 without
     h5py raises ImportError naming it; writing a clip or the scaler replaces an
-    .h5 of it; SALSA with other than 4 channels stays refused (ROADMAP queue 1,
-    item 7); without a card and without device='cpu' extraction raises."""
+    .h5 of it; SALSA with a channel count outside the start-vector table (2-16)
+    stays refused (ROADMAP queue 1, item 7); without a card and without
+    device='cpu' extraction raises."""
     store = FeatureStore(str(tmp_path), "foa")
     store.write_clip("dev", "x", np.ones((7, 4, 3), np.float32))
     with h5py.File(os.path.join(store.split_dir("dev"), "x.h5"), "w") as hf:
@@ -306,7 +307,7 @@ def test_store_refusals(tmp_path, monkeypatch):
     monkeypatch.undo()
     cfg = _data_config(str(tmp_path), "mic", str(tmp_path / "features"))
     os.makedirs(str(tmp_path / "mic_dev"))
-    write_wav(str(tmp_path / "mic_dev" / "two.wav"), np.zeros((2, 800), np.float32), FS)
+    write_wav(str(tmp_path / "mic_dev" / "one.wav"), np.zeros((1, 800), np.float32), FS)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
         textract.extract_features(cfg, "salsa", splits=["mic_dev"], device="cpu")
     if not torch.cuda.is_available():

@@ -1,8 +1,7 @@
 """salsa_tpu_torch.train (losses, schedules, the scheduled optimizer, the
 optimizer state in optax's layout) and the models' training mode (BatchNorm's
 running statistics, dropout from a generator, the fresh init) against
-salsa_tpu, optax and flax on seeded inputs; and the trainer's refusals."""
-import os
+salsa_tpu, optax and flax on seeded inputs; and the trainer's options."""
 
 import numpy as np
 import pytest
@@ -30,7 +29,7 @@ from salsa_tpu_torch.train import losses  # noqa: E402
 from salsa_tpu_torch.train.checkpoint import save_checkpoint  # noqa: E402
 from salsa_tpu_torch.train.schedules import make_lr_momentum_schedules  # noqa: E402
 from salsa_tpu_torch.train.state import make_optimizer  # noqa: E402
-from salsa_tpu_torch.train.trainer import refuse_unported, resolve_device  # noqa: E402
+from salsa_tpu_torch.train.trainer import SeldTrainer, resolve_device  # noqa: E402
 from salsa_tpu_torch.utils.config import AttrDict  # noqa: E402
 
 
@@ -300,11 +299,7 @@ def test_combine_chunks_and_sed_from_accdoa_equal_salsa_tpu(rng):
                                   want)
 
 
-REFUSALS = [
-    ({"training": {"device_data_shard": True}}, "device_data_shard", 11),
-    ({"training": {"from_wav": True, "device_data_shard": True}}, "device_data_shard", 11),
-]
-# the store-fed options are no refusals: device_data, remat and precompute train
+# the store-fed options train: device_data, remat and precompute
 PORTED = [
     {"training": {"from_wav": False, "device_data": True}},
     {"training": {"remat": True}},
@@ -313,22 +308,34 @@ PORTED = [
 ]
 
 
-@pytest.mark.parametrize("cfg,what,item", REFUSALS)
-def test_trainer_refuses_unported_options(cfg, what, item):
-    with pytest.raises(NotImplementedError, match=rf"{what}.*item {item}\b"):
-        refuse_unported(AttrDict(cfg))
-
-
 @pytest.mark.parametrize("cfg", PORTED)
-def test_trainer_takes_the_store_fed_options(cfg):
-    refuse_unported(AttrDict(cfg))
+def test_trainer_takes_the_store_fed_options(cfg, tmp_path):
+    """Each option builds a trainer on a feature-store split and takes a step:
+    device_data keeps the split on the device (in its dtype), remat wraps the
+    encoder's blocks, precompute (which cli.train turns into device_data) on a
+    store split is the host path."""
+    from salsa_tpu_torch.data.database import SplitData
+    from tests.torch_parallel_worker import DEC, ENC, N_CLASSES, feature_arrays, feature_config
+
+    conf = feature_config("host", epochs=1, train_fraction=0.125)
+    conf["training"].update(cfg["training"])
+    tr = SeldTrainer(model=build_model(encoder=ENC, decoder=DEC, n_classes=N_CLASSES),
+                     cfg=AttrDict(conf), train_data=SplitData(**feature_arrays()),
+                     val_data=None, gt_meta_dir=None, submission_dir=str(tmp_path), seed=3,
+                     device="cpu")
+    t = cfg["training"]
+    assert tr.device_data == bool(t.get("device_data")) and not tr.from_wav
+    assert (tr.remat_blocks > 0) == bool(t.get("remat"))
+    if tr.device_data:
+        assert tr._feats.dtype == (torch.bfloat16 if t.get("device_data_dtype") == "bfloat16"
+                                   else torch.float32)
+    assert np.isfinite(tr.train_epoch(0)["loss"])
 
 
 @pytest.mark.parametrize("part", ["encoder", "decoder"])
 def test_trainer_takes_the_compute_dtype(part):
     """compute_dtype is no refusal: bfloat16 builds a model that computes in it,
     and a name the port does not run raises ValueError."""
-    refuse_unported(AttrDict({"model": {part: {"compute_dtype": "bfloat16"}}}))
     enc, dec = {"n_input_channels": 7}, {"decoder_type": "gru", "decoder_size": 8}
     model = build_model(encoder={**enc, **({"compute_dtype": "bfloat16"} if part == "encoder"
                                            else {})},
@@ -338,13 +345,6 @@ def test_trainer_takes_the_compute_dtype(part):
     with pytest.raises(ValueError, match="compute_dtype 'float8'"):
         build_model(encoder={**enc, "compute_dtype": "float8"} if part == "encoder" else enc,
                     decoder={**dec, "compute_dtype": "float8"} if part == "decoder" else dec)
-
-
-def test_trainer_refuses_more_than_one_process(monkeypatch):
-    refuse_unported(AttrDict({"training": {"from_wav": True}}))
-    monkeypatch.setitem(os.environ, "WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="more than one process.*item 11"):
-        refuse_unported(AttrDict({"training": {"from_wav": True}}))
 
 
 def test_trainer_defaults_to_the_card():
