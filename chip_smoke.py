@@ -134,7 +134,22 @@ Phases, each printing what it found; any failure raises and exits non-zero:
      whose `cli.predict` CSVs are byte-identical to the original's; (f) SALSA of a
      6-mic array (K2 and the power iteration, no K1) against the CPU at phase 2's
      mask bound; (g) `utils.profiling`'s device_timer of K1 at the step's shape and
-     its trace.
+     its trace, which must hold K1's device row, taken in a process of its own
+     (`chip_smoke.py --profile <spec>`: this long process's profiler loses device
+     rows late in the run; phase 15's profiled step likewise, which must hold its
+     upload's Memcpy HtoD row);
+ 17. SALSA at any channel count and the last modules: (a) SALSA of seeded 10 s
+     MIC arrays of 17, 24 and 32 mics against the CPU's plain run at phase 2's
+     mask bound (one K2 launch and no K1 a call); (b) a 60 s clip at 32 mics,
+     timed, with its peak memory, its covariance and power iteration timed
+     apart; (c) the measurement scripts bench_train (fp32,
+     --from-wav, --bf16), bench_streaming (one stream of 60 s; --pool --int16),
+     profile_step, probe_extract_stages (4 and 32 x 60 s), probe_stft_split and
+     quality_seeds (2 seeds x 4 clips x 1 epoch), each JSON holding its
+     original's keys with finite values; (d) a two-step `cli.train` whose
+     TensorBoard event file holds train/ and val/ scalars at its step, or, without
+     tensorboardX, whose log says nothing was written; (e)
+     training.checkpoint_backend orbax (and an unknown value) refused by cli.train.
 The second-to-last line is a JSON summary of the kernels, each with its time,
 its plain version's, its bound (the larger of its bytes over the memory rate and
 its operations over the peak rate of their type) and, where one PyTorch call
@@ -145,6 +160,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import importlib
 import csv
 import json
 import logging
@@ -152,6 +168,7 @@ import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -183,6 +200,8 @@ from salsa_tpu_torch.features.salsa import (
     extract_salsa,
     noise_floor_mask,
     noise_floor_mask_plain,
+    principal_eigs_power,
+    windowed_covariance,
 )
 from salsa_tpu_torch.features.salsa_spatial import (
     mic_delta,
@@ -224,7 +243,7 @@ from salsa_tpu_torch.train.checkpoint import save_checkpoint
 from salsa_tpu_torch.train.ensemble import ensemble_predictions, write_ensemble
 from salsa_tpu_torch.train.trainer import SeldPredictor, SeldTrainer, stratified_order
 from salsa_tpu_torch.train.tta import tta_fold
-from salsa_tpu_torch.utils.audio_io import read_wav, wav_info, write_wav
+from salsa_tpu_torch.utils.audio_io import read_wav, resample, wav_info, write_wav
 from salsa_tpu_torch.utils import profiling
 from salsa_tpu_torch.utils.config import apply_overrides, load_config, save_config
 from salsa_tpu_torch.utils.experiments import configure_logging
@@ -812,15 +831,19 @@ def profile_table(fn, phase: str, what: str, top: int = 12, upload_bytes: int = 
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
               and dev_us(e) > 0 and not e.key.startswith("Activity Buffer")]
     share = device_share([(e.key, dev_us(e)) for e in events], wall_ms, upload_bytes)
+    share["device_events"] = profiling.device_event_count(prof)
+    share["htod_rows"] = sum(e.count for e in events if e.key.startswith("Memcpy HtoD"))
     if not events:
-        log(phase, f"profile of {what}: no device time recorded (not measured)")
+        log(phase, f"profile of {what}: no device time recorded (not measured; "
+                   f"{share['device_events']} device events)")
         return share
     copy = (f"copy of {upload_bytes / 1e6:.1f} MB: not measured (its Memcpy HtoD row is "
             "missing)" if share["copy_ms"] is None
             else f"copy {share['copy_ms']:.2f} ms")
     idle = "idle not measured" if share["idle"] is None else f"{share['idle']:.1%} idle"
     log(phase, f"profile of {what}: device busy {share['busy_ms']:.2f} ms of {wall_ms:.2f} ms "
-               f"wall ({idle}, {copy}, profiler on) [{CARD}]")
+               f"wall ({idle}, {copy}, profiler on; {share['device_events']} device events, "
+               f"{share['htod_rows']} Memcpy HtoD rows) [{CARD}]")
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         log(phase, f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
     return share
@@ -1141,10 +1164,18 @@ def serve_from_disk(dev, exp: dict, tmp: str, batch_size: int = 4, tag: str = "8
         model.time_downsample_ratio * d.label_rate / (d.fs / d.hop_len), d.n_classes,
         d.output_format, device=dev)
     groups, buckets = [], {}
-    spent = {"decode": 0.0, "requests": 0.0, "csv": 0.0}  # host clock, seconds
+    # host clock, seconds; the decode is read_wav(target_fs=d.fs) split into the
+    # file's parse and conversion to float32 (what native/wavio.cpp does) and the
+    # resampling of a clip at another rate
+    spent = {"decode": 0.0, "parse": 0.0, "resample": 0.0, "requests": 0.0, "csv": 0.0}
     for name in sorted(os.listdir(exp["wav_dir"])):
         t0 = time.perf_counter()
-        a, _ = read_wav(os.path.join(exp["wav_dir"], name), target_fs=d.fs)
+        a, fs = read_wav(os.path.join(exp["wav_dir"], name))
+        t1 = time.perf_counter()
+        if fs != d.fs:
+            a = resample(a, fs, d.fs)
+        spent["parse"] += t1 - t0
+        spent["resample"] += time.perf_counter() - t1
         spent["decode"] += time.perf_counter() - t0
         buckets.setdefault(a.shape[1], []).append((name, a))
         if len(buckets[a.shape[1]]) == batch_size:
@@ -1195,6 +1226,9 @@ def serve_from_disk(dev, exp: dict, tmp: str, batch_size: int = 4, tag: str = "8
              f"{spent['decode']:.3f} s (the 48 kHz clip's resampling included), "
              f"{len(groups)} pipeline calls {spent['requests']:.3f} s, CSV writing "
              f"{spent['csv']:.3f} s [{CARD}]")
+    log(tag, f"  of the wav decode: parsing the files and converting to float32 "
+             f"{spent['parse']:.3f} s, resampling the 48 kHz clip {spent['resample']:.3f} s "
+             f"[{CARD}]")
 
     scores = cli_evaluate.main(["--output-dir", out_dir, "--gt-meta-root-dir",
                                 exp["gt_root"], "--n-classes", str(d.n_classes)])
@@ -3318,7 +3352,7 @@ def phase15(dev, seconds: float = 60.0, overrides=(), timed: int = TIMED_STEPS) 
     """The feature-store workflow on `dev`: `cli.extract` (store_extract),
     `cli.train` of configs/seld.yml from the store with the host transforms (K1 =
     K2 = 0; the first step against the CPU's; the step split; a profiled step with
-    its idle share; peak memory; checkpoints), the resident, precompute and remat
+    its copy and idle share, in a process of its own; peak memory; checkpoints), the resident, precompute and remat
     variants (store_variants), then `cli.predict` of the trained best with the
     store's scaler (serve_from_disk: CSVs byte-identical to the in-memory
     pipeline's), `cli.infer --splits val` from the store (K1 = K2 = 0; scores
@@ -3377,11 +3411,11 @@ def phase15(dev, seconds: float = 60.0, overrides=(), timed: int = TIMED_STEPS) 
         out.update(train_launches=train_launches, peak_gib=peak, n_steps=n_steps,
                    train_s=wall)
         if cuda:
-            b = next(iter(tr.host_batches(tr.max_epochs + 5)))
-            nbytes = sum(t.numel() * t.element_size() for t in b)
-            out["profile"] = profile_table(lambda: tr.step_on(*tr.to_device(b)), "15",
-                                           "one store-fed step (copy included)", top=12,
-                                           upload_bytes=nbytes)
+            out["profile"] = profile_in_own_process(
+                {"kind": "store_step", "config": config, "group": group}, tmp, "15")
+            if out["profile"]["copy_ms"] is None:
+                raise AssertionError("the store-fed step's profile has no Memcpy HtoD row "
+                                     "for its upload")
         del tr
         if cuda:
             torch.cuda.empty_cache()
@@ -3672,66 +3706,157 @@ def report_ranks(ranks: list[dict], what: str, tag: str = "16") -> None:
                  f"ms ({share:.1%}); peak memory {r['peak_gib']:.2f} GiB [{CARD}]")
 
 
-def six_channel_salsa(dev, seconds: float = 10.0) -> dict:
-    """SALSA of a seeded 6-mic array on `dev` against the CPU's plain run: K2 on
-    channel 0 and the power iteration (K1 is a 4-channel kernel): one K2 launch, no
-    K1; 11 channels; spectrograms within 5e-3, the spatial channels at phase 2's
-    mask bound on the circle."""
-    rng = np.random.default_rng(SEED + 16)
+def mic_array_clip(n_mics: int, seconds: float, seed: int) -> torch.Tensor:
+    """(1, n_mics, seconds * FS) float32: a seeded MIC array's clip, diffuse noise
+    plus a source (noise and an 1100 Hz tone, on 3 s of every 5) each mic hears
+    0-4 samples late."""
+    rng = np.random.default_rng(seed)
     n = int(round(seconds * FS))
     t = np.arange(n) / FS
-    wave = 0.02 * rng.standard_normal((1, SIX_MICS, n))
+    wave = 0.02 * rng.standard_normal((1, n_mics, n))
     src = (0.2 * rng.standard_normal(n) + np.sin(2 * np.pi * 1100.0 * t)) * ((t % 5.0) < 3.0)
-    for m, d in enumerate(rng.integers(0, 5, SIX_MICS)):
+    for m, d in enumerate(rng.integers(0, 5, n_mics)):
         wave[0, m, d:] += src[:n - d]
-    wave = torch.from_numpy(wave.astype(np.float32))
-    ex = make_extractor("salsa", "mic", fs=FS, n_fft=N_FFT, hop_length=HOP, n_mics=SIX_MICS)
+    return torch.from_numpy(wave.astype(np.float32))
+
+
+def array_salsa(dev, n_mics: int, seconds: float, phase: str, seed: int) -> dict:
+    """SALSA of a seeded `n_mics`-mic array on `dev` against the CPU's plain run: K2
+    on channel 0 and the power iteration (K1 is a 4-channel kernel): one K2 launch,
+    no K1; 2C - 1 channels; spectrograms within 5e-3, the spatial channels at
+    phase 2's mask bound on the circle."""
+    wave = mic_array_clip(n_mics, seconds, seed)
+    ex = make_extractor("salsa", "mic", fs=FS, n_fft=N_FFT, hop_length=HOP, n_mics=n_mics)
     got, launches = counted(lambda: ex(wave.to(dev)))
     want = ex(wave)
     want_launches = ({"salsa_spatial": 0, "noise_floor": 1} if dev.type == "cuda"
                      else {"salsa_spatial": 0, "noise_floor": 0})
-    if launches != want_launches or got.shape[1] != 2 * SIX_MICS - 1 or (
-            ex.n_channels != 2 * SIX_MICS - 1):
-        raise AssertionError(f"6-channel SALSA: launches {launches}, shape {tuple(got.shape)}")
-    np.testing.assert_allclose(got[:, :SIX_MICS].cpu().numpy(), want[:, :SIX_MICS].numpy(),
-                               atol=5e-3, rtol=5e-3, err_msg="6-channel spectrograms")
+    if launches != want_launches or got.shape[1] != 2 * n_mics - 1 or (
+            ex.n_channels != 2 * n_mics - 1):
+        raise AssertionError(f"{n_mics}-channel SALSA: launches {launches}, shape "
+                             f"{tuple(got.shape)}")
+    np.testing.assert_allclose(got[:, :n_mics].cpu().numpy(), want[:, :n_mics].numpy(),
+                               atol=5e-3, rtol=5e-3, err_msg=f"{n_mics}-channel spectrograms")
     nb = MIC.upper_bin - MIC.lower_bin
-    err = compare_spatial(got[:, SIX_MICS:, :, :nb].transpose(-1, -2),
-                          want[:, SIX_MICS:, :, :nb].transpose(-1, -2),
-                          f"6-channel SALSA {tuple(got.shape)} on {dev.type} vs the CPU",
-                          phase="16", period=mic_period(MIC, nb))
-    log("16", f"6-channel SALSA ({SIX_MICS} mics, {seconds:g} s): {ex.n_channels} channels, "
-              f"launches {launches}")
+    err = compare_spatial(got[:, n_mics:, :, :nb].transpose(-1, -2),
+                          want[:, n_mics:, :, :nb].transpose(-1, -2),
+                          f"{n_mics}-channel SALSA {tuple(got.shape)} on {dev.type} vs the CPU",
+                          phase=phase, period=mic_period(MIC, nb))
+    log(phase, f"{n_mics}-channel SALSA ({n_mics} mics, {seconds:g} s): {ex.n_channels} "
+               f"channels, launches {launches}")
     return {"launches": launches, "max_abs_err": err}
 
 
-def profiling_check(dev, tmp: str, tr_shape=(32, 4, 191, 646)) -> dict:
-    """`utils.profiling.device_timer` on K1 at the training step's shape, and
-    `trace` of one call, whose Chrome trace must name the kernel's launch."""
+def six_channel_salsa(dev, seconds: float = 10.0) -> dict:
+    """`array_salsa` of a 6-mic array (phase 16 (f))."""
+    return array_salsa(dev, SIX_MICS, seconds, "16", SEED + 16)
+
+
+def k1_trace(dev, log_dir: str, tr_shape=(32, 4, 191, 646)) -> dict:
+    """`utils.profiling.trace` of one K1 call at the training step's shape inside a
+    `record_function`: the traced call's bytes, whether the trace holds the
+    call's range and K1's device row, and the device events that came back."""
     rng = np.random.default_rng(SEED + 17)
     xr, xi = normal_planes(rng, tr_shape, dev)
     mask = torch.ones((tr_shape[0], tr_shape[2], tr_shape[3] - 6), dtype=torch.bool, device=dev)
-    s = profiling.device_timer(lambda *a: salsa_spatial(*a, **spatial_kw(FOA)), xr, xi, mask,
-                               iters=7)
-    log_dir = os.path.join(tmp, "trace")
-    with profiling.trace(log_dir):
+    salsa_spatial(xr, xi, mask, **spatial_kw(FOA))  # built and warm before the trace
+    with profiling.trace(log_dir) as prof:
         with torch.profiler.record_function("K1 salsa_spatial"):
             salsa_spatial(xr, xi, mask, **spatial_kw(FOA))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     with open(os.path.join(log_dir, "trace.json")) as f:
         text = f.read()
-    if "K1 salsa_spatial" not in text:
-        raise AssertionError(f"{log_dir}/trace.json does not hold the traced call")
-    # the kernel's device row needs the profiler's CUDA activity, which a later
-    # profiler session in one process does not always get (phases 5-15 profile)
-    row = "salsa_spatial_kernel" in text
+    return {"trace_bytes": len(text), "record_row": "K1 salsa_spatial" in text,
+            "kernel_row": "salsa_spatial_kernel" in text, "device_events": prof.device_events}
+
+
+def profile_in_own_process(spec: dict, tmp: str, phase: str) -> dict:
+    """Run one profiled measurement (`profile_main`) in a fresh process of its own
+    and return its result: `chip_smoke.py --profile <spec.json>`."""
+    path = os.path.join(tmp, f"profile_{spec['kind']}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--profile", path],
+                       capture_output=True, text=True, timeout=600, cwd=REPO)
+    for line in r.stdout.splitlines()[:-1]:
+        print(line, flush=True)
+    if r.returncode != 0:
+        raise AssertionError(f"the profiled {spec['kind']} in its own process exited "
+                             f"{r.returncode}: {r.stderr[-3000:]}")
+    out = json.loads(r.stdout.splitlines()[-1])
+    log(phase, f"profiled {spec['kind']} in a process of its own: {out}")
+    return out
+
+
+PROFILE_SESSIONS = 3  # sessions a profiled measurement of its own process may take
+
+
+def profile_main(spec_path: str) -> None:
+    """One profiled measurement in a fresh process (`chip_smoke.py --profile
+    <spec.json>`): 'k1_trace' (`k1_trace` into the spec's directory) or
+    'store_step' (`cli.train`'s trainer of the spec's store experiment, two warm
+    steps, then `profile_table` of one step with its upload). CUPTI drops rows now
+    and then in a fresh process too (a copy's row in some short processes on the
+    card), so up to PROFILE_SESSIONS sessions are taken until the row looked for
+    is there; `sessions` says how many. Prints its result as the last line."""
+    global CARD
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(spec.get("device", "cuda"))
+    CARD = smi("name,power.limit") if dev.type == "cuda" else "cpu"
+    if spec["kind"] == "k1_trace":
+        def measure(i):
+            return k1_trace(dev, os.path.join(spec["log_dir"], str(i)),
+                            tuple(spec.get("shape", (32, 4, 191, 646))))
+
+        def found(out):
+            return out["kernel_row"]
+    else:
+        tr = cli_train.build_trainer(spec["config"], spec["group"], "_profile", device=dev)
+        batches = iter(tr.host_batches(tr.max_epochs + 5))
+        for _ in range(2):
+            tr.step_on(*tr.to_device(next(batches)))
+        b = next(batches)
+        nbytes = sum(t.numel() * t.element_size() for t in b)
+
+        def measure(i):
+            return profile_table(lambda: tr.step_on(*tr.to_device(b)), "15",
+                                 "one store-fed step (copy included), own process", top=12,
+                                 upload_bytes=nbytes)
+
+        def found(out):
+            return out["copy_ms"] is not None
+    for i in range(1, PROFILE_SESSIONS + 1):
+        out = measure(i)
+        if found(out):
+            break
+    out["sessions"] = i
+    print(json.dumps(out), flush=True)
+
+
+def profiling_check(dev, tmp: str, tr_shape=(32, 4, 191, 646)) -> dict:
+    """`utils.profiling.device_timer` on K1 at the training step's shape, and
+    `trace` of one call in a process of its own (CUPTI can hand a late session of
+    this long process no device activity), whose Chrome trace must hold the traced
+    call and, on the card, K1's device row."""
+    rng = np.random.default_rng(SEED + 17)
+    xr, xi = normal_planes(rng, tr_shape, dev)
+    mask = torch.ones((tr_shape[0], tr_shape[2], tr_shape[3] - 6), dtype=torch.bool, device=dev)
+    s = profiling.device_timer(lambda *a: salsa_spatial(*a, **spatial_kw(FOA)), xr, xi, mask,
+                               iters=7)
+    traced = profile_in_own_process({"kind": "k1_trace", "log_dir": os.path.join(tmp, "trace"),
+                                     "device": dev.type, "shape": list(tr_shape)}, tmp, "16")
+    if not traced["record_row"] or (dev.type == "cuda" and not traced["kernel_row"]):
+        raise AssertionError(f"profiling.trace of K1 holds no row for it: {traced}")
     log("16", f"profiling.device_timer: K1 at {tr_shape} {s * 1e3:.4f} ms median of 7 "
-              f"(bound {k1_bound(tr_shape)[0]:.4f} ms) [{CARD}]; profiling.trace wrote "
-              f"{len(text)} bytes, the traced call {'with' if row else 'without'} K1's "
-              "device row")
-    return {"k1_ms": s * 1e3, "k1_bound": k1_bound(tr_shape), "trace_bytes": len(text),
-            "kernel_row": row}
+              f"(bound {k1_bound(tr_shape)[0]:.4f} ms) [{CARD}]; profiling.trace in a process "
+              f"of its own: {traced['trace_bytes']} bytes, {traced['device_events']} device "
+              f"events, K1's device row {'present' if traced['kernel_row'] else 'missing'}, "
+              f"{traced['sessions']} session(s)")
+    return {"k1_ms": s * 1e3, "k1_bound": k1_bound(tr_shape), "trace": traced}
 
 
 def phase16(dev, seconds: float = 60.0, overrides=(), timed: int = TIMED_RANK_STEPS,
@@ -3743,7 +3868,7 @@ def phase16(dev, seconds: float = 60.0, overrides=(), timed: int = TIMED_RANK_ST
     clips against device_data on one rank in the same order; (d) that run stopped
     after an epoch and resumed on two ranks; (e) export_ckpt and import_ckpt of
     (a)'s best, served by cli.predict byte-identically; (f) SALSA at 6 channels;
-    (g) profiling."""
+    (g) profiling: K1's device_timer and a trace holding K1's device row."""
     cuda = dev.type == "cuda"
     out = {}
     t_phase = time.perf_counter()
@@ -3854,6 +3979,223 @@ def phase16(dev, seconds: float = 60.0, overrides=(), timed: int = TIMED_RANK_ST
     return out
 
 
+# the port's measurement scripts as phase 17 runs them on the card: argv, and the
+# keys of the counterpart in scripts/ each JSON must hold (its JSON keys, or the
+# names of its cases and printed figures)
+SCRIPT_RUNS = {
+    "bench_train": [["--iters", "5"], ["--iters", "5", "--from-wav"],
+                    ["--iters", "5", "--bf16", "--encoder", "PannResNet22TPU"]],
+    "bench_streaming": [["--encoder", "PannResNet22"],
+                        ["--pool", "--streams", "2", "--int16", "--seconds", "10"]],
+    "profile_step": [["--iters", "3"]],
+    "probe_extract_stages": [["--batch", "4", "32", "--iters", "5"]],
+    "probe_stft_split": [["--iters", "3"]],
+    "quality_seeds": [["--seeds", "1", "2", "--clips", "4", "--epochs", "1", "--members", "1"]],
+}
+SCRIPT_KEYS = {
+    "bench_train": {"metric", "steps_per_s", "audio_s_per_s", "batch", "bf16", "loss"},
+    "bench_streaming": {"wall_s", "x_realtime_aggregate", "p50_ms", "p95_ms", "max_ms"},
+    "profile_step": {"batch", "device", "full_step_ms", "fwd_train_ms", "fwd_eval_ms",
+                     "fwd_bwd_ms", "peak_matmul_tflops", "effective_tflops_fwd_bwd"},
+    "probe_extract_stages": {"stft", "stft_n256", "+logspec", "+tracker", "full"},
+    "probe_stft_split": {"stft_cur", "stft_split", "prep_cur", "prep_split", "full_cur",
+                         "full_split", "full_cur_b64", "full_split_b64"},
+    "quality_seeds": {"seeds", "table"},
+}
+MANY_MICS = (17, 24, 32)
+
+
+def finite_values(value) -> bool:
+    """Every float in a nest of dicts and lists is finite."""
+    if isinstance(value, dict):
+        return all(finite_values(v) for v in value.values())
+    if isinstance(value, (list, tuple)):
+        return all(finite_values(v) for v in value)
+    return not isinstance(value, float) or bool(np.isfinite(value))
+
+
+def run_scripts(dev, runs: dict, tmp: str) -> dict:
+    """Each script's `main(argv)` in this process (`--cpu` added off the card), its
+    JSON checked for the counterpart's keys and finite values; returns the JSONs."""
+    from salsa_tpu_torch import scripts
+
+    out = {}
+    for name, argvs in runs.items():
+        mod = importlib.import_module(f"{scripts.__name__}.{name}")
+        for argv in argvs:
+            argv = list(argv) + (["--cpu"] if dev.type == "cpu" else [])
+            if name == "quality_seeds":
+                argv += ["--workdir", os.path.join(tmp, "quality_seeds")]
+            t0 = time.perf_counter()
+            res = mod.main(argv)
+            secs = time.perf_counter() - t0
+            rows = (res["probe_extract_stages"] if name == "probe_extract_stages"
+                    else [res])
+            missing = [SCRIPT_KEYS[name] - set(r) for r in rows]
+            if any(missing) or not finite_values(res):
+                raise AssertionError(f"{name} {argv}: keys missing {missing} or a value not "
+                                     f"finite: {res}")
+            log("17", f"(c) {name} {' '.join(argv)}: {secs:.1f} s host clock, its JSON has "
+                      f"the original's keys, every value finite")
+            out.setdefault(name, []).append(res)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return out
+
+
+def tensorboard_check(dev, tmp: str, seconds: float, overrides=()) -> dict:
+    """`cli.train` of two steps (configs/seld.yml from wav, batch 4, validated once)
+    on `dev`: with tensorboardX, the experiment's event file holds `train/<k>` and
+    `val/<k>` at the step count; without it, the log says that no scalar was
+    written; then `training.checkpoint_backend: orbax` refused before any data is
+    read or a step runs, and an unknown backend as salsa_tpu refuses it."""
+    exp = write_train_experiment(tmp, seconds, overrides=(
+        "training.max_epochs=1", "training.train_batch_size=4", "data.train_fraction=0.25",
+        *overrides))
+    tr, launches, wall = counted_train(dev, exp["config"], exp["group"])
+    tb_dir = tr.cfg.dir.tb_dir
+    out = {"steps": tr.optimizer.count, "launches": launches, "seconds": wall}
+    try:
+        import tensorboardX  # noqa: F401
+    except ImportError:
+        with open(os.path.join(exp["exp_dir"], "logs", "log.txt")) as f:
+            said = "tensorboardX does not import: no TensorBoard scalars" in f.read()
+        files = os.listdir(tb_dir) if os.path.isdir(tb_dir) else []
+        if not said or files:
+            raise AssertionError(f"(d) without tensorboardX: log line {said}, {tb_dir} holds "
+                                 f"{files}")
+        out["tensorboard"] = "tensorboardX does not import: nothing written, said once"
+    else:
+        scalars = read_event_scalars(tb_dir)
+        want = {f"train/{k}" for k in ("loss", "sed_loss", "doa_loss", "lr", "momentum")} | {
+            f"val/{k}" for k in ("val_loss", "seld_error", "ER", "F1", "LE", "LR")}
+        steps = {s for v in scalars.values() for s, _ in v}
+        if not want <= set(scalars) or steps != {tr.optimizer.count}:
+            raise AssertionError(f"(d) event file tags {sorted(scalars)} at steps {steps}")
+        out["tensorboard"] = f"{len(scalars)} tags at step {tr.optimizer.count}"
+    log("17", f"(d) cli.train of {tr.optimizer.count} steps ({wall:.1f} s, launches {launches}):"
+              f" {out['tensorboard']}")
+    for backend, match in (("orbax", "ROADMAP queue 1, item 3"),
+                           ("zarr", "unknown checkpoint backend 'zarr'")):
+        salsa_spatial.launches = noise_floor_mask.launches = 0
+        try:
+            cli_train.train(exp["config"], exp["group"], f"_{backend}", device=dev,
+                            overrides=[f"training.checkpoint_backend={backend}"])
+        except ValueError as e:
+            if match not in str(e):
+                raise
+            log("17", f"(e) training.checkpoint_backend={backend} refused through cli.train "
+                      f"before any data: {e}")
+        else:
+            raise AssertionError(f"(e) training.checkpoint_backend={backend} was not refused")
+        if salsa_spatial.launches or noise_floor_mask.launches:
+            raise AssertionError(f"(e) {backend}: kernels launched before the refusal")
+    return out
+
+
+def phase17(dev, seconds: float = 10.0, counts=MANY_MICS, long_mics: int = 32,
+            long_seconds: float = 60.0, runs=SCRIPT_RUNS, tb_seconds: float = 12.0,
+            tb_overrides=()) -> dict:
+    """SALSA at any channel count and the last modules of the port: (a) SALSA MIC at
+    17, 24 and 32 mics on a seeded 10 s array clip against the CPU's plain run (K2
+    once, K1 never, each call); (b) one 60 s clip at 32 mics, timed, with its peak
+    memory and the time of its covariance and of its power iteration; (c) the six measurement scripts in this process at small sizes
+    (`run_scripts`); (d) TensorBoard scalars of a two-step `cli.train`, or the log
+    line without tensorboardX, and (e) the orbax refusal (`tensorboard_check`)."""
+    cuda = dev.type == "cuda"
+    out = {"many": {}}
+    t_phase = time.perf_counter()
+    for c in counts:
+        out["many"][c] = array_salsa(dev, c, seconds, "17", SEED + c)
+    wave = mic_array_clip(long_mics, long_seconds, SEED + 100).to(dev)
+    ex = make_extractor("salsa", "mic", fs=FS, n_fft=N_FFT, hop_length=HOP, n_mics=long_mics)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    feats, launches = counted(lambda: ex(wave))
+    if cuda:
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        ms = cuda_ms(lambda: ex(wave), repeats=3, warmup=0)
+    else:
+        t0 = time.perf_counter()
+        ex(wave)
+        peak, ms = float("nan"), (time.perf_counter() - t0) * 1e3
+    if feats.shape[1] != 2 * long_mics - 1 or not torch.isfinite(feats).all():
+        raise AssertionError(f"(b) {long_mics}-channel SALSA: {tuple(feats.shape)}, finite "
+                             f"{bool(torch.isfinite(feats).all())}")
+    out["long"] = {"mics": long_mics, "seconds": long_seconds, "ms": ms, "peak_gib": peak,
+                   "launches": launches}
+    method = "CUDA events, median of 3" if cuda else "host clock"
+    log("17", f"(b) SALSA of one {long_seconds:g} s clip at {long_mics} mics "
+              f"{tuple(feats.shape)}: {ms:.2f} ms ({method}), peak memory {peak:.2f} GiB "
+              f"above the input, launches {launches} [{CARD}]")
+    del feats
+    if cuda:
+        out["long"].update(power_path_split(wave))
+        lg = out["long"]
+        log("17", f"(b) of which the windowed covariance {lg['covariance_ms']:.2f} ms (peak "
+                  f"{lg['covariance_peak_gib']:.2f} GiB) and the power iteration "
+                  f"{lg['power_ms']:.2f} ms (peak {lg['power_peak_gib']:.2f} GiB above the "
+                  f"covariance) (CUDA events, median of 3) [{CARD}]")
+    del wave
+    if cuda:
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["scripts"] = run_scripts(dev, runs, tmp)
+        out["train"] = tensorboard_check(dev, os.path.join(tmp, "tb"), tb_seconds, tb_overrides)
+    out["seconds"] = time.perf_counter() - t_phase
+    log("17", f"phase 17: {out['seconds']:.1f} s host clock [{CARD}]")
+    return out
+
+
+def power_path_split(wave: torch.Tensor, p: SalsaParams = MIC) -> dict:
+    """The two stages of SALSA's power path on `wave`'s DOA band (on the card):
+    the windowed covariance and the power iteration on it, each its ms (CUDA
+    events, median of 3) and its peak memory above what was allocated before it
+    (GiB; the covariance's input, and the covariance for the power iteration)."""
+    re, im = stft_planes(wave, n_fft=p.n_fft, hop_length=p.hop_length, win_length=p.win_length)
+    n_t = re.shape[-2]
+    xr, xi = band_planes(re, im, p)
+    x = torch.complex(xr, xi).permute(0, 2, 3, 1)
+    del re, im, xr, xi
+    out = {}
+    for name, fn in (("covariance", lambda: windowed_covariance(x, p.n_hopframes, n_t)),
+                     ("power", lambda: principal_eigs_power(r))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(wave.device)
+        base = torch.cuda.memory_allocated(wave.device)
+        got = fn()
+        out[f"{name}_peak_gib"] = (torch.cuda.max_memory_allocated(wave.device) - base) / 2**30
+        out[f"{name}_ms"] = cuda_ms(fn, repeats=3, warmup=0)
+        if name == "covariance":
+            r = got
+        del got
+    return out
+
+
+def read_event_scalars(tb_dir: str) -> dict[str, list[tuple[int, float]]]:
+    """The scalars of the one tensorboardX event file in `tb_dir`, {tag: [(step,
+    value), ...]} in the order written: TFRecord frames (length, its CRC, an
+    `Event` protobuf, its CRC), read with tensorboardX's own `Event` class."""
+    from tensorboardX.proto.event_pb2 import Event
+
+    files = [f for f in os.listdir(tb_dir) if f.startswith("events.out.tfevents")]
+    if len(files) != 1:
+        raise AssertionError(f"{tb_dir}: {len(files)} event files, not one")
+    with open(os.path.join(tb_dir, files[0]), "rb") as f:
+        buf = f.read()
+    out: dict[str, list[tuple[int, float]]] = {}
+    pos = 0
+    while pos < len(buf):
+        (n,) = struct.unpack_from("<Q", buf, pos)
+        event = Event.FromString(buf[pos + 12:pos + 12 + n])
+        pos += 12 + n + 4
+        for v in event.summary.value:
+            out.setdefault(v.tag, []).append((event.step, v.simple_value))
+    return out
+
+
 def main() -> None:
     card = phase0()
     dev = torch.device("cuda", 0)
@@ -3889,6 +4231,8 @@ def main() -> None:
     store = phase15(dev)
     torch.cuda.empty_cache()
     par = phase16(dev)
+    torch.cuda.empty_cache()
+    many = phase17(dev)
     # library_ms: one PyTorch call computing the same function, where there is one
     # (cuDNN bf16 for K4, timed by the probe); none exists for K1-K3. `launches` is
     # phase 4's serving run; K1's and K2's train_* keys are phase 9's cli.train,
@@ -3904,7 +4248,8 @@ def main() -> None:
     # none) and store_train_* its cli.train from the store (0), parallel_* phase 16's
     # cli.train on one rank over NCCL and each of two ranks on the card (a count a
     # rank, K1 and K2 once a step of its rows), six_channel_* its 6-mic SALSA
-    # extraction (K2 only), step_device_timer_ms utils.profiling's K1 time
+    # extraction (K2 only), step_device_timer_ms utils.profiling's K1 time,
+    # many_channel_* phase 17's SALSA at 17, 24 and 32 mics (K2 once a call, no K1)
     kernels = [
         {"name": "salsa_spatial", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/salsa_spatial.cu",
@@ -3935,7 +4280,9 @@ def main() -> None:
          "parallel_one_rank_launches": par["one"]["launches"]["salsa_spatial"],
          "parallel_rank_launches": [r["launches"]["salsa_spatial"] for r in par["two"]],
          "six_channel_launches": par["six"]["launches"]["salsa_spatial"],
-         "step_device_timer_ms": par["profile"]["k1_ms"]},
+         "step_device_timer_ms": par["profile"]["k1_ms"],
+         "many_channel_launches": [m["launches"]["salsa_spatial"]
+                                   for m in many["many"].values()]},
         {"name": "noise_floor", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/noise_floor.cu",
          "replaces": "salsa_tpu/features/salsa.py:82",
@@ -3965,7 +4312,9 @@ def main() -> None:
          "store_train_launches": store["train_launches"]["noise_floor"],
          "parallel_one_rank_launches": par["one"]["launches"]["noise_floor"],
          "parallel_rank_launches": [r["launches"]["noise_floor"] for r in par["two"]],
-         "six_channel_launches": par["six"]["launches"]["noise_floor"]},
+         "six_channel_launches": par["six"]["launches"]["noise_floor"],
+         "many_channel_launches": [m["launches"]["noise_floor"] for m in many["many"].values()],
+         "many_channel_max_abs_err": [m["max_abs_err"] for m in many["many"].values()]},
         {"name": "salsa_spatial_probe", "route": "cuda",
          "source": "salsa_tpu_torch/csrc/salsa_spatial_probe.cu",
          "replaces": "scripts/probe_salsa_kernel.py:67",
@@ -3989,6 +4338,8 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:  # one rank of phase 16, spawned by launch_ranks
         rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--profile"]:  # a profiled measurement in its own process
+        profile_main(sys.argv[2])
     else:
         main()
     sys.exit(0)

@@ -16,8 +16,8 @@ is extracted clip by clip. A short last group is not padded, so that no clip's
 features depend on the clips batched with it. The scaler is fit over every clip
 of the dev folder in sorted order (`StreamingScaler`). Each split's rate is
 logged as x realtime on the host clock, the disk writes included. SALSA takes the
-channel count of the first wav (2C - 1 feature channels, C of them scaled; C in
-2-16), 4-channel FOA or MIC arrays as configured.
+channel count of the first wav (2C - 1 feature channels, C of them scaled; any
+C >= 2), 4-channel FOA or MIC arrays as configured.
 """
 from __future__ import annotations
 

@@ -66,7 +66,7 @@ from salsa_tpu_torch.data.wav_database import (
 from salsa_tpu_torch.features.chunked import required_pad
 from salsa_tpu_torch.features.registry import make_extractor
 from salsa_tpu_torch.models.seld import build_model
-from salsa_tpu_torch.train.checkpoint import latest_checkpoint
+from salsa_tpu_torch.train.checkpoint import check_backend, latest_checkpoint
 from salsa_tpu_torch.parallel import distributed
 from salsa_tpu_torch.train.trainer import SeldTrainer, resolve_device
 from salsa_tpu_torch.utils.config import apply_overrides
@@ -111,6 +111,7 @@ def build_trainer(exp_config: str, exp_group_dir: str = "./outputs", exp_suffix:
     if overrides:
         apply_overrides(cfg, overrides)
     seed = seed if seed is not None else cfg.get("seed", 2021)
+    check_backend(cfg.training.get("checkpoint_backend", "msgpack"))  # before any data
 
     mode = cfg.get("mode", "crossval")
     train_split = "train" if mode == "crossval" else "dev"

@@ -187,7 +187,7 @@ def make_extractor(
 ) -> FeatureExtractor:
     """`salsa_tpu.features.registry.make_extractor` with its defaults, except that
     eig_method 'auto' is K1 on every device (ROADMAP rule 5). SALSA takes any
-    channel count C = `n_mics` of the table (2-16) and reports its 2C - 1 output
+    channel count C = `n_mics` >= 2 and reports its 2C - 1 output
     channels and C spectrogram channels; `salsa_tpu` reports 7 and 4 at every C
     (ROADMAP queue 3)."""
     meta = dict(name=feature_type, audio_format=audio_format, hop_length=hop_length)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from salsa_tpu_torch.kernels.build import check_launch, load_library
+from salsa_tpu_torch.utils import threefry
 
 C = 4
 N_SQUARINGS = 3
@@ -36,110 +37,19 @@ START_S0 = np.array([0.72769094 + 0.32384574j, -0.9307311 - 2.380504j,
 START_S1 = np.array([-2.3784811 + 0.20879258j, -1.759696 + 1.0385665j,
                      0.7045168 + 0.97886115j, 0.38834825 + 0.60916615j], dtype=np.complex64)
 
-# jax.random.normal(PRNGKey(20211021), (2, 2, C)) for C = 2-16 as float32 literals, rows
-# (s0.re, s0.im, s1.re, s1.im): the power iteration's start vectors s0 and s1 at C
-# channels (`salsa_tpu.features.salsa.principal_eigs_power`); C = 4 is START_S0/S1
-_START_ROWS = {
-    2: ((0.72769094, -0.9307311), (1.1572573, 0.88554), (0.32384574, -2.380504), (-1.076081,
-        0.3645283)),
-    3: ((0.72769094, -0.9307311, 1.1572573), (0.88554, 0.32384574, -2.380504), (-1.076081,
-        0.3645283, -2.3784811), (-1.759696, 0.7045168, 0.38834825)),
-    4: ((0.72769094, -0.9307311, 1.1572573, 0.88554), (0.32384574, -2.380504, -1.076081,
-        0.3645283), (-2.3784811, -1.759696, 0.7045168, 0.38834825), (0.20879258, 1.0385665,
-        0.97886115, 0.60916615)),
-    5: ((0.72769094, -0.9307311, 1.1572573, 0.88554, 0.32384574), (-2.380504, -1.076081,
-        0.3645283, -2.3784811, -1.759696), (0.7045168, 0.38834825, 0.20879258, 1.0385665,
-        0.97886115), (0.60916615, 0.91571844, -0.42006883, -1.7750353, 1.3431948)),
-    6: ((0.72769094, -0.9307311, 1.1572573, 0.88554, 0.32384574, -2.380504), (-1.076081,
-        0.3645283, -2.3784811, -1.759696, 0.7045168, 0.38834825), (0.20879258, 1.0385665,
-        0.97886115, 0.60916615, 0.91571844, -0.42006883), (-1.7750353, 1.3431948, 0.3328052,
-        -0.013709313, -1.071047, -2.0547147)),
-    7: ((0.72769094, -0.9307311, 1.1572573, 0.88554, 0.32384574, -2.380504, -1.076081),
-        (0.3645283, -2.3784811, -1.759696, 0.7045168, 0.38834825, 0.20879258, 1.0385665),
-        (0.97886115, 0.60916615, 0.91571844, -0.42006883, -1.7750353, 1.3431948, 0.3328052),
-        (-0.013709313, -1.071047, -2.0547147, 0.018999174, 0.1276587, -0.64800996,
-        -0.29291847)),
-    8: ((0.72769094, -0.9307311, 1.1572573, 0.88554, 0.32384574, -2.380504, -1.076081,
-        0.3645283), (-2.3784811, -1.759696, 0.7045168, 0.38834825, 0.20879258, 1.0385665,
-        0.97886115, 0.60916615), (0.91571844, -0.42006883, -1.7750353, 1.3431948, 0.3328052,
-        -0.013709313, -1.071047, -2.0547147), (0.018999174, 0.1276587, -0.64800996, -0.29291847,
-        -0.85993487, 0.3496222, 1.3848939, 0.005697281)),
-    9: ((0.72769094, -0.9307311, 1.1572573, 0.88554, 0.32384574, -2.380504, -1.076081,
-        0.3645283, -2.3784811), (-1.759696, 0.7045168, 0.38834825, 0.20879258, 1.0385665,
-        0.97886115, 0.60916615, 0.91571844, -0.42006883), (-1.7750353, 1.3431948, 0.3328052,
-        -0.013709313, -1.071047, -2.0547147, 0.018999174, 0.1276587, -0.64800996), (-0.29291847,
-        -0.85993487, 0.3496222, 1.3848939, 0.005697281, 0.3015065, -1.7192296, 2.2942584,
-        1.1445093)),
-    10: ((0.72769094, -0.9307311, 1.1572573, 0.88554, 0.32384574, -2.380504, -1.076081,
-        0.3645283, -2.3784811, -1.759696), (0.7045168, 0.38834825, 0.20879258, 1.0385665,
-        0.97886115, 0.60916615, 0.91571844, -0.42006883, -1.7750353, 1.3431948), (0.3328052,
-        -0.013709313, -1.071047, -2.0547147, 0.018999174, 0.1276587, -0.64800996, -0.29291847,
-        -0.85993487, 0.3496222), (1.3848939, 0.005697281, 0.3015065, -1.7192296, 2.2942584,
-        1.1445093, -0.65907186, -1.4029214, 1.5693758, -0.6417853)),
-    11: ((0.72769094, -0.9307311, 1.1572573, 0.88554, 0.32384574, -2.380504, -1.076081,
-        0.3645283, -2.3784811, -1.759696, 0.7045168), (0.38834825, 0.20879258, 1.0385665,
-        0.97886115, 0.60916615, 0.91571844, -0.42006883, -1.7750353, 1.3431948, 0.3328052,
-        -0.013709313), (-1.071047, -2.0547147, 0.018999174, 0.1276587, -0.64800996, -0.29291847,
-        -0.85993487, 0.3496222, 1.3848939, 0.005697281, 0.3015065), (-1.7192296, 2.2942584,
-        1.1445093, -0.65907186, -1.4029214, 1.5693758, -0.6417853, 0.79645044, 1.4541922,
-        -0.4845874, -0.5064069)),
-    12: ((0.72769094, -0.9307311, 1.1572573, 0.88554, 0.32384574, -2.380504, -1.076081,
-        0.3645283, -2.3784811, -1.759696, 0.7045168, 0.38834825), (0.20879258, 1.0385665,
-        0.97886115, 0.60916615, 0.91571844, -0.42006883, -1.7750353, 1.3431948, 0.3328052,
-        -0.013709313, -1.071047, -2.0547147), (0.018999174, 0.1276587, -0.64800996, -0.29291847,
-        -0.85993487, 0.3496222, 1.3848939, 0.005697281, 0.3015065, -1.7192296, 2.2942584,
-        1.1445093), (-0.65907186, -1.4029214, 1.5693758, -0.6417853, 0.79645044, 1.4541922,
-        -0.4845874, -0.5064069, 0.5323481, 0.42732045, -1.7320392, -0.60509557)),
-    13: ((0.72769094, -0.9307311, 1.1572573, 0.88554, 0.32384574, -2.380504, -1.076081,
-        0.3645283, -2.3784811, -1.759696, 0.7045168, 0.38834825, 0.20879258), (1.0385665,
-        0.97886115, 0.60916615, 0.91571844, -0.42006883, -1.7750353, 1.3431948, 0.3328052,
-        -0.013709313, -1.071047, -2.0547147, 0.018999174, 0.1276587), (-0.64800996, -0.29291847,
-        -0.85993487, 0.3496222, 1.3848939, 0.005697281, 0.3015065, -1.7192296, 2.2942584,
-        1.1445093, -0.65907186, -1.4029214, 1.5693758), (-0.6417853, 0.79645044, 1.4541922,
-        -0.4845874, -0.5064069, 0.5323481, 0.42732045, -1.7320392, -0.60509557, 0.5434718,
-        -0.4526044, 0.9622104, 1.8965812)),
-    14: ((0.72769094, -0.9307311, 1.1572573, 0.88554, 0.32384574, -2.380504, -1.076081,
-        0.3645283, -2.3784811, -1.759696, 0.7045168, 0.38834825, 0.20879258, 1.0385665),
-        (0.97886115, 0.60916615, 0.91571844, -0.42006883, -1.7750353, 1.3431948, 0.3328052,
-        -0.013709313, -1.071047, -2.0547147, 0.018999174, 0.1276587, -0.64800996, -0.29291847),
-        (-0.85993487, 0.3496222, 1.3848939, 0.005697281, 0.3015065, -1.7192296, 2.2942584,
-        1.1445093, -0.65907186, -1.4029214, 1.5693758, -0.6417853, 0.79645044, 1.4541922),
-        (-0.4845874, -0.5064069, 0.5323481, 0.42732045, -1.7320392, -0.60509557, 0.5434718,
-        -0.4526044, 0.9622104, 1.8965812, -1.4506235, 0.6071032, -0.74363333, 0.56117034)),
-    15: ((0.72769094, -0.9307311, 1.1572573, 0.88554, 0.32384574, -2.380504, -1.076081,
-        0.3645283, -2.3784811, -1.759696, 0.7045168, 0.38834825, 0.20879258, 1.0385665,
-        0.97886115), (0.60916615, 0.91571844, -0.42006883, -1.7750353, 1.3431948, 0.3328052,
-        -0.013709313, -1.071047, -2.0547147, 0.018999174, 0.1276587, -0.64800996, -0.29291847,
-        -0.85993487, 0.3496222), (1.3848939, 0.005697281, 0.3015065, -1.7192296, 2.2942584,
-        1.1445093, -0.65907186, -1.4029214, 1.5693758, -0.6417853, 0.79645044, 1.4541922,
-        -0.4845874, -0.5064069, 0.5323481), (0.42732045, -1.7320392, -0.60509557, 0.5434718,
-        -0.4526044, 0.9622104, 1.8965812, -1.4506235, 0.6071032, -0.74363333, 0.56117034,
-        -1.8374832, -0.5769429, -0.11279026, 0.94979674)),
-    16: ((0.72769094, -0.9307311, 1.1572573, 0.88554, 0.32384574, -2.380504, -1.076081,
-        0.3645283, -2.3784811, -1.759696, 0.7045168, 0.38834825, 0.20879258, 1.0385665,
-        0.97886115, 0.60916615), (0.91571844, -0.42006883, -1.7750353, 1.3431948, 0.3328052,
-        -0.013709313, -1.071047, -2.0547147, 0.018999174, 0.1276587, -0.64800996, -0.29291847,
-        -0.85993487, 0.3496222, 1.3848939, 0.005697281), (0.3015065, -1.7192296, 2.2942584,
-        1.1445093, -0.65907186, -1.4029214, 1.5693758, -0.6417853, 0.79645044, 1.4541922,
-        -0.4845874, -0.5064069, 0.5323481, 0.42732045, -1.7320392, -0.60509557), (0.5434718,
-        -0.4526044, 0.9622104, 1.8965812, -1.4506235, 0.6071032, -0.74363333, 0.56117034,
-        -1.8374832, -0.5769429, -0.11279026, 0.94979674, -1.078763, -1.0644462, 0.061501738,
-        1.4191017)),
-}
+START_SEED = 20211021  # salsa_tpu's PRNGKey for the power iteration's start vectors
 
 
 def start_vectors(n_channels: int) -> tuple[np.ndarray, np.ndarray]:
     """The power iteration's start vectors (s0, s1), complex64 (C,), at C =
-    `n_channels`: `salsa_tpu` draws them from jax.random at run time, which the
-    port cannot, so it carries them for C = 2-16; any other C raises
-    NotImplementedError."""
-    if n_channels not in _START_ROWS:
-        raise NotImplementedError(
-            f"SALSA with {n_channels} channels is not ported: the power iteration's start "
-            f"vectors (salsa_tpu's jax.random draws) are held for {min(_START_ROWS)}-"
-            f"{max(_START_ROWS)} channels (ROADMAP queue 1, item 7)")
-    re0, im0, re1, im1 = (np.asarray(r, np.float32) for r in _START_ROWS[n_channels])
-    return (re0 + 1j * im0).astype(np.complex64), (re1 + 1j * im1).astype(np.complex64)
+    `n_channels` >= 2: `salsa_tpu`'s jax.random.normal(PRNGKey(20211021), (2, 2, C))
+    draws (`salsa_tpu.features.salsa.principal_eigs_power`), computed bit for bit by
+    `utils.threefry`. C = 4 gives START_S0 / START_S1."""
+    if n_channels < 2:
+        raise ValueError(f"SALSA needs at least 2 channels, got {n_channels}")
+    v = threefry.normal(START_SEED, (2, 2, n_channels))
+    s0, s1 = v[0, 0] + 1j * v[0, 1], v[1, 0] + 1j * v[1, 1]
+    return s0.astype(np.complex64), s1.astype(np.complex64)
 
 
 def mic_delta(fs: int, n_fft: int) -> float:

@@ -20,9 +20,10 @@ On the synthetic corpus of `salsa_tpu_torch.scripts.synthetic_sanity`:
 
 Prints one JSON line per measurement, as the original does, and a last
 `{"quality_evidence": {...}}` line. The model is the original's, bf16
-PannResNet22TPU; where the original trains on extracted features, the port trains
-from the wavs, features extracted on the card inside every step (it has no
-extract CLI yet, ROADMAP queue 1). Each epoch's checkpoint of the
+PannResNet22TPU; where the original trains on a feature store, the study trains
+from the wavs, features extracted on the card inside every step (the port can
+train from a store too: `cli.extract`, then the config's `feature_root_dir`; the
+study keeps one corpus and no store per seed). Each epoch's checkpoint of the
 full-width CRNN is ~135 MB, so the epoch checkpoints a later stage does not read
 are deleted as soon as a member is trained (each member's best stays).
 

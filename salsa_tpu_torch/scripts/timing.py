@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import statistics
 import subprocess
+import time
 
 import torch
 
@@ -51,3 +52,35 @@ def cuda_ms(fn, repeats: int = 7, warmup: int = 2, calls: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def script_device(what: str, cpu: bool) -> torch.device:
+    """The device a measurement script runs on: the first CUDA card, or the CPU
+    where the caller passes `--cpu` (a check of the script, never a device
+    measurement)."""
+    return torch.device("cpu") if cpu else require_cuda(what)
+
+
+def device_ms(fn, dev: torch.device, calls: int = 10, repeats: int = 1,
+              warmup: int = 1) -> tuple[float, str]:
+    """Mean ms a call of fn() over `calls` calls back to back, the median of
+    `repeats` such spans, after `warmup` calls; and the method's name. On a card
+    between CUDA events (`cuda_ms`); on the CPU by perf_counter."""
+    if dev.type == "cuda":
+        return (cuda_ms(fn, repeats=repeats, warmup=warmup, calls=calls),
+                f"CUDA events around {calls} calls back to back, median of {repeats}")
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / calls)
+    return (statistics.median(times),
+            f"host clock on the CPU around {calls} calls back to back, median of {repeats}")
+
+
+def card_name(dev: torch.device) -> str:
+    """nvidia-smi's name and power limit of the card, or 'cpu'."""
+    return smi("name,power.limit") if dev.type == "cuda" else "cpu"

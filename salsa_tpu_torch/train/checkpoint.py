@@ -12,7 +12,9 @@ flattened chunks, which the reader reassembles. The writer packs every value as
 msgpack-python does, so its bytes are `flax.serialization.to_bytes`'s for the
 same tree; it refuses a leaf that flax would chunk (no model here has one).
 
-`.orbax` checkpoint directories are refused: reading them needs orbax.
+`.orbax` checkpoint directories are refused: reading them needs orbax, and
+`training.checkpoint_backend: orbax` is refused before a run starts
+(`check_backend`).
 """
 from __future__ import annotations
 
@@ -247,6 +249,18 @@ def _numpy_tree(tree):
     if hasattr(tree, "detach"):  # a torch tensor
         return tree.detach().cpu().numpy()
     return np.asarray(tree)
+
+
+def check_backend(backend: str) -> None:
+    """`training.checkpoint_backend` as `salsa_tpu` takes it: 'msgpack' (the
+    default) is what this package writes; 'orbax' is refused, and any other value
+    is a ValueError, as in `salsa_tpu.train.checkpoint.save_checkpoint`."""
+    if backend == "orbax":
+        raise ValueError("training.checkpoint_backend 'orbax': this package writes flax "
+                         ".msgpack checkpoints only (set checkpoint_backend: msgpack; "
+                         ".orbax checkpoints are ROADMAP queue 1, item 3)")
+    if backend != "msgpack":
+        raise ValueError(f"unknown checkpoint backend '{backend}'")
 
 
 def save_checkpoint(ckpt_dir: str, name: str, params: dict, batch_stats: dict, step: int,

@@ -357,12 +357,29 @@ class SeldPredictor:
         return written
 
 
+def summary_writer(cfg):
+    """A tensorboardX `SummaryWriter` on `cfg.dir.tb_dir`, as `salsa_tpu`'s trainer
+    opens one; None without a tb_dir, or where tensorboardX does not import (then
+    nothing is written, which the log says once)."""
+    tb_dir = cfg.get("dir", {}).get("tb_dir")
+    if not tb_dir:
+        return None
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        logger.info("tensorboardX does not import: no TensorBoard scalars are written to %s",
+                    tb_dir)
+        return None
+    return SummaryWriter(tb_dir)
+
+
 class SeldTrainer(SeldPredictor):
     def __init__(self, model, cfg, train_data, val_data, gt_meta_dir: str | None,
                  submission_dir: str, seed: int = 2021, scaler=None,
                  device: torch.device | str = "cuda", joint_transform=None,
                  feature_transform=None):
         t = cfg.training
+        ckpt.check_backend(t.get("checkpoint_backend", "msgpack"))
         # from_wav engages only where the train split is wav-resident, and
         # supersedes device_data (it is the resident mode, fed by waveforms)
         self.from_wav = bool(t.get("from_wav", False)) and isinstance(train_data, WavSplitData)
@@ -417,6 +434,7 @@ class SeldTrainer(SeldPredictor):
                         "paths): the split is not sharded")
         self.setup_seconds: dict[str, float] = {}
         self.step_losses: list[float] = []  # per-step training loss of the last epoch
+        self.tb = summary_writer(cfg) if distributed.is_primary() else None
 
         self.augment = None
         aug = t.get("device_augment", False)
@@ -778,7 +796,15 @@ class SeldTrainer(SeldPredictor):
         avgs = {k: float(sum(float(x) for x in v)) / len(pending) for k, v in stacked.items()}
         avgs["lr"] = float(self.optimizer.lr)
         avgs["momentum"] = float(self.optimizer.b1)
+        self.add_scalars("train", avgs)
         return avgs
+
+    def add_scalars(self, group: str, values: dict) -> None:
+        """`<group>/<key>` for each value at the optimizer's step count, where a
+        TensorBoard writer is open (rank 0, tensorboardX importable)."""
+        if self.tb is not None:
+            for k, v in values.items():
+                self.tb.add_scalar(f"{group}/{k}", v, self.optimizer.count)
 
     # ------------------------------------------------------------------
     def _host_rngs(self) -> list[np.random.Generator]:
@@ -875,12 +901,15 @@ class SeldTrainer(SeldPredictor):
                 logger.info("Epoch %d - val SELD %.4f - ER %.4f F1 %.4f LE %.2f LR %.4f",
                             epoch, scores["seld_error"], scores["ER"], scores["F1"],
                             scores["LE"], scores["LR"])
+                self.add_scalars("val", scores)
                 meta["valSeld"] = scores["seld_error"]
                 if scores["seld_error"] < best_seld:
                     best_seld = scores["seld_error"]
                     self._write(best_dir, "best", meta)
                     logger.info("New best valSeld %.4f saved", best_seld)
             self._write(ckpt_dir, f"epoch{epoch:03d}", meta)
+        if self.tb is not None:
+            self.tb.flush()
         distributed.barrier("fit_end")  # no rank leaves before rank 0's last checkpoint
         return self.model
 
@@ -897,6 +926,7 @@ class SeldTrainer(SeldPredictor):
             logger.info("val losses: total %.4f (sed %.4f, doa %.4f)",
                         self.last_val_losses["val_loss"], self.last_val_losses["val_sed_loss"],
                         self.last_val_losses["val_doa_loss"])
+            self.add_scalars("val", self.last_val_losses)
         return evaluate_submissions(tmp_dir, self.gt_meta_dir, version=self.eval_version,
                                     n_classes=self.n_classes, doa_threshold=self.doa_threshold,
                                     label_rate=self.label_rate, filenames=written)

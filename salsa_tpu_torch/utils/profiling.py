@@ -4,7 +4,8 @@
   text and order (largest total first).
 * `trace`: a context manager around `torch.profiler` recording the CPU and,
   where there is a card, CUDA activity, written as a Chrome trace
-  (`trace.json`, for chrome://tracing or Perfetto) into `log_dir`.
+  (`trace.json`, for chrome://tracing or Perfetto) into `log_dir`; it counts the
+  device events that came back and warns where CUDA was asked for and none did.
 * `device_timer`: median seconds per call of a function; on a card between CUDA
   events after a warm-up call, on the CPU by `time.perf_counter`.
 """
@@ -51,20 +52,34 @@ class stage_timer:
         return text
 
 
+def device_event_count(prof) -> int:
+    """The device (CUDA) events a finished `torch.profiler.profile` recorded."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Profile the block with torch.profiler (CPU activity, and CUDA activity where
     a card is present) and write its Chrome trace to `<log_dir>/trace.json`; yields
-    the profiler (its `key_averages()` give the table)."""
+    the profiler (its `key_averages()` give the table). After the block the
+    profiler's `device_events` is the number of device events that came back (None
+    without a card). CUPTI can hand a session no device activity at all; the trace
+    then holds the host's rows only, and a warning says so."""
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, "trace.json")
     with profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    prof.device_events = device_event_count(prof) if cuda else None
+    if cuda and not prof.device_events:
+        logger.warning("profiling.trace: CUDA activity was asked for and no device event "
+                       "came back; %s holds the host's rows only", path)
+    prof.export_chrome_trace(path)
 
 
 def _synchronize(device: torch.device | None) -> None:

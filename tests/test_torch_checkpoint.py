@@ -174,6 +174,20 @@ def test_orbax_checkpoints_are_refused(tmp_path):
         tckpt.restore_variables(best)
 
 
+def test_checkpoint_backend_as_salsa_tpu_takes_it(tmp_path, jax_state):
+    """`training.checkpoint_backend`: 'msgpack' is what the port writes; 'orbax' is
+    refused naming its ROADMAP item; any other value raises salsa_tpu's own
+    ValueError, word for word."""
+    tckpt.check_backend("msgpack")
+    with pytest.raises(ValueError, match="ROADMAP queue 1, item 3"):
+        tckpt.check_backend("orbax")
+    with pytest.raises(ValueError) as want:
+        jckpt.save_checkpoint(str(tmp_path), "x", jax_state, {}, backend="zarr")
+    with pytest.raises(ValueError) as got:
+        tckpt.check_backend("zarr")
+    assert str(got.value) == str(want.value) == "unknown checkpoint backend 'zarr'"
+
+
 def test_tuned_threshold_sidecar(tmp_path):
     best = tmp_path / "models" / "best"
     best.mkdir(parents=True)

@@ -234,14 +234,14 @@ def test_differing_files_compares_bytes(tmp_path):
 
 
 def test_main_runs_every_phase_and_imports_nothing_of_salsa_tpu():
-    """main() calls phases 0-16 in order; the script imports neither jax nor
+    """main() calls phases 0-17 in order; the script imports neither jax nor
     salsa_tpu (only salsa_tpu_torch), at the top or inside a function."""
     import ast
     import inspect
     import re
 
     calls = re.findall(r"\bphase(\d+)\(", inspect.getsource(chip_smoke.main))
-    assert [int(c) for c in calls] == list(range(17))
+    assert [int(c) for c in calls] == list(range(18))
     tree = ast.parse(inspect.getsource(chip_smoke))
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]

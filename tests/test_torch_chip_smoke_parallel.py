@@ -54,3 +54,14 @@ def test_compare_losses_bounds():
         chip_smoke.compare_losses([1.001, 2.0], [1.0, 2.0], "first step", 1e-4, 2e-3)
     with pytest.raises(AssertionError):
         chip_smoke.compare_losses([1.0], [1.0, 2.0], "lengths", 1e-4)
+
+
+def test_profile_in_own_process_takes_its_sessions(tmp_path):
+    """`chip_smoke.py --profile <spec>` in a fresh process: K1's trace on the CPU,
+    where no session can hold the kernel's device row, takes all of its
+    PROFILE_SESSIONS sessions and still reports the traced call."""
+    out = chip_smoke.profile_in_own_process(
+        {"kind": "k1_trace", "log_dir": str(tmp_path / "trace"), "device": "cpu",
+         "shape": [1, 4, 7, 16]}, str(tmp_path), "16")
+    assert out["sessions"] == chip_smoke.PROFILE_SESSIONS
+    assert out["record_row"] and not out["kernel_row"] and out["device_events"] is None

@@ -28,6 +28,7 @@ from salsa_tpu_torch.features.salsa import (  # noqa: E402
 )
 from tests.test_from_wav import synth_wave  # noqa: E402
 from tests.test_torch_features import (  # noqa: E402
+    array_scene,
     assert_bank_close,
     assert_spatial_close,
     lite_period,
@@ -271,11 +272,13 @@ def test_helpers_equal_salsa_tpu(rng):
     assert chunked.FUSED_FEATURE_TYPES == jchunked.FUSED_FEATURE_TYPES
 
 
-def test_chunk_extractor_refusals():
+def test_chunk_extractor_refusals(rng):
     """Every fused type and SALSA option is taken; what remains refused: an unknown
-    type or eig_method (ValueError), SALSA with a channel count outside the
-    start-vector table, 2-16 (NotImplementedError naming its ROADMAP item), on K1's
-    path and on the XLA branch."""
+    type or eig_method (ValueError) and SALSA at one channel (ValueError), on K1's
+    path and on the XLA branch. SALSA at 17 channels runs on each of them (K1's
+    path hands it to the power iteration, as salsa_tpu routes it off its Pallas
+    kernel) and equals salsa_tpu's chunk function at tests/test_torch_features.py's
+    bounds."""
     kw = dict(fs=FS, n_fft=N_FFT, hop_length=HOP)
     fn, p = chunked.make_chunk_extractor("salsa", "mic", CHUNK, **kw)
     assert callable(fn) and p.fmax_doa == 4000.0 and p.audio_format == "mic"
@@ -287,14 +290,25 @@ def test_chunk_extractor_refusals():
         fn, ff = chunked.make_chunk_extractor(ft, "mic", CHUNK, **kw)
         assert callable(fn) and ff.n_channels == (7 if ft == "salsa_lite" else 10)
     zero = torch.zeros(1, dtype=torch.long)
+    wave = array_scene(rng, (CHUNK + 8) * HOP / FS, 17)
+    wp = chunked.pad_waveform(wave, N_FFT)
+    n_full = chunked.n_full_frames(wave.shape[1], HOP)
     for opts in ({"is_tracking": False}, {"eig_method": "power"}, {}):
-        fn, p = chunked.make_chunk_extractor("salsa", "foa", CHUNK, **opts, **kw)
+        fn, p = chunked.make_chunk_extractor("salsa", "mic", CHUNK, **opts, **kw)
+        jfn, jp = jchunked.make_chunk_extractor("salsa", "mic", CHUNK, **opts, **kw)
         assert p.uses_k1 == (opts == {})
         nb = p.upper_bin - p.lower_bin
         state = ((torch.zeros((1, nb)), torch.full((1, nb), 3, dtype=torch.int32))
                  if p.is_tracking else (None, None))
-        seventeen = torch.zeros((1, 17, (CHUNK + 8) * HOP + N_FFT))
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-            fn(seventeen, zero, zero, zero + CHUNK + 7, *state)
-        three = fn(seventeen[:, :3], zero, zero, zero + CHUNK + 7, *state)
+        with pytest.raises(ValueError, match="at least 2 channels"):
+            fn(torch.from_numpy(wp[:1])[None], zero, zero, zero + n_full, *state)
+        got = fn(torch.from_numpy(wp)[None], zero, zero, zero + n_full, *state)[0].numpy()
+        assert got.shape == (33, CHUNK, p.freq_dim) and np.isfinite(got).all()
+        fl, cd = ((jnp.zeros(nb), jnp.full(nb, 3, jnp.int32)) if p.is_tracking
+                  else (jnp.zeros(nb), jnp.zeros(nb, jnp.int32)))
+        want = np.asarray(jfn(jnp.asarray(wp), jnp.int32(n_full), jnp.int32(0), fl, cd))
+        assert_bank_close(got[:17], want[:17], "spec")
+        assert_spatial_close(got[17:, :, :nb], want[17:, :, :nb], chip_smoke.mic_period(p, nb),
+                             f"C=17 {opts}")
+        three = fn(torch.from_numpy(wp[:3])[None], zero, zero, zero + n_full, *state)
         assert three.shape[1] == 5 and torch.isfinite(three).all()

@@ -25,7 +25,8 @@ from salsa_tpu.features.registry import make_extractor as j_make_extractor  # no
 from salsa_tpu.utils.audio_io import write_wav  # noqa: E402
 from salsa_tpu_torch.cli import train as cli_train  # noqa: E402
 from salsa_tpu_torch.cli.evaluate import evaluate_seld  # noqa: E402
-from salsa_tpu_torch.utils.config import load_config  # noqa: E402
+from salsa_tpu_torch.train.trainer import SeldTrainer  # noqa: E402
+from salsa_tpu_torch.utils.config import AttrDict, load_config  # noqa: E402
 from tests.test_from_wav import _synth_wave_8k  # noqa: E402
 
 
@@ -208,6 +209,21 @@ def test_train_refusals(experiment, monkeypatch):
     with pytest.raises(ValueError, match="unknown compute_dtype"):
         cli_train.train(experiment["config"], group, device="cpu",
                         overrides=["model.decoder.compute_dtype=float8"])
+    # salsa_tpu's orbax writer is not ported: refused before any data is read or a
+    # step runs, as is a backend salsa_tpu does not know; msgpack is the default
+    for backend, match in (("orbax", "ROADMAP queue 1, item 3"),
+                           ("zarr", "unknown checkpoint backend 'zarr'")):
+        with pytest.raises(ValueError, match=match):
+            cli_train.train(_write_config(root, f"{backend}.yml", checkpoint_backend=backend),
+                            group, device="cpu")
+        assert not glob.glob(os.path.join(group, f"{backend}*", "models", "checkpoint", "*"))
+    tr = cli_train.build_trainer(_write_config(root, "msgpack.yml",
+                                               checkpoint_backend="msgpack"), group, device="cpu")
+    with pytest.raises(ValueError, match="ROADMAP queue 1, item 3"):
+        SeldTrainer(model=tr.model, cfg=AttrDict(dict(tr.cfg.to_dict(), training=dict(
+            tr.cfg.training.to_dict(), checkpoint_backend="orbax"))),
+            train_data=tr.train_data, val_data=None, gt_meta_dir=None, submission_dir=group,
+            device="cpu")
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli_train.train(experiment["config"], group)

@@ -257,29 +257,45 @@ def test_metadata_equals_salsa_tpu():
     assert ex.description == "24000fs_512nfft_300nhop_5cond_4000fmaxdoa_notracking"
 
 
-def test_refusals_that_remain():
-    """An unknown type or eig_method raises ValueError; SALSA with a channel count
-    outside the start-vector table (2-16) raises NotImplementedError naming its
-    ROADMAP item, on K1's path (which hands other counts to the power iteration)
-    and on the XLA power branch alike; the exact eigensolver takes any count."""
+def test_refusals_that_remain(rng):
+    """An unknown type or eig_method raises ValueError; SALSA at one channel raises
+    ValueError on K1's path (which hands other counts to the power iteration) and
+    on the XLA power branch alike. SALSA at 17 channels runs on each of them and
+    equals salsa_tpu's same branch on the same clip (untracked: every cell valid,
+    so within the bank's bounds with phases on their circle); the exact
+    eigensolver takes any count."""
     with pytest.raises(ValueError, match="unknown feature type"):
         make_extractor("logmel", "foa")
     with pytest.raises(ValueError, match="eig_method"):
         make_extractor("salsa", "foa", eig_method="jacobi")
-    seventeen = torch.zeros((1, 17, 4800))
+    one = torch.zeros((1, 1, 4800))
     for kw in ({"eig_method": "power"}, {"is_tracking": False}, {}):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-            make_extractor("salsa", "mic", n_mics=17, **kw)(seventeen)
+        with pytest.raises(ValueError, match="at least 2 channels"):
+            make_extractor("salsa", "mic", n_mics=1, **kw)(one)
+    wave = array_scene(rng, 0.5, 17)
+    for kw in ({"eig_method": "power"}, {"is_tracking": False}, {}):
+        ex = make_extractor("salsa", "mic", fs=FS, n_fft=N_FFT, hop_length=HOP, n_mics=17, **kw)
+        got = ex(torch.from_numpy(wave)[None])[0].numpy()
+        want = np.asarray(j_make_extractor("salsa", "mic", fs=FS, n_fft=N_FFT, hop_length=HOP,
+                                           jit=False, **{"eig_method": "power", **kw})(wave))
+        assert got.shape == want.shape == (33,) + want.shape[1:] and np.isfinite(got).all()
+        assert_bank_close(got[:17], want[:17], "spec")
+        p = ex.fn.keywords["params"]
+        nb = p.upper_bin - p.lower_bin
+        period = 2 * np.pi / (mic_delta(p.fs, p.n_fft) * np.arange(p.lower_bin, p.upper_bin))
+        assert_spatial_close(got[17:, :, :nb], want[17:, :, :nb], period, f"C=17 {kw}")
     out = make_extractor("salsa", "mic", eig_method="eigh", n_mics=3)(torch.zeros((1, 3, 4800)))
     assert out.shape[1] == 5 and torch.isfinite(out).all()
 
 
 def test_start_vector_table_equals_jax_random():
-    """The port's start vectors for C = 2-16 are salsa_tpu's draws,
-    jax.random.normal(PRNGKey(20211021), (2, 2, C)), bit for bit; C = 4 is K1's."""
+    """The port's start vectors for C = 2-16 (the literal table they replaced) and
+    17, 24, 32 are salsa_tpu's draws, jax.random.normal(PRNGKey(20211021), (2, 2,
+    C)), bit for bit; C = 4 is K1's; one channel is refused.
+    tests/test_torch_threefry.py holds the generator at every C up to 64."""
     from salsa_tpu_torch.features import salsa_spatial as tspatial
 
-    for C in range(2, 17):
+    for C in [*range(2, 17), 17, 24, 32]:
         v = np.asarray(jax.random.normal(jax.random.PRNGKey(20211021), (2, 2, C)))
         s0, s1 = tspatial.start_vectors(C)
         assert s0.dtype == s1.dtype == np.complex64 and s0.shape == (C,)
@@ -287,9 +303,8 @@ def test_start_vector_table_equals_jax_random():
         np.testing.assert_array_equal(s1, (v[1, 0] + 1j * v[1, 1]).astype(np.complex64))
     np.testing.assert_array_equal(tspatial.start_vectors(4)[0], tspatial.START_S0)
     np.testing.assert_array_equal(tspatial.start_vectors(4)[1], tspatial.START_S1)
-    for C in (1, 17):
-        with pytest.raises(NotImplementedError, match="held for 2-16 channels"):
-            tspatial.start_vectors(C)
+    with pytest.raises(ValueError, match="at least 2 channels"):
+        tspatial.start_vectors(1)
 
 
 def array_scene(rng, seconds: float, n_mics: int, fs: int = FS) -> np.ndarray:
@@ -306,9 +321,9 @@ def array_scene(rng, seconds: float, n_mics: int, fs: int = FS) -> np.ndarray:
     return out.astype(np.float32)
 
 
-@pytest.mark.parametrize("n_mics", [3, 6, 8])
+@pytest.mark.parametrize("n_mics", [3, 6, 8, 17, 24, 32])
 def test_salsa_other_channel_counts_match_salsa_tpu(rng, n_mics):
-    """SALSA of a MIC array of 3, 6 and 8 mics, the port's default (K2, then the
+    """SALSA of a MIC array of 3, 6, 8, 17, 24 and 32 mics, the port's default (K2, then the
     power iteration, no K1) against salsa_tpu's power path: 2C - 1 channels, the
     spectrograms at the bank's bounds and the spatial channels at the SALSA mask
     bound (masks disagree on < 0.5 % of cells, atol 5e-3 where both are valid,

@@ -168,7 +168,7 @@ HYGIENE = textwrap.dedent("""
     import importlib.abc
     import sys
 
-    BLOCKED = ("jax", "flax", "yaml", "h5py", "msgpack", "salsa_tpu")
+    BLOCKED = ("jax", "flax", "yaml", "h5py", "msgpack", "orbax", "salsa_tpu")
 
     def blocked(name):
         top = name.split(".")[0]
@@ -405,6 +405,29 @@ HYGIENE = textwrap.dedent("""
         assert np.array_equal(a["decoder"]["event_fc1"]["kernel"],
                               b["decoder"]["event_fc1"]["kernel"])
 
+    # SALSA at any channel count (jax.random's draws in numpy), the measurement
+    # scripts, the checkpoint backend's refusal
+    import salsa_tpu_torch.scripts.bench_streaming as bench_streaming
+    import salsa_tpu_torch.scripts.bench_train as bench_train
+    import salsa_tpu_torch.scripts.probe_extract_stages as probe_extract_stages
+    import salsa_tpu_torch.scripts.probe_stft_split as probe_stft_split
+    import salsa_tpu_torch.scripts.profile_step as profile_step
+    import salsa_tpu_torch.scripts.quality_seeds as quality_seeds
+    import salsa_tpu_torch.utils.threefry as threefry
+
+    many = make_extractor("salsa", "mic", n_mics=32)(torch.zeros((1, 32, 4800)))
+    assert many.shape == (1, 63, 17, 200), many.shape
+    assert threefry.normal(20211021, (2, 2, 4)).dtype == np.float32
+    for script in (bench_streaming, bench_train, probe_extract_stages, probe_stft_split,
+                   profile_step, quality_seeds):
+        assert callable(script.main)
+    try:
+        checkpoint.check_backend("orbax")
+    except ValueError as e:
+        assert "ROADMAP queue 1, item 3" in str(e)
+    else:
+        raise AssertionError("checkpoint_backend orbax was not refused")
+
     leaked = sorted(m for m in sys.modules if blocked(m))
     assert not leaked, leaked
     print("HYGIENE_OK")
@@ -419,7 +442,9 @@ def test_port_imports_nothing_of_jax_or_salsa_tpu():
     configs/seld.yml's feature-store workflow (cli.extract -> cli.train ->
     cli.predict, cli.infer, cli.evaluate) and a lazy read, imports
     `salsa_tpu_torch.parallel`, the profiling module and the two checkpoint
-    CLIs, round-trips a checkpoint through them and extracts 6-channel SALSA."""
+    CLIs, round-trips a checkpoint through them and extracts 6-channel SALSA,
+    imports the numpy threefry and extracts 32-channel SALSA, imports the
+    measurement scripts, and refuses checkpoint_backend orbax (orbax blocked too)."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", HYGIENE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)

@@ -31,7 +31,14 @@ from salsa_tpu_torch.data.database import LazySplitData, SeldDatabase, truncate_
 from salsa_tpu_torch.data.dataset import SeldChunkDataset, batch_iterator  # noqa: E402
 from salsa_tpu_torch.data.feature_store import FeatureStore, StreamingScaler  # noqa: E402
 from salsa_tpu_torch.features.registry import make_extractor  # noqa: E402
-from tests.test_torch_features import assert_matches_salsa_tpu, scene  # noqa: E402
+import chip_smoke  # noqa: E402
+from tests.test_torch_features import (  # noqa: E402
+    array_scene,
+    assert_bank_close,
+    assert_matches_salsa_tpu,
+    assert_spatial_close,
+    scene,
+)
 
 FS, N_FFT, HOP, N_CLASSES = 8000, 256, 100, 3
 # sorted: a and b batch together, c and d (mixed lengths) go clip by clip, then short
@@ -277,9 +284,10 @@ def test_keep_existing_extracts_only_missing_clips(corpus, tmp_path):
 def test_store_refusals(tmp_path, monkeypatch):
     """A clip or scaler in both formats is refused (ValueError); an .h5 without
     h5py raises ImportError naming it; writing a clip or the scaler replaces an
-    .h5 of it; SALSA with a channel count outside the start-vector table (2-16)
-    stays refused (ROADMAP queue 1, item 7); without a card and without
-    device='cpu' extraction raises."""
+    .h5 of it; SALSA of a one-channel wav is refused (ValueError), and of a
+    17-channel wav equals salsa_tpu's store at the feature tests' SALSA bounds,
+    its scaler over 17 spectrograms; without a card and without device='cpu'
+    extraction raises."""
     store = FeatureStore(str(tmp_path), "foa")
     store.write_clip("dev", "x", np.ones((7, 4, 3), np.float32))
     with h5py.File(os.path.join(store.split_dir("dev"), "x.h5"), "w") as hf:
@@ -308,8 +316,23 @@ def test_store_refusals(tmp_path, monkeypatch):
     cfg = _data_config(str(tmp_path), "mic", str(tmp_path / "features"))
     os.makedirs(str(tmp_path / "mic_dev"))
     write_wav(str(tmp_path / "mic_dev" / "one.wav"), np.zeros((1, 800), np.float32), FS)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
+    with pytest.raises(ValueError, match="at least 2 channels"):
         textract.extract_features(cfg, "salsa", splits=["mic_dev"], device="cpu")
+    wave = array_scene(np.random.default_rng(17), 1.0, 17, fs=FS)
+    write_wav(str(tmp_path / "mic_dev" / "one.wav"), wave, FS, bits=16)
+    port = textract.extract_features(cfg, "salsa", splits=["mic_dev"], device="cpu")
+    jax_dir = jextract.extract_features(_data_config(str(tmp_path), "mic", str(tmp_path / "jax")),
+                                        feature_type="salsa", splits=["mic_dev"],
+                                        eig_method="power")
+    got = FeatureStore(port, "mic").read_clip("dev", "one")
+    want = FeatureStore(jax_dir, "mic").read_clip("dev", "one")
+    assert got.shape == want.shape and got.shape[0] == 33 and np.isfinite(got).all()
+    assert FeatureStore(port, "mic").read_scaler()[0].shape == (17, 1, got.shape[-1])
+    assert_bank_close(got[:17], want[:17], "spec")
+    p = make_extractor("salsa", "mic", fs=FS, n_fft=N_FFT, hop_length=HOP, win_length=N_FFT,
+                       fmin_doa=50, fmax_doa=3000, n_mics=17).fn.keywords["params"]
+    nb = p.upper_bin - p.lower_bin
+    assert_spatial_close(got[17:, :, :nb], want[17:, :, :nb], chip_smoke.mic_period(p, nb), "C=17")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             textract.extract_features(cfg, "salsa", splits=["mic_dev"])

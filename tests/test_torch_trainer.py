@@ -13,6 +13,7 @@ moved from the init as salsa_tpu's has. Then validate() on equal weights writes
 the same CSV rows and gives the same scores.
 """
 import importlib
+import logging
 import os
 
 import numpy as np
@@ -22,6 +23,8 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+
+import chip_smoke  # noqa: E402
 
 # the module (salsa_tpu.ops re-exports its function under the same name)
 jdropout = importlib.import_module("salsa_tpu.ops.dropout")
@@ -38,6 +41,7 @@ from salsa_tpu_torch.interop import flax_to_torch_state_dict, load_flax_variable
 from salsa_tpu_torch.features.registry import make_extractor  # noqa: E402
 from salsa_tpu_torch.models.layers import Dropout  # noqa: E402
 from salsa_tpu_torch.models.seld import build_model  # noqa: E402
+from salsa_tpu_torch.train import checkpoint as ckpt  # noqa: E402
 from salsa_tpu_torch.train.trainer import SeldTrainer  # noqa: E402
 from salsa_tpu_torch.utils.config import AttrDict  # noqa: E402
 from tests.test_from_wav import E2E_FS, E2E_HOP, E2E_NFFT, _write_synth_corpus  # noqa: E402
@@ -88,10 +92,12 @@ def trainer_config(feature_type="salsa", audio_format="foa", n_steps=N_STEPS):
 
 
 def train_both(root, feature_type="salsa", audio_format="foa", n_steps=N_STEPS, enc=ENC,
-               dec=DEC):
+               dec=DEC, experiment_dirs: bool = False):
     """Both trainers after n_steps steps from one flax init of the model (enc, dec),
     their per-step losses and the weights (a generator: salsa_tpu's dropout stays
-    patched off until it is closed)."""
+    patched off until it is closed). With `experiment_dirs` each trainer's config
+    has a `dir` tree of its own under root (`<root>/{jax,torch}/`: tensorboard,
+    checkpoints, best), as `manage_experiments` makes it."""
     rng = np.random.default_rng(20261018)
     names, meta_dir = _write_synth_corpus(root, rng, n_clips=4, seconds=4.0)
     with open(os.path.join(meta_dir, "train.csv"), "w") as f:
@@ -128,18 +134,24 @@ def train_both(root, feature_type="salsa", audio_format="foa", n_steps=N_STEPS, 
 
     gt_dir = os.path.join(root, "metadata_dev")
     cfg = trainer_config(feature_type, audio_format, n_steps)
+    cfgs = {}
+    for pkg in ("jax", "torch"):
+        top = os.path.join(root, pkg)
+        cfgs[pkg] = dict(cfg, dir={"tb_dir": os.path.join(top, "tensorboard"), "model": {
+            "checkpoint": os.path.join(top, "checkpoint"), "best": os.path.join(top, "best")}}
+                         ) if experiment_dirs else cfg
     patch = pytest.MonkeyPatch()
     patch.setattr(jdropout, "dropout", lambda x, key, rate: x)  # salsa_tpu's dropout off
     try:
         jt = JTrainer(model=j_build_model(encoder=enc, decoder=dec, n_classes=N_CLASSES),
-                      cfg=JAttrDict(cfg), train_data=j_split, val_data=j_val,
+                      cfg=JAttrDict(cfgs["jax"]), train_data=j_split, val_data=j_val,
                       gt_meta_dir=gt_dir, submission_dir=os.path.join(root, "jax_subs"),
                       seed=SEED, scaler=scaler)
         # the step counter as the step leaves it (int32, replicated): one compile
         jt.state = jt.state.replace(step=replicate(jt.mesh, jnp.asarray(0, jnp.int32)))
         init = jax.device_get((jt.state.params, jt.state.batch_stats))
         tt = SeldTrainer(model=build_model(encoder=enc, decoder=dec, n_classes=N_CLASSES),
-                         cfg=AttrDict(cfg), train_data=t_split, val_data=t_val,
+                         cfg=AttrDict(cfgs["torch"]), train_data=t_split, val_data=t_val,
                          gt_meta_dir=gt_dir, submission_dir=os.path.join(root, "torch_subs"),
                          seed=SEED, scaler=scaler, device="cpu")
         load_flax_variables(tt.model, *init)
@@ -166,7 +178,7 @@ def train_both(root, feature_type="salsa", audio_format="foa", n_steps=N_STEPS, 
 def trained(tmp_path_factory):
     """Both SALSA trainers after N_STEPS steps, their per-step losses, and the flax
     init they started from."""
-    yield from train_both(str(tmp_path_factory.mktemp("torch_trainer")))
+    yield from train_both(str(tmp_path_factory.mktemp("torch_trainer")), experiment_dirs=True)
 
 
 def test_trainer_tables_match_salsa_tpu(trained):
@@ -254,3 +266,60 @@ def test_validate_matches_salsa_tpu_on_equal_weights(trained):
     for k, v in jt.last_val_losses.items():
         np.testing.assert_allclose(tt.last_val_losses[k], v, rtol=1e-4, err_msg=k)
 
+
+
+def test_tensorboard_scalars_match_salsa_tpu(trained):
+    """With tensorboardX (2.6.4 here) each trainer writes one event file under its
+    `dir.tb_dir`: after the N_STEPS steps, `validate()` of the test above and one
+    more epoch of `fit()` (a step, validation, checkpoints), the two files hold the
+    same tags at the same steps (`train/<k>` of each epoch's averages with lr and
+    momentum, `val/<k>` of the validation losses and scores). The port's values are
+    its own: the losses it logged for each step, and the last epoch's averages in
+    its checkpoint sidecar."""
+    jt, tt = trained["jax"], trained["torch"]
+    for t in (jt, tt):
+        t.max_epochs = 1
+        t.fit()
+    jt.tb.flush()
+    got = chip_smoke.read_event_scalars(tt.cfg.dir.tb_dir)
+    want = chip_smoke.read_event_scalars(jt.cfg.dir.tb_dir)
+    assert {k: [s for s, _ in v] for k, v in got.items()} == {
+        k: [s for s, _ in v] for k, v in want.items()}
+    steps = list(range(1, N_STEPS + 2))
+    for k in ("loss", "sed_loss", "doa_loss", "lr", "momentum"):
+        assert [s for s, _ in got[f"train/{k}"]] == steps, k
+    for k in ("val_loss", "seld_error", "ER", "F1", "LE", "LR"):
+        assert f"val/{k}" in got, k
+    np.testing.assert_array_equal([v for _, v in got["train/loss"][:N_STEPS]],
+                                  np.float32(trained["losses"]["torch"]))
+    meta = ckpt.load_metadata(os.path.join(tt.cfg.dir.model.checkpoint, "epoch000.msgpack"))
+    for k in ("loss", "sed_loss", "doa_loss", "lr", "momentum"):
+        assert got[f"train/{k}"][-1][1] == np.float32(meta[k]), k
+    assert got["val/seld_error"][-1] == (N_STEPS + 1, np.float32(meta["valSeld"]))
+
+
+def test_summary_writer_needs_tensorboardx_and_a_tb_dir(tmp_path, monkeypatch):
+    """As salsa_tpu's trainer: a writer on `dir.tb_dir` where tensorboardX imports;
+    without the package, none, which the log says; without a tb_dir, none."""
+    from salsa_tpu_torch.train.trainer import summary_writer
+
+    cfg = AttrDict({"dir": {"tb_dir": str(tmp_path / "tb")}})
+    writer = summary_writer(cfg)
+    assert writer is not None and os.path.isdir(tmp_path / "tb")
+    writer.close()
+    assert summary_writer(AttrDict({"dir": {}})) is None
+    monkeypatch.setitem(__import__("sys").modules, "tensorboardX", None)
+    said = []
+    handler = logging.Handler(logging.DEBUG)
+    handler.emit = lambda record: said.append(record.getMessage())
+    port_logger = logging.getLogger("salsa_tpu_torch")
+    port_logger.addHandler(handler)
+    level = port_logger.level
+    port_logger.setLevel(logging.INFO)
+    try:
+        assert summary_writer(cfg) is None
+    finally:
+        port_logger.removeHandler(handler)
+        port_logger.setLevel(level)
+    assert said == [
+        f"tensorboardX does not import: no TensorBoard scalars are written to {tmp_path / 'tb'}"]
