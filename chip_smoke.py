@@ -9,7 +9,8 @@ Phases, each printing what it found; any failure raises and exits non-zero:
   1. build the CUDA kernels (K1 spatial stage, K2 noise-floor tracker, K3, K4)
      with nvcc, one process per source; check ptxas registers and spills (K1 and
      K2 no spills), print K1's SASS instruction mix, and check that K4's bf16
-     kernels run on the tensor cores (HMMA in their SASS);
+     kernels run wgmma on TMA-loaded rows (HGMMA and UTMALDG in their SASS, no
+     spills, no serialized wgmma pipeline) and its f32 kernels neither;
   2. K1 against its plain PyTorch version at the serving shapes, a ragged shape
      and all-zero input; K2 bit-equal to its plain version at the serving shape,
      at (64, 191, 4807), at 33 rows for clips of 1-5 frames and around its frame
@@ -26,9 +27,9 @@ Phases, each printing what it found; any failure raises and exits non-zero:
      serving shape, a ragged shape and all-zero input, `full` bit-equal to K1,
      then the probe `salsa_tpu_torch.scripts.probe_salsa_kernel` at B=32;
   7. K4, the 3x3 conv with 64 outputs, against its plain version in bf16 and f32
-     at the stage-1 shape and two ragged shapes (7 and 80 channels), each at
-     every rows-per-block, then the probe
-     `salsa_tpu_torch.scripts.probe_pallas_conv` at B=32;
+     at the stage-1 shape and two ragged shapes (7 and 80 channels), f32 at
+     each rows per block; both timed against cuDNN in turns; then the probe
+     `salsa_tpu_torch.scripts.probe_pallas_conv --check-only` at B=32;
   8. the serving CLI on a `salsa_tpu` experiment written to disk: configs/seld.yml,
      two seeded checkpoints (valSeld 0.4 and 0.6) in flax's msgpack format, the
      scaler and six FOA wavs (four 60 s, one 20.7 s, one 30 s at 48 kHz);
@@ -177,6 +178,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from salsa_tpu_torch import configs
 from salsa_tpu_torch.cli import ensemble as cli_ensemble
@@ -214,6 +216,7 @@ from salsa_tpu_torch.kernels.build import (
     load_library,
     ptxas_usage,
     sass_opcode_counts,
+    wgmma_serialized,
 )
 from salsa_tpu_torch.interop import torch_state_dict_to_flax
 from salsa_tpu_torch.models.layers import Dropout
@@ -461,7 +464,8 @@ def phase1() -> dict[str, dict[str, int]]:
     path, seconds = build_library()
     load_library()
     log("1", f"built {os.path.relpath(path, REPO)} in {seconds:.1f} s (0.0 = reused)")
-    usage = ptxas_usage(path.with_suffix(".log").read_text())
+    build_log = path.with_suffix(".log").read_text()
+    usage = ptxas_usage(build_log)
     for name, (regs, st, ld) in sorted(usage.items()):
         log("1", f"ptxas: {regs:3d} registers, spill stores {st} B, loads {ld} B: {name}")
     k1 = [(name, u) for name, u in usage.items() if "20salsa_spatial_kernel" in name]
@@ -491,26 +495,39 @@ def phase1() -> dict[str, dict[str, int]]:
         mixes[what] = sass_mix(ops[name[0]])
         log("1", f"SASS of {what}: " + ", ".join(f"{k} {v}" for k, v in mixes[what].items()))
 
-    # K4: the bf16 kernels run on the tensor cores (HMMA in their machine code) and
-    # do not spill; the f32 kernels stay on the CUDA cores (no HMMA)
-    for kind, want_mma in (("conv3x3_64_mma_kernel", True), ("conv3x3_64_f32_kernel", False)):
+    # K4: the bf16 kernel (one instantiation) runs wgmma (HGMMA) on rows that TMA
+    # loads (UTMALDG), without spills and without ptxas serializing its wgmma
+    # pipeline; the f32 kernels (one a rows per block) stay on the CUDA cores (no
+    # HMMA, no HGMMA)
+    serialized = wgmma_serialized(build_log)
+    for line in serialized.values():
+        log("1", f"ptxas: {line}")
+    for kind, count in (("conv3x3_64_wgmma_kernel", 1),
+                        ("conv3x3_64_f32_kernel", len(probe_pallas_conv.ROWS))):
         names = sorted(name for name in ops if kind in name)
-        if len(names) != len(probe_pallas_conv.ROWS):
+        if len(names) != count:
             raise AssertionError(f"K4 {kind}: {len(names)} instantiations in the SASS, expected "
-                                 f"{len(probe_pallas_conv.ROWS)} (rows per block "
-                                 f"{probe_pallas_conv.ROWS})")
+                                 f"{count}")
         for name in names:
-            hmma = ops[name].get("HMMA", 0)
+            op = ops[name]
+            hgmma, hmma = op.get("HGMMA", 0), op.get("HMMA", 0)
+            tma = op.get("UTMALDG", 0)
             regs, st, ld = usage[name]
-            log("1", f"SASS: {hmma:4d} HMMA of {sum(ops[name].values())} instructions, "
-                     f"{regs} registers, spills {st}/{ld} B: {name}")
-            if want_mma and not (hmma > 0 and st == 0 and ld == 0):
-                raise AssertionError(f"K4 bf16 {name}: {hmma} HMMA, spill stores {st} B, "
-                                     f"loads {ld} B; expected HMMA and no spills")
-            if not want_mma and hmma:
-                raise AssertionError(f"K4 f32 {name}: {hmma} HMMA, expected none")
-    log("1", "K4: bf16 instantiations use the tensor cores (HMMA) without spills; f32 "
-             "instantiations use none")
+            log("1", f"SASS: {hgmma:3d} HGMMA, {hmma} HMMA, {tma} TMA loads of "
+                     f"{sum(op.values())} instructions, {regs} registers, spills {st}/{ld} B: "
+                     f"{name}")
+            if kind.endswith("wgmma_kernel") and not (hgmma > 0 and tma > 0 and st == 0 and ld == 0
+                                                      and name not in serialized):
+                raise AssertionError(f"K4 bf16 {name}: {hgmma} HGMMA, {tma} TMA loads, spill "
+                                     f"stores {st} B, loads {ld} B, serialized wgmma "
+                                     f"{serialized.get(name)}; expected HGMMA, a TMA load, no "
+                                     "spills and no serialization")
+            if kind.endswith("f32_kernel") and (hmma or hgmma):
+                raise AssertionError(f"K4 f32 {name}: {hmma} HMMA, {hgmma} HGMMA, expected none")
+    if serialized:
+        raise AssertionError(f"ptxas serialized the wgmma pipeline of {sorted(serialized)}")
+    log("1", "K4: the bf16 kernel runs wgmma on TMA-loaded rows without spills or "
+             "serialization; f32 instantiations use no tensor-core instruction")
     return mixes
 
 
@@ -943,63 +960,92 @@ def phase7(dev) -> dict:
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to(dev)
 
     x, w = normal((32, 320, 100, 64)), normal((3, 3, 64, 64), 0.05)
-    # ragged: C = 7 takes the element-load fills, C = 80 the 16-byte fills and a
-    # second 64-channel chunk
+    # ragged: in bf16, C = 7 (14-byte pixels, no TMA) takes the producer's
+    # element-load fill, C = 80 TMA rows with a second 64-channel chunk (zero past
+    # 80) and the weights refilled per chunk; in f32, element fills and two chunks
     ragged = [(normal((3, 13, 37, c)), normal((3, 3, c, 64), s)) for c, s in ((7, 0.3), (80, 0.1))]
     # bf16: the kernel rounds its f32 sum once (<= 2^-8 relative), held against the
     # plain version's f32 sum and against its rounded output, both within 5e-3 of
     # max|plain|. Where the two roundings differ it is by one bf16 step, at most
     # 2^-7 of the value; on these fixed inputs a step in the top binade comes to
-    # 4.6e-3 of the max.
+    # 4.6e-3 of the max. The f32 kernel runs at each of its rows per block; the
+    # bf16 kernel has no parameter.
     bounds = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
+    params = {torch.bfloat16: [{}],
+              torch.float32: [{"rows_per_block": r} for r in probe_pallas_conv.ROWS]}
     main_err = None
     for dtype, bound in bounds.items():
         for main_shape, (a, b) in [(True, (x, w))] + [(False, r) for r in ragged]:
-            what = f"{'' if main_shape else 'ragged '}{tuple(a.shape)}"
             a, b = a.to(dtype), b.to(dtype)
             want = conv3x3_64_plain(a, b)
             want_f32 = conv3x3_64_plain(a.float(), b.float())
-            for rows in probe_pallas_conv.ROWS:
-                got = conv3x3_64(a, b, rows_per_block=rows)
+            for opt in params[dtype]:
+                what = f"{'' if main_shape else 'ragged '}{tuple(a.shape)} {dtype}" + "".join(
+                    f" {k} {v}" for k, v in opt.items())
+                got = conv3x3_64(a, b, **opt)
                 torch.cuda.synchronize()
                 err, err_rounded = rel_err(got, want_f32), rel_err(got, want)
-                if main_shape and dtype == torch.bfloat16 and rows == 8:
+                if main_shape and dtype == torch.bfloat16:
                     main_err = float((got.float() - want.float()).abs().max())
-                log("7", f"K4 {what} {dtype} rows {rows}: max|kernel - plain| / max|plain| "
+                log("7", f"K4 {what}: max|kernel - plain| / max|plain| "
                          f"{err:.3e} against the f32 sum, {err_rounded:.3e} against the plain "
                          f"output in {dtype} (bound {bound:.0e} each)")
                 if not (torch.isfinite(got.float()).all() and err <= bound
                         and err_rounded <= bound):
-                    raise AssertionError(f"K4 {what} {dtype} rows {rows}: rel err {err}, "
+                    raise AssertionError(f"K4 {what}: rel err {err}, "
                                          f"{err_rounded} against the rounded plain output")
 
-    # the kernel's time is its time at 8 rows, the wrapper's default
-    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    # times at the stage-1 shape, 10 calls back to back between CUDA events: the
+    # f32 kernel at each rows per block, then each kernel at its default and its
+    # one PyTorch call (cuDNN on channels-last views, TF32 off) in turns, kernel,
+    # cuDNN, cuDNN, kernel, so that their ratio comes from one card
     kw = dict(repeats=20, warmup=3, calls=probe_pallas_conv.K4_CALLS)
-    rows_ms = {rows: cuda_ms(lambda: conv3x3_64(xb, wb, rows_per_block=rows), **kw)
-               for rows in probe_pallas_conv.ROWS}
-    times = {"k4": rows_ms[8], "k4_plain": cuda_ms(lambda: conv3x3_64_plain(xb, wb), **kw)}
-    log("7", f"K4 {tuple(x.shape)} bf16, {kw['calls']} calls back to back: kernel "
-             + ", ".join(f"{rows} rows {ms:.3f} ms" for rows, ms in rows_ms.items())
-             + f"; plain (f32 cuDNN) {times['k4_plain']:.3f} ms [{CARD}]")
-    # bf16 in and out: x and the output once each, the weights once
     B, H, W, C = x.shape
-    times["k4_bound"] = roofline(2 * (B * H * W * C + 9 * C * 64 + B * H * W * 64),
-                                 2 * B * H * W * 9 * C * 64, BF16_FLOPS)
-    log("7", f"K4 bound at {tuple(x.shape)} bf16: {times['k4_bound'][0]:.4f} ms "
-             f"({times['k4_bound'][1]})")
+    flops = 2 * B * H * W * 9 * C * 64
+    times = {}
+    for dtype, tag in ((torch.bfloat16, "k4"), (torch.float32, "k4_f32")):
+        xd, wd = x.to(dtype), w.to(dtype)
+        x_cl = xd.permute(0, 3, 1, 2)
+        w_cl = wd.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        by_value = {}
+        if dtype == torch.float32:
+            by_value = {r: cuda_ms(lambda: conv3x3_64(xd, wd, rows_per_block=r), **kw)
+                        for r in probe_pallas_conv.ROWS}
+            times["k4_f32_by_rows_per_block"] = by_value
+        kernel = lambda: conv3x3_64(xd, wd)  # noqa: E731
+        cudnn = lambda: F.conv2d(x_cl, w_cl, padding=1)  # noqa: E731
+        turns = [cuda_ms(fn, **kw) for fn in (kernel, cudnn, cudnn, kernel)]
+        times[f"{tag}_turns"] = turns
+        times[tag] = (turns[0] + turns[3]) / 2
+        times[f"{tag}_cudnn"] = (turns[1] + turns[2]) / 2
+        # x and the output once each, the weights once, in the dtype
+        n_bytes = xd.element_size() * (B * H * W * C + 9 * C * 64 + B * H * W * 64)
+        times[f"{tag}_bound"] = roofline(n_bytes, flops, BF16_FLOPS if dtype == torch.bfloat16
+                                         else FP32_FLOPS)
+        log("7", f"K4 {tuple(x.shape)} {dtype}: "
+                 + "".join(f"rows_per_block {v} {ms:.4f} ms; " for v, ms in by_value.items())
+                 + f"in turns kernel / cuDNN / cuDNN / kernel "
+                 + " / ".join(f"{ms:.4f}" for ms in turns)
+                 + f" ms: kernel {times[tag]:.4f}, cuDNN {times[f'{tag}_cudnn']:.4f} "
+                 f"(kernel {times[f'{tag}_cudnn'] / times[tag]:.3f}x cuDNN's speed); bound "
+                 f"{times[f'{tag}_bound'][0]:.4f} ms ({times[f'{tag}_bound'][1]}), kernel at "
+                 f"{100 * times[f'{tag}_bound'][0] / times[tag]:.1f} % of it [{CARD}]")
+        del xd, wd, x_cl, w_cl
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    times["k4_plain"] = cuda_ms(lambda: conv3x3_64_plain(xb, wb), **kw)
+    log("7", f"K4 plain version (f32 cuDNN, TF32 off) on the bf16 inputs "
+             f"{times['k4_plain']:.3f} ms [{CARD}]")
     del x, w, xb, wb, ragged
 
-    log("7", f"probe_pallas_conv --batch 32 [{CARD}]")
+    log("7", f"probe_pallas_conv --batch 32 --check-only [{CARD}]")
     conv3x3_64.launches = 0
-    probe = probe_pallas_conv.main(["--batch", "32"])
+    probe_pallas_conv.main(["--batch", "32", "--check-only"])
     torch.cuda.synchronize()
     launches = conv3x3_64.launches
     log("7", f"the probe launched K4 {launches} times")
     if launches == 0:
         raise AssertionError("the K4 probe launched no K4 kernel")
-    return {"err": main_err, "launches": launches, "k4_cudnn_bf16": probe["cudnn_bf16_ms"],
-            **times}
+    return {"err": main_err, "launches": launches, **times}
 
 
 # phase 8's wav directory: (name, seconds, sample rate); the four 60 s clips make
@@ -4234,7 +4280,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     many = phase17(dev)
     # library_ms: one PyTorch call computing the same function, where there is one
-    # (cuDNN bf16 for K4, timed by the probe); none exists for K1-K3. `launches` is
+    # (cuDNN bf16 for K4, timed in turns with it in phase 7, and f32_library_ms
+    # cuDNN f32 for its f32 kernel); none exists for K1-K3. `launches` is
     # phase 4's serving run; K1's and K2's train_* keys are phase 9's cli.train,
     # their stream_* keys phase 10's streaming CLI runs and the block shape at N = 4
     # (stream_block_ms the kernel's device time a launch, stream_block_call_ms a
@@ -4326,7 +4373,11 @@ def main() -> None:
          "replaces": "scripts/probe_pallas_conv.py:90",
          "launches": k4["launches"], "max_abs_err": k4["err"],
          "ms": k4["k4"], "plain_ms": k4["k4_plain"], "bound_ms": k4["k4_bound"][0],
-         "bound_by": k4["k4_bound"][1], "library_ms": k4["k4_cudnn_bf16"]},
+         "bound_by": k4["k4_bound"][1], "library_ms": k4["k4_cudnn"],
+         "turns_ms": k4["k4_turns"],
+         "f32_ms": k4["k4_f32"], "f32_bound_ms": k4["k4_f32_bound"][0],
+         "f32_bound_by": k4["k4_f32_bound"][1], "f32_library_ms": k4["k4_f32_cudnn"],
+         "f32_turns_ms": k4["k4_f32_turns"], "f32_rows_ms": k4["k4_f32_by_rows_per_block"]},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,8 +6,9 @@ the objects are linked into one library. The library is built at first use into
 `build/salsa_tpu_torch/` beside the package and reused while a hash of the
 sources, headers and flags matches. Nothing is built when this module is
 imported, and nothing falls back: a missing nvcc or a failed compile raises.
-`ptxas_usage` and `sass_opcode_counts` read what the compiler and `cuobjdump`
-say about the built kernels (registers, spills, machine instructions).
+`ptxas_usage`, `wgmma_serialized` and `sass_opcode_counts` read what the
+compiler and `cuobjdump` say about the built kernels (registers, spills, a
+broken wgmma pipeline, machine instructions).
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ _SIGNATURES = {
     "noise_floor_states_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                                   _F, _F, _P),
     "salsa_spatial_probe_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
-    "conv3x3_64_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "conv3x3_64_f32_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "conv3x3_64_bf16_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "noise_floor_tile_frames": (),
 }
 
@@ -127,6 +129,26 @@ def ptxas_usage(log: str) -> dict[str, tuple[int, int, int]]:
             usage[name] = (int(m.group(1)), *spills)
             name = None
     return usage
+
+
+_SERIALIZED = re.compile(r"wgmma\.mma_async instructions are serialized")
+_QUOTED = re.compile(r"'(\w+)'")
+
+
+def wgmma_serialized(log: str) -> dict[str, str]:
+    """{mangled kernel name: ptxas's message} for every kernel whose wgmma
+    instructions ptxas serialized (its "Potential Performance Loss: wgmma.mma_async
+    instructions are serialized due to ..." note: the asynchronous pipeline is
+    broken, e.g. by an accumulator touched between fence and wait). A message
+    that names no kernel is keyed by the kernel whose compilation it follows."""
+    found, name = {}, "?"
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            name = m.group(1)
+        elif _SERIALIZED.search(line):
+            quoted = _QUOTED.findall(line)
+            found[quoted[-1] if quoted else name] = line.strip()
+    return found
 
 
 _FUNCTION = re.compile(r"\bFunction\s*:\s*(\S+)")

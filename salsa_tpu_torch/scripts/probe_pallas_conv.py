@@ -1,19 +1,23 @@
 """K4: the stage-1 3x3 conv of the CRNN as a hand-written kernel (counterpart of
 `scripts/probe_pallas_conv.py`), and the probe that holds it against cuDNN.
 
-    python -m salsa_tpu_torch.scripts.probe_pallas_conv [--batch 32] [--bh 8]
+    python -m salsa_tpu_torch.scripts.probe_pallas_conv [--batch 32] [--check-only]
 
 `conv3x3_64` is an NHWC 3x3 SAME convolution with 64 output channels, f32
 accumulation, output in the input's type: it launches `csrc/conv3x3_64.cu` on
-CUDA tensors (bf16 on the tensor cores, f32 on the CUDA cores) and runs
-`conv3x3_64_plain` on CPU tensors. x and w keep the JAX layouts, NHWC and HWIO
-(3, 3, C, 64), in both types; `hwio_from_w_big` carries the JAX kernel's paired
-weight matrix (`make_w_big`) back to HWIO.
+CUDA tensors (bf16 on the tensor cores with wgmma, f32 on the CUDA cores) and
+runs `conv3x3_64_plain` on CPU tensors. x and w keep the JAX layouts, NHWC and
+HWIO (3, 3, C, 64), in both types; `hwio_from_w_big` carries the JAX kernel's
+paired weight matrix (`make_w_big`) back to HWIO. The bf16 kernel is persistent:
+a block per SM walks a range of 64-pixel tiles, its two consumer warpgroups (two
+tiles at a time each) reading image rows from a ring that a TMA producer fills;
+`tile_keys`, `ring_rows` and `bf16_ring_slots` are its plan, which the wrapper
+computes and checks and the kernel follows.
 
 The probe runs the JAX probe's shape, the stage-1 geometry of the from-wav
 training step (B=32, 320 x 100, C=64, bf16, w * 0.05, seed 0), and prints the
 max relative error against the plain version's f32 sum (raising above 5e-3),
-then ms and effective TF/s of the
+then (unless --check-only) ms and effective TF/s of the
 kernel, of the plain version (f32 cuDNN with TF32 switched off, as the probe
 sets and prints it) and of cuDNN in bf16, and the kernel's speed relative to each.
 Each time is a median over CUDA-event timings of K4_CALLS calls back to back.
@@ -21,6 +25,7 @@ Each time is a median over CUDA-event timings of K4_CALLS calls back to back.
 from __future__ import annotations
 
 import argparse
+import functools
 
 import numpy as np
 import torch
@@ -30,10 +35,20 @@ from salsa_tpu_torch.kernels.build import check_launch, load_library
 from salsa_tpu_torch.scripts.timing import cuda_ms, require_cuda
 
 N_OUT = 64
-ROWS = (1, 2, 4, 8)
+ROWS = (1, 2, 4, 8)  # f32: output rows a block
 # calls back to back between the events of one timing, so the host's launch gap is hidden
 K4_CALLS = 10
 DTYPES = (torch.float32, torch.bfloat16)
+
+# the bf16 kernel's geometry (csrc/conv3x3_64.cu): tiles of 64 pixels, taken TURN
+# at a time by each of CONSUMERS warpgroups; a ring row is one 64-channel chunk of
+# W + 2 pixels at 128 B each, aligned to 1024 B
+TILE = 64
+TURN = 2
+CONSUMERS = 2
+TMA_BOX = 256  # TMA's largest box side: W + 2 pixels a row
+H100_SMEM_BYTES = 232_448  # shared memory a block may take on an H100 (opt-in): the CPU's plan
+WEIGHT_BYTES = 9 * N_OUT * 128  # one 64-channel chunk of resident weights
 
 
 def _pack_w_big(w: np.ndarray) -> np.ndarray:
@@ -69,6 +84,57 @@ def hwio_from_w_big(w_big) -> np.ndarray:
     return w
 
 
+def tile_keys(t: int, H: int, W: int) -> tuple[int, int]:
+    """The first and last input row that tile t of the bf16 kernel reads, as
+    keys b * (H + 2) + h + 1 (h = -1..H: the halo rows are keys too). A tile is
+    64 consecutive pixels of one image, row-major; an image has ceil(H W / 64)."""
+    per_image = -(-H * W // TILE)
+    b, q0 = t // per_image, t % per_image * TILE
+    q1 = min(q0 + TILE, H * W) - 1
+    return b * (H + 2) + q0 // W, b * (H + 2) + q1 // W + 2
+
+
+def ring_rows(B: int, H: int, W: int, tiles: int) -> int:
+    """The most input rows that `tiles` consecutive tiles read together (the
+    consumers' turns: CONSUMERS x TURN tiles are the rows the ring holds while
+    each consumer works on a turn), in one image or across several. The pattern
+    repeats in every image, so the windows that start in the first image hold
+    every case; they reach ceil(tiles / tiles an image) images further at most."""
+    per_image = -(-H * W // TILE)
+    n = min(B, -(-tiles // per_image) + 1) * per_image
+    keys = [tile_keys(t, H, W) for t in range(n)]
+    return max(keys[min(t + tiles, n) - 1][1] - keys[t][0] + 1 for t in range(n))
+
+
+def bf16_smem_bytes(W: int, C: int, slots: int) -> int:
+    """The bf16 kernel's dynamic shared memory (`wgmma_smem_bytes` in the source):
+    1024 B of alignment slack, the weights, `slots` ring rows of every 64-channel
+    chunk with a full and an empty mbarrier each."""
+    row = -(-(W + 2) * 128 // 1024) * 1024
+    return 1024 + WEIGHT_BYTES + slots * (-(-C // 64) * row + 16)
+
+
+@functools.lru_cache(maxsize=64)
+def bf16_ring_slots(B: int, H: int, W: int, C: int, smem_bytes: int = H100_SMEM_BYTES) -> int:
+    """The ring depth the bf16 kernel runs with, for a block that may take
+    `smem_bytes` of shared memory: the block is alone on its SM, so the ring
+    takes all that the weights leave. Raises ValueError where a row is wider than
+    TMA's box, or where the ring holds fewer rows than the consumers' turns read
+    plus one in flight (the kernel would deadlock or lose its overlap). Cached:
+    the wrapper asks at every call, and the plan is the same for a shape."""
+    if W + 2 > TMA_BOX:
+        raise ValueError(f"conv3x3_64 bf16: a row of W + 2 = {W + 2} pixels is wider than "
+                         f"TMA's box of {TMA_BOX}")
+    need = ring_rows(B, H, W, CONSUMERS * TURN) + 1
+    slots = (smem_bytes - bf16_smem_bytes(W, C, 0)) // (bf16_smem_bytes(W, C, 1)
+                                                        - bf16_smem_bytes(W, C, 0))
+    if slots < need:
+        raise ValueError(f"conv3x3_64 bf16: a ring of {need} rows of W = {W}, C = {C} needs "
+                         f"{bf16_smem_bytes(W, C, need)} B of shared memory, over the "
+                         f"{smem_bytes} B a block may take")
+    return slots
+
+
 def conv3x3_64_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K4: `F.conv2d` in float32 on the NCHW/OIHW views
     of NHWC x and HWIO w, padding 1, cast back to x's type. (B, H, W, 64)."""
@@ -87,27 +153,55 @@ def _check(x, w):
         raise ValueError("x and w must be on one device")
 
 
-def conv3x3_64(x: torch.Tensor, w: torch.Tensor, *, rows_per_block: int = 8) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _device_limits(index: int) -> tuple[int, int]:
+    """(SMs, shared memory a block may take) of card `index`."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
+def conv3x3_64(x: torch.Tensor, w: torch.Tensor, *,
+               rows_per_block: int | None = None) -> torch.Tensor:
     """K4 wrapper: NHWC x (B, H, W, C), HWIO w (3, 3, C, 64) in one dtype (f32 or
     bf16) -> (B, H, W, 64) in that dtype. CUDA tensors launch
-    `csrc/conv3x3_64.cu`, a block per `rows_per_block` output rows x 32 columns;
-    CPU tensors run `conv3x3_64_plain`. Anything else raises."""
+    `csrc/conv3x3_64.cu`: f32 a block per `rows_per_block` output rows (ROWS,
+    default 8) x 32 columns; bf16 a persistent block per SM, which takes no
+    parameter (rows_per_block raises ValueError) but needs 16-byte-aligned x and
+    w, W + 2 <= 256 and a ring that fits the card's shared memory
+    (bf16_ring_slots). CPU tensors run `conv3x3_64_plain` after the same checks,
+    bf16's against an H100's shared memory. Anything else raises."""
     _check(x, w)
-    if rows_per_block not in ROWS:
-        raise ValueError(f"rows_per_block must be one of {ROWS}, got {rows_per_block}")
-    if x.device.type == "cpu":
-        return conv3x3_64_plain(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3x3_64 runs on cuda or cpu tensors, not {x.device}")
+    B, H, W, C = x.shape
+    on_card = x.device.type == "cuda"
+    if x.dtype == torch.bfloat16:
+        if rows_per_block is not None:
+            raise ValueError("rows_per_block is the f32 kernel's; the bf16 kernel takes none")
+        sms, smem_bytes = _device_limits(x.device.index) if on_card else (None, H100_SMEM_BYTES)
+        slots = bf16_ring_slots(B, H, W, C, smem_bytes)
+    else:
+        rows_per_block = ROWS[-1] if rows_per_block is None else rows_per_block
+        if rows_per_block not in ROWS:
+            raise ValueError(f"rows_per_block must be one of {ROWS}, got {rows_per_block}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("conv3x3_64 needs contiguous x and w")
-    B, H, W, C = x.shape
+    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError("conv3x3_64 bf16 needs x and w at 16-byte-aligned addresses (TMA, "
+                         "16-byte weight loads)")
+    if x.device.type == "cpu":
+        return conv3x3_64_plain(x, w)
+    if not on_card:
+        raise ValueError(f"conv3x3_64 runs on cuda or cpu tensors, not {x.device}")
     lib = load_library()
     out = torch.empty((B, H, W, N_OUT), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.conv3x3_64_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), B, H, W, C,
-                                    int(x.dtype == torch.bfloat16), rows_per_block,
-                                    torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if x.dtype == torch.bfloat16:
+            blocks = min(B * -(-H * W // TILE), sms)
+            err = lib.conv3x3_64_bf16_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), B, H, W,
+                                             C, slots, blocks, stream)
+        else:
+            err = lib.conv3x3_64_f32_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), B, H, W,
+                                            C, rows_per_block, stream)
     check_launch("conv3x3_64", err)
     conv3x3_64.launches += 1
     return out
@@ -125,7 +219,8 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=32)
-    ap.add_argument("--bh", type=int, default=8, choices=ROWS, help="rows per block")
+    ap.add_argument("--check-only", action="store_true",
+                    help="check the kernel against the plain version and time nothing")
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
     dev = require_cuda("probe_pallas_conv")
@@ -138,16 +233,17 @@ def main(argv=None) -> dict:
     x = torch.from_numpy(rng.standard_normal((B, H, W, C)).astype(np.float32)).to(dev, dt)
     w = torch.from_numpy(rng.standard_normal((3, 3, C, N_OUT)).astype(np.float32) * 0.05
                          ).to(dev, dt)
-    print(f"device: {torch.cuda.get_device_name(dev)}; x {tuple(x.shape)} {dt}, rows per "
-          f"block {args.bh}; matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+    print(f"device: {torch.cuda.get_device_name(dev)}; x {tuple(x.shape)} {dt}; "
+          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
 
     # one bf16 rounding of the f32 sum: <= 2^-8 of max|plain|
-    err = rel_err(conv3x3_64(x, w, rows_per_block=args.bh),
-                  conv3x3_64_plain(x.float(), w.float()))
+    err = rel_err(conv3x3_64(x, w), conv3x3_64_plain(x.float(), w.float()))
     print(f"max rel err vs plain conv (its f32 sum): {err:.2e}", flush=True)
     if not err <= 5e-3:
         raise AssertionError(f"conv3x3_64: max rel err {err} against the plain f32 sum above 5e-3")
+    if args.check_only:
+        return {"max_rel_err": err}
 
     # cuDNN in the input's type, on channels-last views (no layout copies)
     w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -156,7 +252,7 @@ def main(argv=None) -> dict:
     def timed(fn):
         return cuda_ms(fn, repeats=args.iters, warmup=3, calls=K4_CALLS)
 
-    t = {"kernel": timed(lambda: conv3x3_64(x, w, rows_per_block=args.bh)),
+    t = {"kernel": timed(lambda: conv3x3_64(x, w)),
          "plain": timed(lambda: conv3x3_64_plain(x, w)),
          "cudnn_bf16": timed(lambda: F.conv2d(x_cl, w_cl, padding=1))}
     flops = 2 * B * H * W * 9 * C * N_OUT

@@ -1,6 +1,7 @@
 """salsa_tpu_torch.kernels.build: the readers of the compilers' output that
-`chip_smoke.py` holds the kernels to (ptxas registers and spills, SASS opcodes),
-on fixed snippets in the formats of `nvcc -Xptxas -v` and `cuobjdump -sass`."""
+`chip_smoke.py` holds the kernels to (ptxas registers, spills and serialized
+wgmma pipelines, SASS opcodes), on fixed snippets in the formats of `nvcc
+-Xptxas -v` and `cuobjdump -sass`."""
 import pytest
 
 pytest.importorskip("torch")
@@ -9,6 +10,8 @@ from salsa_tpu_torch.kernels import build  # noqa: E402
 
 MMA = "_ZN12_GLOBAL__N_121conv3x3_64_mma_kernelILi8EEEvPK13__nv_bfloat16S3_PS1_iiii"
 F32 = "_ZN12_GLOBAL__N_121conv3x3_64_f32_kernelILi8EEEvPKfS2_Pfiii"
+WGMMA = ("_ZN12_GLOBAL__N_123conv3x3_64_wgmma_kernelILi2EEEv14CUtensorMap_stS1_PK13__nv_"
+         "bfloat16S4_iiiiii")
 
 SASS = f"""
 Fatbin elf code:
@@ -54,6 +57,37 @@ ptxas info    : Function properties for {F32}
 ptxas info    : Used 128 registers, used 1 barriers, 392 bytes cmem[0]
 """
 
+# the persistent bf16 K4: TMA loads, mbarriers, ldmatrix, wgmma, 16-byte stores
+SASS_WGMMA = f"""
+	code for sm_90a
+		Function : {WGMMA}
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                                     /* 0x00000a00ff017b82 */
+        /*0010*/                   UTMALDG.4D [UR8], [UR14] ;                                 /* 0x00000008080075b4 */
+        /*0020*/                   SYNCS.ARRIVE.TRANS64.RED.A1T0 RZ, [UR4+0x8], RZ ;          /* 0x000008ffffff79a7 */
+        /*0030*/                   LDSM.16.M88.4 R24, [R3+UR4] ;                              /* 0x000000040318783b */
+        /*0040*/                   WARPGROUP.ARRIVE ;                                         /* 0x00000000000079c8 */
+        /*0050*/                   HGMMA.64x64x16.F32.BF16 R88, R24, gdesc[UR8], R88 ;       /* 0x08e00008185879f0 */
+        /*0060*/                   HGMMA.64x64x16.F32.BF16 R88, R28, gdesc[UR12], R88, gsb0 ; /* 0x08e000081c5879f0 */
+        /*0070*/                   WARPGROUP.DEPBAR.LE gsb0, 0x1 ;                            /* 0x00000000000079c8 */
+        /*0080*/               @!P0 STG.E.128 desc[UR6][R2.64], R8 ;                          /* 0x0000000802008986 */
+        /*0090*/                   EXIT ;                                                     /* 0x000000000000794d */
+		..........
+"""
+
+PTXAS_WGMMA = f"""ptxas info    : Compiling entry function '{WGMMA}' for 'sm_90a'
+ptxas info    : Function properties for {WGMMA}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 512 bytes cmem[0]
+"""
+SERIALIZED = ("ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async "
+              "instructions are serialized due to the presence of Extern calls in the "
+              f"function '{WGMMA}'.")
+# the same note, naming no kernel: it belongs to the kernel compiled last
+SERIALIZED_UNNAMED = ("ptxas info    : (C7510) Potential Performance Loss: wgmma.mma_async "
+                      "instructions are serialized due to insufficient register resources for "
+                      "the wgmma pipeline")
+
 
 def test_sass_opcode_counts_reads_each_kernel():
     ops = build.sass_opcode_counts(SASS)
@@ -95,3 +129,31 @@ def test_variant_builds_need_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build_variants({"tree": (build.CSRC_DIR / "salsa_spatial.cu", [])}, "variants",
                              "salsa_spatial_launch")
+
+
+@pytest.mark.parametrize("sass, kernel, want", [
+    (SASS, MMA, {"HMMA": 2, "LDS": 1}),
+    (SASS_WGMMA, WGMMA, {"HGMMA": 2, "UTMALDG": 1, "STG": 1, "LDSM": 1, "SYNCS": 1,
+                         "WARPGROUP": 2}),
+])
+def test_sass_opcode_counts_reads_tensor_core_and_tma_opcodes(sass, kernel, want):
+    """mma.sync's HMMA, wgmma's HGMMA and TMA's UTMALDG, predicated or not, are
+    read without their modifiers: what phase 1 holds K4's kernels to."""
+    ops = build.sass_opcode_counts(sass)[kernel]
+    assert {k: ops.get(k, 0) for k in want} == want
+    assert "HGMMA" not in build.sass_opcode_counts(SASS)[F32]
+
+
+@pytest.mark.parametrize("log, want", [
+    (PTXAS, {}),
+    (PTXAS_WGMMA, {}),
+    (PTXAS_WGMMA + SERIALIZED + "\n", {WGMMA: SERIALIZED}),
+    (PTXAS_WGMMA + SERIALIZED_UNNAMED + "\n" + PTXAS, {WGMMA: SERIALIZED_UNNAMED}),
+])
+def test_wgmma_serialized_reads_ptxas_notes(log, want):
+    """The parser phase 1 fails on: a kernel whose wgmma pipeline ptxas
+    serialized, by the name in the note or else the kernel compiled last; a log
+    without the note gives none. Registers and spills still read as before."""
+    assert build.wgmma_serialized(log) == want
+    if log.startswith(PTXAS_WGMMA):
+        assert build.ptxas_usage(log)[WGMMA] == (168, 0, 0)
