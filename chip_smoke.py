@@ -9,8 +9,9 @@ Phases, each printing what it found; any failure raises and exits non-zero:
   1. build the CUDA kernels (K1 spatial stage, K2 noise-floor tracker, K3, K4)
      with nvcc, one process per source; check ptxas registers and spills (K1 and
      K2 no spills), print K1's SASS instruction mix, and check that K4's bf16
-     kernels run wgmma on TMA-loaded rows (HGMMA and UTMALDG in their SASS, no
-     spills, no serialized wgmma pipeline) and its f32 kernels neither;
+     kernel runs wgmma on TMA-loaded rows (HGMMA and UTMALDG in its SASS, no
+     spills, no serialized wgmma pipeline) and its f32 kernel FFMA on TMA-loaded
+     row chunks (UTMALDG and shared loads, no spills, no tensor-core instruction);
   2. K1 against its plain PyTorch version at the serving shapes, a ragged shape
      and all-zero input; K2 bit-equal to its plain version at the serving shape,
      at (64, 191, 4807), at 33 rows for clips of 1-5 frames and around its frame
@@ -27,8 +28,9 @@ Phases, each printing what it found; any failure raises and exits non-zero:
      serving shape, a ragged shape and all-zero input, `full` bit-equal to K1,
      then the probe `salsa_tpu_torch.scripts.probe_salsa_kernel` at B=32;
   7. K4, the 3x3 conv with 64 outputs, against its plain version in bf16 and f32
-     at the stage-1 shape and two ragged shapes (7 and 80 channels), f32 at
-     each rows per block; both timed against cuDNN in turns; then the probe
+     at the stage-1 shape and two ragged shapes (7 and 80 channels), f32 also at
+     the serving request's stage-1 shape and a row of 302 pixels; both timed
+     against cuDNN in turns; then the probe
      `salsa_tpu_torch.scripts.probe_pallas_conv --check-only` at B=32;
   8. the serving CLI on a `salsa_tpu` experiment written to disk: configs/seld.yml,
      two seeded checkpoints (valSeld 0.4 and 0.6) in flax's msgpack format, the
@@ -495,39 +497,43 @@ def phase1() -> dict[str, dict[str, int]]:
         mixes[what] = sass_mix(ops[name[0]])
         log("1", f"SASS of {what}: " + ", ".join(f"{k} {v}" for k, v in mixes[what].items()))
 
-    # K4: the bf16 kernel (one instantiation) runs wgmma (HGMMA) on rows that TMA
-    # loads (UTMALDG), without spills and without ptxas serializing its wgmma
-    # pipeline; the f32 kernels (one a rows per block) stay on the CUDA cores (no
-    # HMMA, no HGMMA)
+    # K4: the bf16 kernel runs wgmma (HGMMA) on rows that TMA loads (UTMALDG),
+    # without spills and without ptxas serializing its wgmma pipeline; the f32
+    # kernel stays on the CUDA cores (FFMA, no HMMA, no HGMMA), reads its ring with
+    # shared-memory loads (LDS, no generic LD) that TMA fills, without spills. One
+    # instantiation each.
     serialized = wgmma_serialized(build_log)
     for line in serialized.values():
         log("1", f"ptxas: {line}")
-    for kind, count in (("conv3x3_64_wgmma_kernel", 1),
-                        ("conv3x3_64_f32_kernel", len(probe_pallas_conv.ROWS))):
+    for kind in ("conv3x3_64_wgmma_kernel", "conv3x3_64_f32_kernel"):
         names = sorted(name for name in ops if kind in name)
-        if len(names) != count:
-            raise AssertionError(f"K4 {kind}: {len(names)} instantiations in the SASS, expected "
-                                 f"{count}")
-        for name in names:
-            op = ops[name]
-            hgmma, hmma = op.get("HGMMA", 0), op.get("HMMA", 0)
-            tma = op.get("UTMALDG", 0)
-            regs, st, ld = usage[name]
-            log("1", f"SASS: {hgmma:3d} HGMMA, {hmma} HMMA, {tma} TMA loads of "
-                     f"{sum(op.values())} instructions, {regs} registers, spills {st}/{ld} B: "
-                     f"{name}")
-            if kind.endswith("wgmma_kernel") and not (hgmma > 0 and tma > 0 and st == 0 and ld == 0
-                                                      and name not in serialized):
-                raise AssertionError(f"K4 bf16 {name}: {hgmma} HGMMA, {tma} TMA loads, spill "
-                                     f"stores {st} B, loads {ld} B, serialized wgmma "
-                                     f"{serialized.get(name)}; expected HGMMA, a TMA load, no "
-                                     "spills and no serialization")
-            if kind.endswith("f32_kernel") and (hmma or hgmma):
-                raise AssertionError(f"K4 f32 {name}: {hmma} HMMA, {hgmma} HGMMA, expected none")
+        if len(names) != 1:
+            raise AssertionError(f"K4 {kind}: {len(names)} instantiations in the SASS, expected 1")
+        name = names[0]
+        op = ops[name]
+        hgmma, hmma = op.get("HGMMA", 0), op.get("HMMA", 0)
+        tma = op.get("UTMALDG", 0)
+        regs, st, ld = usage[name]
+        log("1", f"SASS: {hgmma:3d} HGMMA, {hmma} HMMA, {tma} TMA loads, {op.get('FFMA', 0)} "
+                 f"FFMA, {op.get('LDS', 0)} LDS, {op.get('LD', 0)} LD of {sum(op.values())} "
+                 f"instructions, {regs} registers, spills {st}/{ld} B: {name}")
+        if kind.endswith("wgmma_kernel") and not (hgmma > 0 and tma > 0 and st == 0 and ld == 0
+                                                  and name not in serialized):
+            raise AssertionError(f"K4 bf16 {name}: {hgmma} HGMMA, {tma} TMA loads, spill "
+                                 f"stores {st} B, loads {ld} B, serialized wgmma "
+                                 f"{serialized.get(name)}; expected HGMMA, a TMA load, no "
+                                 "spills and no serialization")
+        if kind.endswith("f32_kernel") and (hmma or hgmma or not tma or st or ld
+                                            or op.get("LD", 0) or not op.get("LDS", 0)):
+            raise AssertionError(f"K4 f32 {name}: {hmma} HMMA, {hgmma} HGMMA, {tma} TMA loads, "
+                                 f"spill stores {st} B, loads {ld} B, {op.get('LD', 0)} generic "
+                                 f"and {op.get('LDS', 0)} shared loads; expected no tensor-core "
+                                 "instruction, a TMA load, no spills, shared loads only")
     if serialized:
         raise AssertionError(f"ptxas serialized the wgmma pipeline of {sorted(serialized)}")
     log("1", "K4: the bf16 kernel runs wgmma on TMA-loaded rows without spills or "
-             "serialization; f32 instantiations use no tensor-core instruction")
+             "serialization; the f32 kernel runs FFMA on TMA-loaded row chunks through shared "
+             "loads, without spills or a tensor-core instruction")
     return mixes
 
 
@@ -953,7 +959,8 @@ def phase6(dev) -> dict:
 
 
 def phase7(dev) -> dict:
-    """K4 against its plain version; returns the error, times and the probe's launches."""
+    """K4 against its plain version; returns the error, times, the f32 plan and
+    the probe's launches."""
     rng = np.random.default_rng(SEED + 3)
 
     def normal(shape, scale=1.0):
@@ -962,56 +969,60 @@ def phase7(dev) -> dict:
     x, w = normal((32, 320, 100, 64)), normal((3, 3, 64, 64), 0.05)
     # ragged: in bf16, C = 7 (14-byte pixels, no TMA) takes the producer's
     # element-load fill, C = 80 TMA rows with a second 64-channel chunk (zero past
-    # 80) and the weights refilled per chunk; in f32, element fills and two chunks
+    # 80) and the weights refilled per chunk; in f32, C = 7 the element-load fill,
+    # C = 80 five 16-channel chunks and the weights refilled per 64 channels. f32
+    # also at the serving request's stage-1 shape (4 clips x 2400 frames) and at a
+    # row of 302 pixels, two TMA boxes (bf16 refuses W + 2 > 256).
     ragged = [(normal((3, 13, 37, c)), normal((3, 3, c, 64), s)) for c, s in ((7, 0.3), (80, 0.1))]
+    f32_only = [normal(shape) for shape in ((4, 2400, 100, 64), (2, 5, 300, 64))]
     # bf16: the kernel rounds its f32 sum once (<= 2^-8 relative), held against the
     # plain version's f32 sum and against its rounded output, both within 5e-3 of
     # max|plain|. Where the two roundings differ it is by one bf16 step, at most
     # 2^-7 of the value; on these fixed inputs a step in the top binade comes to
-    # 4.6e-3 of the max. The f32 kernel runs at each of its rows per block; the
-    # bf16 kernel has no parameter.
+    # 4.6e-3 of the max. f32: the same sums in another order, 1e-5.
     bounds = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
-    params = {torch.bfloat16: [{}],
-              torch.float32: [{"rows_per_block": r} for r in probe_pallas_conv.ROWS]}
     main_err = None
     for dtype, bound in bounds.items():
-        for main_shape, (a, b) in [(True, (x, w))] + [(False, r) for r in ragged]:
+        cases = [("", x, w)] + [("ragged ", a, b) for a, b in ragged]
+        if dtype == torch.float32:
+            cases += [("", a, w) for a in f32_only]
+        for n, (label, a, b) in enumerate(cases):
             a, b = a.to(dtype), b.to(dtype)
             want = conv3x3_64_plain(a, b)
             want_f32 = conv3x3_64_plain(a.float(), b.float())
-            for opt in params[dtype]:
-                what = f"{'' if main_shape else 'ragged '}{tuple(a.shape)} {dtype}" + "".join(
-                    f" {k} {v}" for k, v in opt.items())
-                got = conv3x3_64(a, b, **opt)
-                torch.cuda.synchronize()
-                err, err_rounded = rel_err(got, want_f32), rel_err(got, want)
-                if main_shape and dtype == torch.bfloat16:
-                    main_err = float((got.float() - want.float()).abs().max())
-                log("7", f"K4 {what}: max|kernel - plain| / max|plain| "
-                         f"{err:.3e} against the f32 sum, {err_rounded:.3e} against the plain "
-                         f"output in {dtype} (bound {bound:.0e} each)")
-                if not (torch.isfinite(got.float()).all() and err <= bound
-                        and err_rounded <= bound):
-                    raise AssertionError(f"K4 {what}: rel err {err}, "
-                                         f"{err_rounded} against the rounded plain output")
+            what = f"{label}{tuple(a.shape)} {dtype}"
+            got = conv3x3_64(a, b)
+            torch.cuda.synchronize()
+            err, err_rounded = rel_err(got, want_f32), rel_err(got, want)
+            if n == 0 and dtype == torch.bfloat16:
+                main_err = float((got.float() - want.float()).abs().max())
+            log("7", f"K4 {what}: max|kernel - plain| / max|plain| "
+                     f"{err:.3e} against the f32 sum, {err_rounded:.3e} against the plain "
+                     f"output in {dtype} (bound {bound:.0e} each)")
+            if not (torch.isfinite(got.float()).all() and err <= bound
+                    and err_rounded <= bound):
+                raise AssertionError(f"K4 {what}: rel err {err}, "
+                                     f"{err_rounded} against the rounded plain output")
+            del got, want, want_f32
 
-    # times at the stage-1 shape, 10 calls back to back between CUDA events: the
-    # f32 kernel at each rows per block, then each kernel at its default and its
-    # one PyTorch call (cuDNN on channels-last views, TF32 off) in turns, kernel,
-    # cuDNN, cuDNN, kernel, so that their ratio comes from one card
+    # times at the stage-1 shape, 10 calls back to back between CUDA events: each
+    # kernel and its one PyTorch call (cuDNN on channels-last views, TF32 off) in
+    # turns, kernel, cuDNN, cuDNN, kernel, so that their ratio comes from one card
     kw = dict(repeats=20, warmup=3, calls=probe_pallas_conv.K4_CALLS)
     B, H, W, C = x.shape
     flops = 2 * B * H * W * 9 * C * 64
-    times = {}
+    props = torch.cuda.get_device_properties(dev)
+    plan = probe_pallas_conv.f32_plan(B, H, W, C, props.shared_memory_per_block_optin)
+    times = {"k4_f32_ring_slots": plan.slots,
+             "k4_f32_blocks": min(plan.tiles, props.multi_processor_count)}
+    log("7", f"K4 f32 plan at {tuple(x.shape)}: {plan.tiles} tiles of "
+             f"{probe_pallas_conv.F32_TILE} pixels on {times['k4_f32_blocks']} blocks, a ring of "
+             f"{plan.slots} row chunks of {plan.boxes} x {plan.box_px} pixels, "
+             f"{plan.smem_bytes} B of shared memory")
     for dtype, tag in ((torch.bfloat16, "k4"), (torch.float32, "k4_f32")):
         xd, wd = x.to(dtype), w.to(dtype)
         x_cl = xd.permute(0, 3, 1, 2)
         w_cl = wd.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        by_value = {}
-        if dtype == torch.float32:
-            by_value = {r: cuda_ms(lambda: conv3x3_64(xd, wd, rows_per_block=r), **kw)
-                        for r in probe_pallas_conv.ROWS}
-            times["k4_f32_by_rows_per_block"] = by_value
         kernel = lambda: conv3x3_64(xd, wd)  # noqa: E731
         cudnn = lambda: F.conv2d(x_cl, w_cl, padding=1)  # noqa: E731
         turns = [cuda_ms(fn, **kw) for fn in (kernel, cudnn, cudnn, kernel)]
@@ -1022,9 +1033,7 @@ def phase7(dev) -> dict:
         n_bytes = xd.element_size() * (B * H * W * C + 9 * C * 64 + B * H * W * 64)
         times[f"{tag}_bound"] = roofline(n_bytes, flops, BF16_FLOPS if dtype == torch.bfloat16
                                          else FP32_FLOPS)
-        log("7", f"K4 {tuple(x.shape)} {dtype}: "
-                 + "".join(f"rows_per_block {v} {ms:.4f} ms; " for v, ms in by_value.items())
-                 + f"in turns kernel / cuDNN / cuDNN / kernel "
+        log("7", f"K4 {tuple(x.shape)} {dtype}: in turns kernel / cuDNN / cuDNN / kernel "
                  + " / ".join(f"{ms:.4f}" for ms in turns)
                  + f" ms: kernel {times[tag]:.4f}, cuDNN {times[f'{tag}_cudnn']:.4f} "
                  f"(kernel {times[f'{tag}_cudnn'] / times[tag]:.3f}x cuDNN's speed); bound "
@@ -1035,7 +1044,7 @@ def phase7(dev) -> dict:
     times["k4_plain"] = cuda_ms(lambda: conv3x3_64_plain(xb, wb), **kw)
     log("7", f"K4 plain version (f32 cuDNN, TF32 off) on the bf16 inputs "
              f"{times['k4_plain']:.3f} ms [{CARD}]")
-    del x, w, xb, wb, ragged
+    del x, w, xb, wb, ragged, f32_only
 
     log("7", f"probe_pallas_conv --batch 32 --check-only [{CARD}]")
     conv3x3_64.launches = 0
@@ -4377,7 +4386,8 @@ def main() -> None:
          "turns_ms": k4["k4_turns"],
          "f32_ms": k4["k4_f32"], "f32_bound_ms": k4["k4_f32_bound"][0],
          "f32_bound_by": k4["k4_f32_bound"][1], "f32_library_ms": k4["k4_f32_cudnn"],
-         "f32_turns_ms": k4["k4_f32_turns"], "f32_rows_ms": k4["k4_f32_by_rows_per_block"]},
+         "f32_turns_ms": k4["k4_f32_turns"], "f32_ring_slots": k4["k4_f32_ring_slots"],
+         "f32_blocks": k4["k4_f32_blocks"]},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

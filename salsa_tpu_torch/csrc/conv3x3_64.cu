@@ -72,16 +72,64 @@
 // (zeros past C and outside the image). Both branches are chosen by shape, and
 // every chunk runs all 4 k16 steps (zero channels add nothing).
 //
-// f32: the fp32 CUDA cores (tensor cores would mean TF32, ~3 decimal digits).
-// A block owns R output rows (1/2/4/8, chosen at launch, the counterpart of the
-// JAX probe's --bh) x 32 columns of one image and all 64 outputs. Warp g
-// computes outputs 8g..8g+7, lane l column l of the tile, so each thread keeps
-// R x 8 f32 accumulators in registers. Input channels go through shared memory
-// in chunks of 16: the (R+2) x 34 input tile and the (3, 3, 16, 64) weight chunk
-// (HWIO). Per channel and column tap a thread reads R+2 inputs (conflict-free: a
-// warp reads 32 neighbouring columns) and 3 x 8 weights (a broadcast), then does
-// 24 R FMAs; bound by the fp32 FMA rate. Ragged rows, columns and channel counts
-// are masked.
+// f32: a persistent FFMA implicit GEMM on the fp32 CUDA cores (tensor cores
+// would mean TF32, ~3 decimal digits). What bounds it on the H100: at the
+// stage-1 shape the conv is 75.5 GFLOP of FFMA against 524 MB moved, 1.13 ms at
+// the 67 TFLOP/s fp32 rate against 0.16 ms by bytes: the FFMA issue rate, 128
+// lanes a clock on each SM. The design before this one (a block per 8 rows x 32
+// columns, 128 registers, two blocks an SM) reached 30 % of that, held back by
+// (1) idle columns: 32-column tiles at W = 100 computed 128 columns, 22 %
+// masked; (2) the weights refilled every block: each of 5,120 blocks loaded all
+// 147 KB of them and its input tile 16 channels at a time, in element loops that
+// divided by the run-time chunk width, synchronously (two __syncthreads a
+// chunk), ~10^4 non-FMA instructions a thread against 36,864 FFMAs; (3) narrow
+// reuse: a thread's one column x 8 outputs fed each input value to at most 24
+// FFMAs. This design answers them so:
+// - (1) A persistent block per SM (grid min(tiles, SMs)) walks a contiguous range
+//   of tiles of 128 consecutive pixels of one image in row-major (h, w) order x
+//   all 64 outputs: 250 tiles an image at 320 x 100, none masked; only the last
+//   tile of an image with H W % 128 != 0 is. The tile walk and the ring's row
+//   keys are the bf16 kernel's (tile_first_key / tile_last_key) at this tile.
+// - (2) The weights (9 x 64 x 64 f32, HWIO order, 147,456 B) are loaded once a
+//   block by nine bulk copies (cp.async.bulk, one a tap) and stay resident. The
+//   84,992 B they leave hold 3 image rows of 64 f32 channels, too few, so the
+//   ring holds 16-channel chunks of image rows: W + 2 pixels from column -1 at
+//   64 B each, rounded up to whole TMA boxes of a multiple of 8 pixels (12
+//   slots of 6,656 B at W = 100; a row over 256 pixels takes several boxes).
+//   One producer warp fills it with TMA (cp.async.bulk.tensor, 64-byte swizzle,
+//   zero fill for the halo rows and columns) and full/empty mbarriers hand each
+//   slot over, with the bf16 path's helpers and its trap on a wait that does
+//   not end. C % 4 != 0 (16-byte global strides) or an x off 16 bytes: the
+//   producer fills the same layout with element loads.
+// - Two consumer groups of four warps take a round of two consecutive tiles, a
+//   tile each, chunk by chunk: a round's chunk is the rows both tiles read (5-8
+//   at W = 100) in consecutive slots, so a tile's rows lie one slot apart and a
+//   tap is a constant shift; where they would wrap, the slots left at the ring's
+//   end are passed over (an empty hand-over). Where two tiles' rows do not fit
+//   the ring together (across images at W = 300) a round is one tile.
+// - (3) A warp computes 32 pixels x 64 outputs, a thread 8 pixels (32 w + pg +
+//   4 i, pg = lane / 8) x 8 outputs (4 lc.. and 32 + 4 lc.., lc = lane % 8), 64
+//   accumulators: per 4 channels of a tap it loads 8 A and 8 B values of 16
+//   bytes and issues 256 FFMAs. The 8 lanes of a pixel group read one A address
+//   and the 4 groups of an output lane one B address (broadcasts); the 8 lanes
+//   of a group read 128 contiguous B bytes. The A loads of a warp read 4
+//   consecutive pixels, which the 64-byte swizzle (16-byte unit j of pixel idx
+//   at idx * 64 + ((j ^ (idx / 2 % 4)) << 4)) puts on distinct banks. Pixel
+//   offsets are computed once a tile; the swizzle once a pixel and column tap,
+//   an XOR a channel quad; no division in the loop. A chunk's 36 steps (3 dw x
+//   4 j x 3 dh) run as a loop of 3-step bodies (K4_F32_UNROLL): unrolled whole,
+//   a chunk is ~12,500 instructions (200 KB), more than the instruction cache
+//   holds, and the kernel ran 2.4x slower.
+// What still holds it back: an LDS.128 returns 512 B to the warp whatever it
+// broadcasts, so 16 of them a 256-FFMA step ask shared memory for its whole 128
+// B/clk at the FFMA rate; the two contend. A larger register tile or reuse of A
+// across column taps would cut that.
+// - Epilogue: each thread stores its 8 pixels' 8 outputs as two 16-byte stores
+//   each (a warp's store writes 4 whole 128-byte lines), masking pixels past H W.
+// C > 64: 64 channels of weights stay resident at a time; the consumers refill
+// them (bulk copies) at each 64-channel boundary of every round, both groups in
+// lockstep (a named barrier). Channels past C in the last chunk are zeros in
+// the ring (TMA's fill) and in the weights.
 #include <cuda.h>  // CUtensorMap and the driver's enums; the entry point comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,114 +139,6 @@
 namespace {
 
 constexpr int kOut = 64;
-constexpr int kTileW = 32;           // f32: output columns per block
-constexpr int kTileW2 = kTileW + 2;  // with the halo
-
-// ---------------------------------------------------------------- f32, CUDA cores
-
-constexpr int kOutPerWarp = 8;
-constexpr int kWarps = kOut / kOutPerWarp;  // 8
-constexpr int kThreads = 32 * kWarps;       // 256
-constexpr int kChunk = 16;                  // input channels per shared-memory pass
-
-template <int R>
-constexpr size_t f32_smem_bytes() {
-  return sizeof(float) * (9 * kChunk * kOut + kChunk * (R + 2) * kTileW2);
-}
-
-// x: (B, H, W, C); w: (3, 3, C, 64); out: (B, H, W, 64).
-// Grid (column tiles, row stripes, images).
-template <int R>
-__global__ void __launch_bounds__(kThreads) conv3x3_64_f32_kernel(
-    const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ out, int H,
-    int W, int C) {
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // [9][ck][64]
-  float* xs = ws + 9 * kChunk * kOut;           // [ck][R+2][kTileW2]
-  const int col0 = blockIdx.x * kTileW;
-  const int h0 = blockIdx.y * R;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x % 32;
-  const int o0 = (threadIdx.x / 32) * kOutPerWarp;
-  const float* xb = x + (long long)b * H * W * C;
-
-  float acc[R][kOutPerWarp];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int o = 0; o < kOutPerWarp; ++o) acc[r][o] = 0.0f;
-  }
-
-  for (int c0 = 0; c0 < C; c0 += kChunk) {
-    const int ck = min(kChunk, C - c0);
-    __syncthreads();  // the previous chunk is no longer read
-    for (int i = threadIdx.x; i < 9 * ck * kOut; i += kThreads) {
-      const int o = i % kOut;
-      const int c = (i / kOut) % ck;
-      const int tap = i / (kOut * ck);
-      ws[i] = w[((long long)tap * C + c0 + c) * kOut + o];
-    }
-    for (int i = threadIdx.x; i < (R + 2) * kTileW2 * ck; i += kThreads) {
-      const int c = i % ck;  // channels fastest: neighbouring threads read neighbouring bytes
-      const int col = (i / ck) % kTileW2;
-      const int row = i / (ck * kTileW2);
-      const int h = h0 + row - 1;
-      const int ww = col0 + col - 1;
-      const bool in = h >= 0 && h < H && ww >= 0 && ww < W;
-      xs[(c * (R + 2) + row) * kTileW2 + col] = in ? xb[((long long)h * W + ww) * C + c0 + c]
-                                                   : 0.0f;
-    }
-    __syncthreads();
-
-    for (int c = 0; c < ck; ++c) {
-#pragma unroll
-      for (int dw = 0; dw < 3; ++dw) {
-        float xv[R + 2];
-#pragma unroll
-        for (int r = 0; r < R + 2; ++r) xv[r] = xs[(c * (R + 2) + r) * kTileW2 + lane + dw];
-#pragma unroll
-        for (int dh = 0; dh < 3; ++dh) {
-          const float4* wp = reinterpret_cast<const float4*>(
-              ws + ((dh * 3 + dw) * ck + c) * kOut + o0);
-          const float4 wa = wp[0];
-          const float4 wb = wp[1];
-          const float wv[kOutPerWarp] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-#pragma unroll
-            for (int o = 0; o < kOutPerWarp; ++o) acc[r][o] = fmaf(xv[r + dh], wv[o], acc[r][o]);
-          }
-        }
-      }
-    }
-  }
-
-  const int col = col0 + lane;
-  if (col >= W) return;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int h = h0 + r;
-    if (h >= H) break;
-    float* op = out + (((long long)b * H + h) * W + col) * kOut + o0;
-#pragma unroll
-    for (int o = 0; o < kOutPerWarp; ++o) op[o] = acc[r][o];
-  }
-}
-
-template <int R>
-int launch_f32(const void* x, const void* w, void* out, int batch, int H, int W, int C,
-               cudaStream_t stream) {
-  constexpr size_t smem = f32_smem_bytes<R>();
-  cudaError_t err = cudaFuncSetAttribute(conv3x3_64_f32_kernel<R>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + R - 1) / R, batch);
-  conv3x3_64_f32_kernel<R><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(out), H,
-      W, C);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ------------------------------------ bf16: persistent, warp-specialised wgmma
 
@@ -227,14 +167,17 @@ constexpr size_t wgmma_smem_bytes(int W, int C, int slots) {
 }
 
 // The ring's rows: key(b, h) = b * (H + 2) + h + 1 for h = -1..H, so the rows
-// that a contiguous range of tiles reads are a contiguous range of keys.
-__device__ __forceinline__ int tile_first_key(int t, int H, int W, int tiles_per_image) {
-  const int b = t / tiles_per_image, q0 = t % tiles_per_image * kTile;
+// that a contiguous range of tiles reads are a contiguous range of keys. A tile
+// is `tile` consecutive pixels of one image (bf16: 64, f32: 128).
+__device__ __forceinline__ int tile_first_key(int t, int H, int W, int tiles_per_image,
+                                              int tile = kTile) {
+  const int b = t / tiles_per_image, q0 = t % tiles_per_image * tile;
   return b * (H + 2) + q0 / W;  // row q0 / W - 1
 }
-__device__ __forceinline__ int tile_last_key(int t, int H, int W, int tiles_per_image) {
-  const int b = t / tiles_per_image, q0 = t % tiles_per_image * kTile;
-  return b * (H + 2) + (min(q0 + kTile, H * W) - 1) / W + 2;  // row (last pixel) / W + 1
+__device__ __forceinline__ int tile_last_key(int t, int H, int W, int tiles_per_image,
+                                             int tile = kTile) {
+  const int b = t / tiles_per_image, q0 = t % tiles_per_image * tile;
+  return b * (H + 2) + (min(q0 + tile, H * W) - 1) / W + 2;  // row (last pixel) / W + 1
 }
 
 // A place in the ring: a row key, its slot (key - k0) % slots and the parity of
@@ -663,16 +606,18 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map with the 128-byte swizzle: dims and box innermost first,
-// strides in bytes of dims 1.. .
+// A tensor map (bf16 with the 128-byte swizzle unless told otherwise): dims and
+// box innermost first, strides in bytes of dims 1.. .
 bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-            const cuuint64_t* strides, const cuuint32_t* box) {
+            const cuuint64_t* strides, const cuuint32_t* box,
+            CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   EncodeTiled fn = encode_tiled();
   return fn != nullptr &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
-            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+         fn(map, type, rank, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 int launch_wgmma(const void* x, const void* w, void* out, int batch, int H, int W, int C,
@@ -699,22 +644,351 @@ int launch_wgmma(const void* x, const void* w, void* out, int batch, int H, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------- f32: persistent FFMA implicit GEMM
+
+constexpr int kF32Tile = 128;        // output pixels a tile (the wrapper's F32_TILE)
+constexpr int kF32Chunk = 16;        // input channels a ring entry (F32_CHUNK)
+constexpr int kF32PixelBytes = 64;   // one pixel's chunk in the ring, the swizzle's row
+constexpr int kF32Groups = 2;        // consumer groups of 4 warps, a tile each a round
+constexpr int kF32Threads = (kF32Groups * 4 + 1) * 32;  // and the producer warp: 288
+constexpr int kF32TapBytes = 64 * kOut * 4;              // one tap of 64 channels: 16,384
+constexpr int kF32WeightBytes = 9 * kF32TapBytes;        // 147,456
+constexpr int kF32Align = 512;  // the 64-byte swizzle's period: every slot starts on it
+
+// Steps of a chunk's (dw, j, dh) loop unrolled into one loop body: 1 (dh runs),
+// 3 (dh unrolled), 12 (j and dh) or 36 (the whole chunk). A step is 16 LDS.128
+// and 256 FFMA, ~4.5 KB of code; the whole chunk, ~200 KB, runs out of the
+// instruction cache (scripts/bench_conv3x3.py times the four).
+#ifndef K4_F32_UNROLL
+#define K4_F32_UNROLL 3
+#endif
+static_assert(K4_F32_UNROLL == 1 || K4_F32_UNROLL == 3 || K4_F32_UNROLL == 12 ||
+                  K4_F32_UNROLL == 36,
+              "K4_F32_UNROLL: 1, 3, 12 or 36 steps");
+constexpr int kF32UnrollDw = K4_F32_UNROLL == 36 ? 3 : 1;
+constexpr int kF32UnrollJ = K4_F32_UNROLL >= 12 ? 4 : 1;
+constexpr int kF32UnrollDh = K4_F32_UNROLL >= 3 ? 3 : 1;
+
+__host__ __device__ constexpr int f32_chunks(int C) { return (C + kF32Chunk - 1) / kF32Chunk; }
+
+// Dynamic shared memory: alignment slack, the ring, the weights, a full and an
+// empty mbarrier a slot and the weights' mbarrier (the wrapper's f32_smem_bytes).
+constexpr size_t f32_smem_bytes(int slots, int slot_bytes) {
+  return kF32Align + static_cast<size_t>(slots) * (slot_bytes + 16) + kF32WeightBytes + 8;
+}
+
+// Byte offset in a slot of the 16-byte unit holding channels 4 j..4 j + 3 of
+// slot pixel idx (image column idx - 1), as TMA's 64-byte swizzle writes it:
+// address bits 4-5 XOR bits 7-8.
+__device__ __forceinline__ uint32_t f32_unit(int idx, int j) {
+  return idx * kF32PixelBytes + ((j ^ ((idx >> 1) & 3)) << 4);
+}
+
+// The tiles of the round that starts at tile t of a block's range [.., t1): t
+// and t + 1 where the rows of both fit the ring together, else t alone.
+__device__ __forceinline__ int f32_round_tiles(int t, int t1, int H, int W, int per_image,
+                                               int slots) {
+  return t + 1 < t1 && tile_last_key(t + 1, H, W, per_image, kF32Tile) -
+                               tile_first_key(t, H, W, per_image, kF32Tile) < slots
+             ? 2
+             : 1;
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Channels 64 G.. of every tap (64, or the C - 64 G left) into the resident
+// weights, [tap][channel][output], by bulk copies that complete on `bar`.
+__device__ void f32_load_weights(uint32_t ws, const float* __restrict__ w, int C, int G,
+                                 uint32_t bar) {
+  const int rows = min(64, C - 64 * G);
+  mbar_arrive_expect_tx(bar, 9 * rows * kOut * 4);
+  for (int tap = 0; tap < 9; ++tap) {
+    bulk_copy(ws + tap * kF32TapBytes, w + (static_cast<long long>(tap) * C + 64 * G) * kOut,
+              rows * kOut * 4, bar);
+  }
+}
+
+// Zeros in the weight rows past C that the last chunk reads (C % 16 != 0): the
+// ring's zeros there must not meet a NaN.
+__device__ void f32_zero_rows(uint8_t* ws, int C, int G, int tid, int nthreads) {
+  const int r0 = min(64, C - 64 * G), r1 = min(64, kF32Chunk * f32_chunks(C) - 64 * G);
+  const int units = (r1 - r0) * 16;  // 16-byte units past row r0 of a tap
+  for (int u = tid; u < 9 * units; u += nthreads) {
+    *reinterpret_cast<float4*>(ws + u / units * kF32TapBytes + r0 * kOut * 4 + u % units * 16) =
+        make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+// One 16-channel chunk of image row h into a slot in the layout TMA writes, by a
+// warp's element loads (zeros outside the image and past C): for the x that TMA
+// cannot take, C % 4 != 0 or an address off 16 bytes.
+__device__ void f32_fill_row(uint8_t* dst, const float* __restrict__ x, int H, int W, int C,
+                             int b, int h, int c, int slot_px, int lane) {
+  for (int u = lane; u < slot_px * 4; u += 32) {
+    const int idx = u / 4, j = u % 4, col = idx - 1, ch = kF32Chunk * c + 4 * j;
+    const bool inside = h >= 0 && h < H && col >= 0 && col < W;
+    const float* src = x + ((static_cast<long long>(b) * H + h) * W + col) * C + ch;
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = inside && ch + e < C ? src[e] : 0.0f;
+    *reinterpret_cast<float4*>(dst + f32_unit(idx, j)) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// A 16-byte shared load at a 32-bit shared address: one LDS.128 (a float4 read
+// through the byte-typed dynamic shared array compiles to four LDS.32).
+__device__ __forceinline__ float4 lds128(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// One chunk of a tile: 9 taps x 16 channels into the thread's 8 pixels x 8
+// outputs. rc: the shared address of the chunk's first ring slot; poff[i]:
+// pixel i's input row oh - 1 as slots past rc, in bytes, + its column ow * 64
+// (slot pixel ow is column ow - 1, tap dw reads slot pixel ow + dw); wc: the
+// shared address of the chunk's first weight row of tap 0 at this lane's outputs
+// 4 lc... The swizzle is computed once a pixel and column
+// tap (bits 4-5 of an offset whose bits 0-5 are zero hold it) and XORed with a
+// channel quad's j; a row tap dh is dh slots further, a multiple of 512 B that
+// leaves the swizzle alone.
+__device__ __forceinline__ void f32_chunk(float (&acc)[8][8], const uint32_t (&poff)[8],
+                                          uint32_t rc, int slot_bytes, uint32_t wc) {
+#pragma unroll kF32UnrollDw
+  for (int dw = 0; dw < 3; ++dw) {
+    uint32_t z[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint32_t v = poff[i] + dw * kF32PixelBytes;
+      z[i] = v ^ ((v >> 3) & 0x30);
+    }
+#pragma unroll kF32UnrollJ
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll kF32UnrollDh
+      for (int dh = 0; dh < 3; ++dh) {
+        const uint32_t row = rc + dh * slot_bytes;
+        const uint32_t wt = wc + (dh * 3 + dw) * kF32TapBytes + 4 * j * kOut * 4;
+        float4 a[8], b[4][2];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) a[i] = lds128(row + (z[i] ^ (j << 4)));
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          b[k][0] = lds128(wt + k * kOut * 4);
+          b[k][1] = lds128(wt + k * kOut * 4 + 128);
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float av = lane4(a[i], k);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[i][e] = fmaf(av, lane4(b[k][0], e), acc[i][e]);
+              acc[i][4 + e] = fmaf(av, lane4(b[k][1], e), acc[i][4 + e]);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// x: (B, H, W, C); w: (3, 3, C, 64); out: (B, H, W, 64), all f32. Warps 0-7 are
+// two consumer groups, warp 8 the producer. Block i owns tiles [i tiles / grid,
+// (i + 1) tiles / grid). xmap (use_tma): (C, W, H, B), box (16, box_px, 1, 1),
+// 64-byte swizzled; a ring slot is `boxes` boxes of one row.
+__global__ void __launch_bounds__(kF32Threads, 1)
+    conv3x3_64_f32_kernel(const __grid_constant__ CUtensorMap xmap, const float* __restrict__ x,
+                          const float* __restrict__ w, float* __restrict__ out, int H, int W, int C,
+                          int tiles, int slots, int box_px, int boxes, int use_tma) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((kF32Align - smem_addr(smem_raw) % kF32Align) % kF32Align);
+  const int slot_px = box_px * boxes, slot_bytes = slot_px * kF32PixelBytes;
+  uint8_t* ws = ring + static_cast<size_t>(slots) * slot_bytes;
+  const uint32_t full = smem_addr(ws + kF32WeightBytes), empty = full + 8 * slots;
+  const uint32_t wbar = empty + 8 * slots;
+  const int n_chunks = f32_chunks(C), n_groups = (C + 63) / 64;
+  const int P = H * W, per_image = (P + kF32Tile - 1) / kF32Tile;
+  const int t0 = static_cast<long long>(blockIdx.x) * tiles / gridDim.x;
+  const int t1 = static_cast<long long>(blockIdx.x + 1) * tiles / gridDim.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < slots; ++s) {
+      mbar_init(full + 8 * s, use_tma ? 1 : 32);  // the producer's expect_tx, or its 32 lanes
+      mbar_init(empty + 8 * s, kF32Groups * 4);   // every consumer warp
+    }
+    mbar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (n_groups == 1) f32_zero_rows(ws, C, 0, threadIdx.x, blockDim.x);
+  __syncthreads();
+  if (n_groups == 1 && threadIdx.x == 0) f32_load_weights(smem_addr(ws), w, C, 0, wbar);
+
+  // A round's chunk takes as many consecutive slots as its rows; where they would
+  // wrap, both sides pass over the slots left at the ring's end (an empty
+  // hand-over each), so a cursor's slot and parity follow the same sequence.
+  if (warp == kF32Groups * 4) {
+    // ---- producer: each round's rows, chunk by chunk, in key order
+    if (use_tma && lane != 0) return;
+    RingCursor cur{0, 0, 0};
+    for (int t = t0; t < t1;) {
+      const int nt = f32_round_tiles(t, t1, H, W, per_image, slots);
+      const int kf = tile_first_key(t, H, W, per_image, kF32Tile);
+      const int kl = tile_last_key(t + nt - 1, H, W, per_image, kF32Tile);
+      for (int c = 0; c < n_chunks; ++c) {
+        if (cur.slot + kl - kf + 1 > slots) {
+          for (; cur.slot != 0; cur.step(slots)) {
+            mbar_wait(empty + 8 * cur.slot, cur.parity ^ 1);
+            mbar_arrive(full + 8 * cur.slot);
+          }
+        }
+        for (int k = kf; k <= kl; ++k, cur.step(slots)) {
+          const int b = k / (H + 2), h = k % (H + 2) - 1;
+          uint8_t* dst = ring + static_cast<size_t>(cur.slot) * slot_bytes;
+          const uint32_t bar = full + 8 * cur.slot;
+          mbar_wait(empty + 8 * cur.slot, cur.parity ^ 1);
+          if (use_tma) {
+            mbar_arrive_expect_tx(bar, slot_bytes);
+            for (int i = 0; i < boxes; ++i) {
+              tma_load_row(smem_addr(dst + i * box_px * kF32PixelBytes), &xmap, kF32Chunk * c,
+                           i * box_px - 1, h, b, bar);
+            }
+          } else {
+            f32_fill_row(dst, x, H, W, C, b, h, c, slot_px, lane);
+            mbar_arrive(bar);
+          }
+        }
+      }
+      t += nt;
+    }
+    return;
+  }
+
+  // ---- consumers: group g takes tile t + g of each round
+  const int g = warp / 4, wq = warp % 4, pg = lane / 8, lc = lane % 8;
+  const uint32_t ring_s = smem_addr(ring), wl = smem_addr(ws) + lc * 16;
+  RingCursor cur{0, 0, 0};
+  uint32_t wphase = 0;
+  if (n_groups == 1) mbar_wait(wbar, wphase);
+  for (int t = t0; t < t1;) {
+    const int nt = f32_round_tiles(t, t1, H, W, per_image, slots);
+    const int kf = tile_first_key(t, H, W, per_image, kF32Tile);
+    const int n = tile_last_key(t + nt - 1, H, W, per_image, kF32Tile) - kf + 1;
+    const bool have = g < nt;
+    const int tile = t + g;
+    const int b = tile / per_image, q0 = tile % per_image * kF32Tile;
+    uint32_t poff[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int q = min(q0 + 32 * wq + pg + 4 * i, P - 1);  // a masked pixel reads the last one
+      const int oh = q / W, ow = q - oh * W;
+      poff[i] = (b * (H + 2) + oh - kf) * slot_bytes + ow * kF32PixelBytes;
+    }
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int o = 0; o < 8; ++o) acc[i][o] = 0.0f;
+    }
+    for (int c = 0; c < n_chunks; ++c) {
+      if (n_groups > 1 && c % 4 == 0) {  // the weights of channels 16 c.., both groups in lockstep
+        named_sync(1, kF32Groups * 128);
+        if (threadIdx.x == 0) {
+          fence_async_shared();
+          f32_load_weights(smem_addr(ws), w, C, c / 4, wbar);
+        }
+        f32_zero_rows(ws, C, c / 4, threadIdx.x, kF32Groups * 128);
+        named_sync(1, kF32Groups * 128);
+        mbar_wait(wbar, wphase);
+        wphase ^= 1;
+      }
+      if (cur.slot + n > slots) {
+        for (; cur.slot != 0; cur.step(slots)) {
+          mbar_wait(full + 8 * cur.slot, cur.parity);
+          if (lane == 0) mbar_arrive(empty + 8 * cur.slot);
+        }
+      }
+      RingCursor arrived = cur;
+      for (int e = 0; e < n; ++e, arrived.step(slots)) {
+        mbar_wait(full + 8 * arrived.slot, arrived.parity);
+      }
+      if (have) {
+        f32_chunk(acc, poff, ring_s + cur.slot * slot_bytes, slot_bytes,
+                  wl + c % 4 * kF32Chunk * kOut * 4);
+      }
+      __syncwarp();
+      for (int e = 0; e < n; ++e, cur.step(slots)) {
+        if (lane == 0) mbar_arrive(empty + 8 * cur.slot);
+      }
+    }
+    if (have) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int p = q0 + 32 * wq + pg + 4 * i;
+        if (p < P) {
+          float* o = out + (static_cast<long long>(b) * P + p) * kOut + 4 * lc;
+          *reinterpret_cast<float4*>(o) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          *reinterpret_cast<float4*>(o + 32) =
+              make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+        }
+      }
+    }
+    t += nt;
+  }
+}
+
+int launch_f32(const void* x, const void* w, void* out, int batch, int H, int W, int C,
+               int slots, int box_px, int boxes, int blocks, cudaStream_t stream) {
+  const int use_tma = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  CUtensorMap xmap{};
+  const cuuint64_t P = static_cast<cuuint64_t>(H) * W;
+  const cuuint64_t xdims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
+                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t xstrides[3] = {4ull * C, 4ull * W * C, 4ull * P * C};
+  const cuuint32_t xbox[4] = {kF32Chunk, static_cast<cuuint32_t>(box_px), 1, 1};
+  if (use_tma && !encode(&xmap, x, 4, xdims, xstrides, xbox, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                         CU_TENSOR_MAP_SWIZZLE_64B)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = f32_smem_bytes(slots, box_px * boxes * kF32PixelBytes);
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_64_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = batch * static_cast<int>((P + kF32Tile - 1) / kF32Tile);
+  conv3x3_64_f32_kernel<<<blocks, kF32Threads, smem, stream>>>(
+      xmap, static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(out),
+      H, W, C, tiles, slots, box_px, boxes, use_tma);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// f32 x (B, H, W, C), w HWIO (3, 3, C, 64) -> out (B, H, W, 64) on `stream`, a
-// block per rows_per_block output rows x 32 columns. Returns cudaGetLastError()
-// (0 on success), or cudaErrorInvalidValue for rows_per_block other than 1, 2,
-// 4 or 8.
+// f32 x (B, H, W, C), w HWIO (3, 3, C, 64) -> out (B, H, W, 64) on `stream`:
+// `blocks` persistent blocks, a ring of `slots` 16-channel row chunks of `boxes`
+// TMA boxes of `box_px` pixels. The kernel trusts its caller: the wrapper
+// (probe_pallas_conv.conv3x3_64, its f32_plan) is the one place that checks a
+// ring that holds a tile's rows and fits, and hands over a 16-byte-aligned w.
+// Returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a
+// tensor map that cuTensorMapEncodeTiled refuses.
 extern "C" int conv3x3_64_f32_launch(const void* x, const void* w, void* out, int batch, int H,
-                                     int W, int C, int rows_per_block, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (rows_per_block) {
-    case 1: return launch_f32<1>(x, w, out, batch, H, W, C, s);
-    case 2: return launch_f32<2>(x, w, out, batch, H, W, C, s);
-    case 4: return launch_f32<4>(x, w, out, batch, H, W, C, s);
-    case 8: return launch_f32<8>(x, w, out, batch, H, W, C, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                     int W, int C, int slots, int box_px, int boxes, int blocks,
+                                     void* stream) {
+  return launch_f32(x, w, out, batch, H, W, C, slots, box_px, boxes, blocks,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // bf16 x (B, H, W, C), w HWIO (3, 3, C, 64) -> out (B, H, W, 64) on `stream`:

@@ -39,7 +39,7 @@ _SIGNATURES = {
     "noise_floor_states_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                                   _F, _F, _P),
     "salsa_spatial_probe_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
-    "conv3x3_64_f32_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "conv3x3_64_f32_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "conv3x3_64_bf16_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "noise_floor_tile_frames": (),
 }

@@ -8,11 +8,14 @@ accumulation, output in the input's type: it launches `csrc/conv3x3_64.cu` on
 CUDA tensors (bf16 on the tensor cores with wgmma, f32 on the CUDA cores) and
 runs `conv3x3_64_plain` on CPU tensors. x and w keep the JAX layouts, NHWC and
 HWIO (3, 3, C, 64), in both types; `hwio_from_w_big` carries the JAX kernel's
-paired weight matrix (`make_w_big`) back to HWIO. The bf16 kernel is persistent:
-a block per SM walks a range of 64-pixel tiles, its two consumer warpgroups (two
-tiles at a time each) reading image rows from a ring that a TMA producer fills;
-`tile_keys`, `ring_rows` and `bf16_ring_slots` are its plan, which the wrapper
-computes and checks and the kernel follows.
+paired weight matrix (`make_w_big`) back to HWIO. Both kernels are persistent: a
+block per SM walks a contiguous range of tiles of consecutive pixels (bf16 64,
+f32 128), reading image rows from a ring that a TMA producer fills, with the
+weights resident in shared memory. bf16's two consumer warpgroups take two tiles
+at a time each from a ring of whole rows; f32's two consumer groups take a tile
+each a round from a ring of 16-channel row chunks. `tile_keys` and `ring_rows`
+(the tile walk, shared) and `bf16_ring_slots` and `f32_plan` are their plans,
+which the wrapper computes and checks and the kernels follow.
 
 The probe runs the JAX probe's shape, the stage-1 geometry of the from-wav
 training step (B=32, 320 x 100, C=64, bf16, w * 0.05, seed 0), and prints the
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,7 +39,6 @@ from salsa_tpu_torch.kernels.build import check_launch, load_library
 from salsa_tpu_torch.scripts.timing import cuda_ms, require_cuda
 
 N_OUT = 64
-ROWS = (1, 2, 4, 8)  # f32: output rows a block
 # calls back to back between the events of one timing, so the host's launch gap is hidden
 K4_CALLS = 10
 DTYPES = (torch.float32, torch.bfloat16)
@@ -49,6 +52,18 @@ CONSUMERS = 2
 TMA_BOX = 256  # TMA's largest box side: W + 2 pixels a row
 H100_SMEM_BYTES = 232_448  # shared memory a block may take on an H100 (opt-in): the CPU's plan
 WEIGHT_BYTES = 9 * N_OUT * 128  # one 64-channel chunk of resident weights
+
+# the f32 kernel's geometry: tiles of F32_TILE pixels, one a consumer group and
+# F32_GROUPS a round; a ring slot is one F32_CHUNK-channel chunk of an image row,
+# W + 2 pixels from column -1 at 64 B each, rounded up to whole TMA boxes of a
+# multiple of 8 pixels (the 64-byte swizzle's 512-byte period), after the
+# resident weights of 64 channels
+F32_TILE = 128
+F32_GROUPS = 2
+F32_CHUNK = 16
+F32_PIXEL_BYTES = 4 * F32_CHUNK
+F32_ALIGN = 512
+F32_WEIGHT_BYTES = 9 * 64 * N_OUT * 4
 
 
 def _pack_w_big(w: np.ndarray) -> np.ndarray:
@@ -84,25 +99,27 @@ def hwio_from_w_big(w_big) -> np.ndarray:
     return w
 
 
-def tile_keys(t: int, H: int, W: int) -> tuple[int, int]:
-    """The first and last input row that tile t of the bf16 kernel reads, as
-    keys b * (H + 2) + h + 1 (h = -1..H: the halo rows are keys too). A tile is
-    64 consecutive pixels of one image, row-major; an image has ceil(H W / 64)."""
-    per_image = -(-H * W // TILE)
-    b, q0 = t // per_image, t % per_image * TILE
-    q1 = min(q0 + TILE, H * W) - 1
+def tile_keys(t: int, H: int, W: int, tile: int = TILE) -> tuple[int, int]:
+    """The first and last input row that tile t reads, as keys b * (H + 2) + h +
+    1 (h = -1..H: the halo rows are keys too). A tile is `tile` consecutive
+    pixels of one image, row-major (bf16 TILE, f32 F32_TILE); an image has
+    ceil(H W / tile)."""
+    per_image = -(-H * W // tile)
+    b, q0 = t // per_image, t % per_image * tile
+    q1 = min(q0 + tile, H * W) - 1
     return b * (H + 2) + q0 // W, b * (H + 2) + q1 // W + 2
 
 
-def ring_rows(B: int, H: int, W: int, tiles: int) -> int:
-    """The most input rows that `tiles` consecutive tiles read together (the
-    consumers' turns: CONSUMERS x TURN tiles are the rows the ring holds while
-    each consumer works on a turn), in one image or across several. The pattern
-    repeats in every image, so the windows that start in the first image hold
-    every case; they reach ceil(tiles / tiles an image) images further at most."""
-    per_image = -(-H * W // TILE)
+def ring_rows(B: int, H: int, W: int, tiles: int, tile: int = TILE) -> int:
+    """The most input rows that `tiles` consecutive tiles read together (bf16:
+    the consumers' turns, CONSUMERS x TURN tiles, are the rows the ring holds
+    while each consumer works on a turn), in one image or across several. The
+    pattern repeats in every image, so the windows that start in the first image
+    hold every case; they reach ceil(tiles / tiles an image) images further at
+    most."""
+    per_image = -(-H * W // tile)
     n = min(B, -(-tiles // per_image) + 1) * per_image
-    keys = [tile_keys(t, H, W) for t in range(n)]
+    keys = [tile_keys(t, H, W, tile) for t in range(n)]
     return max(keys[min(t + tiles, n) - 1][1] - keys[t][0] + 1 for t in range(n))
 
 
@@ -135,6 +152,52 @@ def bf16_ring_slots(B: int, H: int, W: int, C: int, smem_bytes: int = H100_SMEM_
     return slots
 
 
+def f32_row_boxes(W: int) -> tuple[int, int]:
+    """(boxes, pixels a box) of one f32 ring row: W + 2 pixels from column -1 in
+    as few TMA boxes as TMA_BOX allows, each a multiple of 8 pixels, so that
+    every box starts on the swizzle's period (the last may reach past column W:
+    TMA fills zeros)."""
+    boxes = -(-(W + 2) // TMA_BOX)
+    return boxes, (-(-(W + 2) // boxes) + 7) // 8 * 8
+
+
+def f32_smem_bytes(W: int, slots: int) -> int:
+    """The f32 kernel's dynamic shared memory (`f32_smem_bytes` in the source):
+    F32_ALIGN B of alignment slack, `slots` ring rows with a full and an empty
+    mbarrier each, the resident weights and their mbarrier."""
+    boxes, box_px = f32_row_boxes(W)
+    return F32_ALIGN + slots * (boxes * box_px * F32_PIXEL_BYTES + 16) + F32_WEIGHT_BYTES + 8
+
+
+class F32Plan(NamedTuple):
+    """What the f32 kernel runs with (besides its grid, min(tiles, SMs))."""
+    tiles: int       # B ceil(H W / F32_TILE); an image's last is ragged where H W % F32_TILE
+    box_px: int      # pixels a TMA box of a ring row
+    boxes: int       # boxes a ring row
+    slots: int       # ring entries: as many as the shared memory beside the weights holds
+    smem_bytes: int  # the block's dynamic shared memory
+
+
+@functools.lru_cache(maxsize=64)
+def f32_plan(B: int, H: int, W: int, C: int, smem_bytes: int = H100_SMEM_BYTES) -> F32Plan:
+    """The plan the f32 kernel runs with, for a block that may take `smem_bytes`
+    of shared memory: the block is alone on its SM, so the ring takes all that the
+    weights leave. A round's chunk needs the rows of its tiles in the ring at
+    once: two tiles where they fit, else one (the kernel decides by the same
+    rule). Raises ValueError where the ring holds fewer rows than one tile reads.
+    The plan does not depend on C: 64 channels of weights are resident, C > 64
+    refills them. Cached: the wrapper asks at every call."""
+    boxes, box_px = f32_row_boxes(W)
+    need = ring_rows(B, H, W, 1, F32_TILE)
+    slots = (smem_bytes - f32_smem_bytes(W, 0)) // (f32_smem_bytes(W, 1) - f32_smem_bytes(W, 0))
+    if slots < need:
+        raise ValueError(f"conv3x3_64 f32: a tile of x {(B, H, W, C)} reads {need} ring rows of "
+                         f"{boxes * box_px * F32_PIXEL_BYTES} B, which with the weights need "
+                         f"{f32_smem_bytes(W, need)} B of shared memory, over the {smem_bytes} "
+                         "B a block may take")
+    return F32Plan(B * -(-H * W // F32_TILE), box_px, boxes, slots, f32_smem_bytes(W, slots))
+
+
 def conv3x3_64_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K4: `F.conv2d` in float32 on the NCHW/OIHW views
     of NHWC x and HWIO w, padding 1, cast back to x's type. (B, H, W, 64)."""
@@ -160,28 +223,25 @@ def _device_limits(index: int) -> tuple[int, int]:
     return props.multi_processor_count, props.shared_memory_per_block_optin
 
 
-def conv3x3_64(x: torch.Tensor, w: torch.Tensor, *,
-               rows_per_block: int | None = None) -> torch.Tensor:
+def conv3x3_64(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K4 wrapper: NHWC x (B, H, W, C), HWIO w (3, 3, C, 64) in one dtype (f32 or
     bf16) -> (B, H, W, 64) in that dtype. CUDA tensors launch
-    `csrc/conv3x3_64.cu`: f32 a block per `rows_per_block` output rows (ROWS,
-    default 8) x 32 columns; bf16 a persistent block per SM, which takes no
-    parameter (rows_per_block raises ValueError) but needs 16-byte-aligned x and
-    w, W + 2 <= 256 and a ring that fits the card's shared memory
-    (bf16_ring_slots). CPU tensors run `conv3x3_64_plain` after the same checks,
-    bf16's against an H100's shared memory. Anything else raises."""
+    `csrc/conv3x3_64.cu`, a persistent block per SM; neither kernel takes a
+    parameter. bf16 needs 16-byte-aligned x and w, W + 2 <= 256 and a ring that
+    fits the card's shared memory (bf16_ring_slots); f32 a ring that holds a
+    tile's rows (f32_plan), and takes any x (the kernel loads an x that TMA
+    cannot take, C % 4 != 0 or off 16 bytes, element by element) and a w off 16
+    bytes as a copy (its bulk copies need the alignment). CPU tensors run
+    `conv3x3_64_plain` after the same checks, against an H100's shared memory.
+    Anything else raises."""
     _check(x, w)
     B, H, W, C = x.shape
     on_card = x.device.type == "cuda"
+    sms, smem_bytes = _device_limits(x.device.index) if on_card else (None, H100_SMEM_BYTES)
     if x.dtype == torch.bfloat16:
-        if rows_per_block is not None:
-            raise ValueError("rows_per_block is the f32 kernel's; the bf16 kernel takes none")
-        sms, smem_bytes = _device_limits(x.device.index) if on_card else (None, H100_SMEM_BYTES)
         slots = bf16_ring_slots(B, H, W, C, smem_bytes)
     else:
-        rows_per_block = ROWS[-1] if rows_per_block is None else rows_per_block
-        if rows_per_block not in ROWS:
-            raise ValueError(f"rows_per_block must be one of {ROWS}, got {rows_per_block}")
+        plan = f32_plan(B, H, W, C, smem_bytes)
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("conv3x3_64 needs contiguous x and w")
     if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or w.data_ptr() % 16):
@@ -200,8 +260,11 @@ def conv3x3_64(x: torch.Tensor, w: torch.Tensor, *,
             err = lib.conv3x3_64_bf16_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), B, H, W,
                                              C, slots, blocks, stream)
         else:
+            if w.data_ptr() % 16:
+                w = w.clone()  # a new allocation is aligned
             err = lib.conv3x3_64_f32_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), B, H, W,
-                                            C, rows_per_block, stream)
+                                            C, plan.slots, plan.box_px, plan.boxes,
+                                            min(plan.tiles, sms), stream)
     check_launch("conv3x3_64", err)
     conv3x3_64.launches += 1
     return out
