@@ -151,8 +151,15 @@ Phases, each printing what it found; any failure raises and exits non-zero:
      quality_seeds (2 seeds x 4 clips x 1 epoch), each JSON holding its
      original's keys with finite values; (d) a two-step `cli.train` whose
      TensorBoard event file holds train/ and val/ scalars at its step, or, without
-     tensorboardX, whose log says nothing was written; (e)
-     training.checkpoint_backend orbax (and an unknown value) refused by cli.train.
+     tensorboardX, whose log says nothing was written; (e) the same experiment
+     with training.checkpoint_backend=orbax: `cli.train` writes `.orbax`
+     checkpoints that restore bit-equal to the trainer's state, their restore
+     timed against a msgpack twin of the same state, `cli.predict` serves the
+     `.orbax` best (one K1 and one K2 launch a group) with CSVs byte-identical to
+     the twin experiment's, `--resume` from `.orbax` bit-equal to `--resume` from
+     the twin, tests/golden/orbax_small (salsa_tpu's orbax) restored equal to its
+     msgpack with the C++ and plain zstd decoders byte-equal on its frames and
+     both timed, and an unknown backend refused by cli.train.
 The second-to-last line is a JSON summary of the kernels, each with its time,
 its plain version's, its bound (the larger of its bytes over the memory rate and
 its operations over the peak rate of their type) and, where one PyTorch call
@@ -241,8 +248,12 @@ from salsa_tpu_torch.scripts.probe_salsa_kernel import (
 )
 from salsa_tpu_torch.scripts.timing import cuda_ms, smi
 from salsa_tpu_torch.submission import write_classwise_csv
+from salsa_tpu_torch.train import ocdbt, orbax_checkpoint, zstd
 from salsa_tpu_torch.train.checkpoint import best_checkpoint as ckpt_best
 from salsa_tpu_torch.train.checkpoint import latest_checkpoint as ckpt_latest
+from salsa_tpu_torch.train.checkpoint import load_metadata as ckpt_load_metadata
+from salsa_tpu_torch.train.checkpoint import msgpack_restore
+from salsa_tpu_torch.train.checkpoint import restore_train_state as ckpt_restore_train_state
 from salsa_tpu_torch.train.checkpoint import restore_variables as ckpt_restore_variables
 from salsa_tpu_torch.train.checkpoint import save_checkpoint
 from salsa_tpu_torch.train.ensemble import ensemble_predictions, write_ensemble
@@ -2645,15 +2656,27 @@ def infer_and_fuse(dev, exp: dict, config: str, fmt: str, n_batches: int, tmp: s
                   f"memory {t['peak_gib']:.2f} GiB [{CARD}]")
     got = load_dumps(os.path.join(base, "tta", "pred"))
     if cuda:
-        cpu_res, _, t_cpu = counted_infer(torch.device("cpu"), exp, config, "_m0",
+        # the CPU infers the first val clip alone (a split of one clip): each clip's
+        # predictions are its own, and the CPU's TTA pass costs a minute a clip
+        one = os.path.join(tmp, f"{fmt}_one_clip_split")
+        os.makedirs(one)
+        for split, names in (("train", TRAIN_CLIPS), ("val", VAL_CLIPS[:1])):
+            with open(os.path.join(one, f"{split}.csv"), "w") as f:
+                f.write("filename\n" + "\n".join(names) + "\n")
+        one_config = variant_config(tmp, exp, f"{fmt}_cpu", [f"data.output_format={fmt}",
+                                                              f"split_meta_dir={one}"])
+        shutil.rmtree(os.path.join(exp["exp_dir"] + "_m0", "outputs"))  # nothing stale
+        cpu_res, _, t_cpu = counted_infer(torch.device("cpu"), exp, one_config, "_m0",
                                           os.path.join(base, "tta_cpu"), use_tta=True)
         want = load_dumps(os.path.join(base, "tta_cpu", "pred"))
+        if sorted(want) != list(VAL_CLIPS[:1]):
+            raise AssertionError(f"{fmt} --tta on the CPU dumped {sorted(want)}")
         for k in ("event_frame_pred", "doa_frame_pred"):
             err = np.concatenate([np.abs(got[n][k] - want[n][k]).ravel() for n in want])
             share = float(np.mean(err <= 2e-3))
             log("13", f"{fmt} --tta dumps, {dev.type} vs CPU plain versions, {k}: max abs err "
                       f"{err.max():.3e}, share within 2e-3 {share:.5f} (CPU "
-                      f"{t_cpu['wall_s']:.1f} s)")
+                      f"{t_cpu['wall_s']:.1f} s, {len(want)} of {len(got)} val clips)")
             if share < 0.999 or err.max() > 2e-2:
                 raise AssertionError(f"{fmt} --tta {k}, {dev.type} vs CPU: {share}, {err.max()}")
         out["cpu_s"] = t_cpu["wall_s"]
@@ -3077,16 +3100,19 @@ def new_decoders(dev, rng, request_seconds: float, seconds: float, overrides,
         cpu_pipe = SeldInferencePipeline(ex, copy.deepcopy(pipe.model).cpu(), None, scaler,
                                          INTERP, cfg.data.n_classes, cfg.data.output_format,
                                          device="cpu")
+        # against the card, the CPU runs the request's first clip alone (each clip's
+        # outputs are its own); a CPU run holds the whole request against itself
+        n = 1 if cuda else len(req)
         t0 = time.perf_counter()
-        ev_c, doa_c = cpu_pipe(req)
+        ev_c, doa_c = cpu_pipe(req[:n])
         cpu_s = time.perf_counter() - t0
         res = {"launches": launches}
-        for name, g, c in (("event_prob", ev, ev_c), ("doa", doa, doa_c)):
+        for name, g, c in (("event_prob", ev[:n], ev_c), ("doa", doa[:n], doa_c)):
             err = np.abs(g - c)
             share = float(np.mean(err <= 2e-3))
             log("14", f"{dt} (configs/seld.yml, fp32) request {req.shape}: {dev.type} vs CPU "
-                      f"{name}: max abs err {err.max():.3e}, share within 2e-3 {share:.5f} "
-                      f"(the CPU took {cpu_s:.1f} s)")
+                      f"{name} on {n} of its clips: max abs err {err.max():.3e}, share within "
+                      f"2e-3 {share:.5f} (the CPU took {cpu_s:.1f} s)")
             if share < 0.999 or err.max() > 2e-2:
                 raise AssertionError(f"{dt} {name}: share {share}, max {err.max()}")
             res[f"{name}_err"] = float(err.max())
@@ -4098,15 +4124,16 @@ def run_scripts(dev, runs: dict, tmp: str) -> dict:
     return out
 
 
-def tensorboard_check(dev, tmp: str, seconds: float, overrides=()) -> dict:
+TB_OVERRIDES = ("training.max_epochs=1", "training.train_batch_size=4",
+                "data.train_fraction=0.25")
+GOLDEN_ORBAX = os.path.join(REPO, "tests", "golden", "orbax_small", "orbax_small")
+
+
+def tensorboard_check(dev, exp: dict) -> dict:
     """`cli.train` of two steps (configs/seld.yml from wav, batch 4, validated once)
-    on `dev`: with tensorboardX, the experiment's event file holds `train/<k>` and
-    `val/<k>` at the step count; without it, the log says that no scalar was
-    written; then `training.checkpoint_backend: orbax` refused before any data is
-    read or a step runs, and an unknown backend as salsa_tpu refuses it."""
-    exp = write_train_experiment(tmp, seconds, overrides=(
-        "training.max_epochs=1", "training.train_batch_size=4", "data.train_fraction=0.25",
-        *overrides))
+    of `exp` on `dev`: with tensorboardX, the experiment's event file holds
+    `train/<k>` and `val/<k>` at the step count; without it, the log says that no
+    scalar was written."""
     tr, launches, wall = counted_train(dev, exp["config"], exp["group"])
     tb_dir = tr.cfg.dir.tb_dir
     out = {"steps": tr.optimizer.count, "launches": launches, "seconds": wall}
@@ -4130,21 +4157,193 @@ def tensorboard_check(dev, tmp: str, seconds: float, overrides=()) -> dict:
         out["tensorboard"] = f"{len(scalars)} tags at step {tr.optimizer.count}"
     log("17", f"(d) cli.train of {tr.optimizer.count} steps ({wall:.1f} s, launches {launches}):"
               f" {out['tensorboard']}")
-    for backend, match in (("orbax", "ROADMAP queue 1, item 3"),
-                           ("zarr", "unknown checkpoint backend 'zarr'")):
+    return out
+
+
+def payload_diff(a, b, path: str = "") -> list[str]:
+    """Where two checkpoint payloads differ: a key, a type, a dtype, a shape or a
+    bit; [] when they are equal."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        if not (isinstance(a, dict) and isinstance(b, dict)) or a.keys() != b.keys():
+            return [f"{path or '/'}: keys"]
+        return [d for k in a for d in payload_diff(a[k], b[k], f"{path}/{k}")]
+    if type(a) is not type(b) or getattr(a, "dtype", None) != getattr(b, "dtype", None):
+        return [f"{path}: {type(a).__name__} {getattr(a, 'dtype', '')} against "
+                f"{type(b).__name__} {getattr(b, 'dtype', '')}"]
+    return [] if np.array_equal(a, b) else [f"{path}: values"]
+
+
+def read_payload(path: str) -> dict:
+    """The payload of a `.msgpack` file or `.orbax` directory, as the port reads it."""
+    if path.endswith(".orbax"):
+        return orbax_checkpoint.restore(path)
+    with open(path, "rb") as f:
+        return msgpack_restore(f.read())
+
+
+def tree_bytes(path: str) -> int:
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def orbax_twin(tr, exp_dir: str, twin_dir: str) -> list[str]:
+    """A copy of the experiment `exp_dir` with each `.orbax` checkpoint replaced by
+    a `.msgpack` of the trainer's state, which every checkpoint of a one-epoch run
+    holds; returns the twin's checkpoints."""
+    shutil.copytree(exp_dir, twin_dir, ignore=shutil.ignore_patterns("*.orbax"))
+    params, stats = torch_state_dict_to_flax(tr.model.state_dict())
+    opt_state = tr.optimizer.optax_state(tr.model)
+    written = []
+    for d in (tr.cfg.dir.model.checkpoint, tr.cfg.dir.model.best):
+        for fn in sorted(os.listdir(d)):
+            if fn.endswith(".orbax"):
+                name = fn[:-len(".orbax")]
+                twin = os.path.join(twin_dir, os.path.relpath(d, exp_dir))
+                meta = ckpt_load_metadata(os.path.join(d, fn))
+                written.append(save_checkpoint(twin, name, params, stats, tr.optimizer.count,
+                                               meta, opt_state=opt_state))
+    return written
+
+
+def orbax_check(dev, exp: dict, tmp: str, repeats: int = 3) -> dict:
+    """(e) `training.checkpoint_backend: orbax` through the CLIs on `dev`, at
+    `exp`'s width: `cli.train` writes `.orbax` checkpoints that restore bit-equal
+    to the trainer's state (its msgpack twin); the restore's host-clock time
+    against the twin's; `cli.predict` serves the `.orbax` experiment with one K1
+    and one K2 launch a group, its CSVs byte-identical to the twin experiment's;
+    `--resume` from `.orbax` bit-equal to `--resume` from the twin (deterministic
+    mode); the committed fixture that salsa_tpu's orbax wrote restores through
+    the C++ decoder equal to its msgpack twin, and the C++ and plain decoders
+    agree byte for byte on its frames, both timed; an unknown backend refused."""
+    cuda = dev.type == "cuda"
+    out = {}
+    tr, launches, wall = counted_train(dev, exp["config"], exp["group"], "_orbax",
+                                       overrides=["training.checkpoint_backend=orbax"])
+    if cuda:
+        check_train_launches(launches, tr.optimizer.count, "(e) cli.train with orbax")
+    exp_o, exp_t = exp["exp_dir"] + "_orbax", exp["exp_dir"] + "_twin"
+    best = ckpt_best(tr.cfg.dir.model.best)
+    saved = sorted(os.listdir(tr.cfg.dir.model.checkpoint))
+    if not best.endswith("best.orbax") or saved != ["epoch000.json", "epoch000.orbax"]:
+        raise AssertionError(f"(e) cli.train with orbax wrote {saved} and best {best}")
+    twins = orbax_twin(tr, exp_o, exp_t)
+    for twin in twins:
+        rel = os.path.relpath(twin, exp_t)[:-len(".msgpack")] + ".orbax"
+        diff = payload_diff(read_payload(os.path.join(exp_o, rel)), read_payload(twin))
+        if diff:
+            raise AssertionError(f"(e) {rel} against the trainer's state: {diff[:5]}")
+    twin_best = os.path.join(exp_t, os.path.relpath(best, exp_o))[:-len(".orbax")] + ".msgpack"
+    times = {}
+    for kind, path in (("orbax", best), ("msgpack", twin_best)):
+        runs = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            ckpt_restore_train_state(path)
+            runs.append(time.perf_counter() - t0)
+        times[kind] = statistics.median(runs)
+    out.update(train_s=wall, train_launches=launches, orbax_restore_s=times["orbax"],
+               msgpack_restore_s=times["msgpack"], orbax_bytes=tree_bytes(best),
+               msgpack_bytes=tree_bytes(twin_best))
+    log("17", f"(e) cli.train with training.checkpoint_backend=orbax: {wall:.1f} s, launches "
+              f"{launches}; models/checkpoint/epoch000.orbax and models/best/best.orbax "
+              f"restore bit-equal to the trainer's state")
+    log("17", f"(e) restore of the trained checkpoint (params, batch_stats, Adam's state): "
+              f".orbax {times['orbax'] * 1e3:.1f} ms ({out['orbax_bytes'] / 1e6:.1f} MB), "
+              f"msgpack {times['msgpack'] * 1e3:.1f} ms ({out['msgpack_bytes'] / 1e6:.1f} MB), "
+              f"ratio {times['orbax'] / times['msgpack']:.2f} (host clock, median of "
+              f"{repeats}) [{CARD}]")
+
+    # cli.predict of both experiments: the .orbax best served, CSVs byte-identical
+    csv_dirs = {}
+    for suffix in ("_orbax", "_twin"):
         salsa_spatial.launches = noise_floor_mask.launches = 0
-        try:
-            cli_train.train(exp["config"], exp["group"], f"_{backend}", device=dev,
-                            overrides=[f"training.checkpoint_backend={backend}"])
-        except ValueError as e:
-            if match not in str(e):
-                raise
-            log("17", f"(e) training.checkpoint_backend={backend} refused through cli.train "
-                      f"before any data: {e}")
-        else:
-            raise AssertionError(f"(e) training.checkpoint_backend={backend} was not refused")
-        if salsa_spatial.launches or noise_floor_mask.launches:
-            raise AssertionError(f"(e) {backend}: kernels launched before the refusal")
+        csv_dirs[suffix] = os.path.join(tmp, f"preds{suffix}")
+        cli_predict.predict(exp["config"], exp["val_wav_dir"], csv_dirs[suffix], exp["group"],
+                            exp_suffix=suffix, device=dev)
+        got = {"salsa_spatial": salsa_spatial.launches, "noise_floor": noise_floor_mask.launches}
+        k = 1 if cuda else 0  # the val wavs are one group of 2
+        if got != {"salsa_spatial": k, "noise_floor": k}:
+            raise AssertionError(f"(e) cli.predict{suffix}: launches {got}")
+        out[f"predict_launches{suffix}"] = got
+    with open(os.path.join(exp_o, "logs", "log.txt")) as f:
+        restored = re.findall(r"restored (\S+)", f.read())
+    if restored[-1:] != [best]:
+        raise AssertionError(f"(e) cli.predict restored {restored[-1:]}, expected {best}")
+    differ = differing_files(csv_dirs["_orbax"], csv_dirs["_twin"])
+    n_csv = len(os.listdir(csv_dirs["_orbax"]))
+    if differ or not n_csv:
+        raise AssertionError(f"(e) cli.predict CSVs of .orbax and msgpack differ: {differ}")
+    log("17", f"(e) cli.predict served {os.path.basename(best)} with launches "
+              f"{out['predict_launches_orbax']}: {n_csv} CSVs byte-identical to the msgpack "
+              f"twin experiment's")
+
+    # --resume from .orbax against --resume from the twin, one more epoch each
+    resumed = {}
+    with deterministic(dev) as nondeterministic:
+        for suffix, extra in (("_orbax", ["training.checkpoint_backend=orbax"]), ("_twin", [])):
+            resumed[suffix] = counted_train(dev, exp["config"], exp["group"], suffix,
+                                            resume=True,
+                                            overrides=[*extra, "training.max_epochs=2"])
+    (tr_o, l_o, w_o), (tr_t, _, _) = resumed["_orbax"], resumed["_twin"]
+    if cuda:
+        check_train_launches(l_o, tr_o.optimizer.count - tr.optimizer.count,
+                             "(e) cli.train --resume from .orbax")
+    ck = tr_o.cfg.dir.model.checkpoint
+    diff = payload_diff(read_payload(os.path.join(ck, "epoch001.orbax")),
+                        read_payload(os.path.join(tr_t.cfg.dir.model.checkpoint,
+                                                  "epoch001.msgpack")))
+    steps = (tr_o.optimizer.count, 2 * tr.optimizer.count)
+    if tr_o.step_losses != tr_t.step_losses or diff or steps[0] != steps[1]:
+        raise AssertionError(f"(e) --resume from .orbax: losses {tr_o.step_losses} against "
+                             f"{tr_t.step_losses}, checkpoints differ at {diff[:5]}")
+    out.update(resume_losses=tr_o.step_losses, resume_launches=l_o)
+    log("17", f"(e) cli.train --resume from epoch000.orbax to 2 epochs ({w_o:.1f} s, launches "
+              f"{l_o}): step losses {[round(x, 4) for x in tr_o.step_losses]} and epoch001 "
+              f"bit-equal to --resume from the msgpack twin (deterministic mode; ops without a "
+              f"deterministic form: {', '.join(nondeterministic) or 'none'})")
+    del tr, tr_o, tr_t, resumed
+
+    # the committed fixture (salsa_tpu's orbax, real zstd) through both decoders
+    t0 = time.perf_counter()
+    fixture = read_payload(GOLDEN_ORBAX + ".orbax")
+    fixture_s = time.perf_counter() - t0
+    diff = payload_diff(fixture, read_payload(GOLDEN_ORBAX + ".msgpack"))
+    if diff:
+        raise AssertionError(f"(e) the orbax fixture against its msgpack: {diff[:5]}")
+    store = ocdbt.OcdbtStore(GOLDEN_ORBAX + ".orbax")
+    frames = [store.read(k) for k in store.keys() if not k.endswith(b"/.zarray")]
+    decoded = {}
+    for name, fn, passes in (("cpp", zstd.decompress, 20), ("plain", zstd.decompress_plain, 1)):
+        t0 = time.perf_counter()
+        for _ in range(passes):
+            decoded[name] = [bytes(fn(f)) for f in frames]
+        decoded[f"{name}_s"] = (time.perf_counter() - t0) / passes
+    if decoded["cpp"] != decoded["plain"]:
+        raise AssertionError("(e) the C++ and plain zstd decoders differ on the fixture")
+    n_bytes = sum(map(len, decoded["cpp"]))
+    out.update(fixture_restore_s=fixture_s, decoded_bytes=n_bytes,
+               cpp_mb_s=n_bytes / decoded["cpp_s"] / 1e6,
+               plain_mb_s=n_bytes / decoded["plain_s"] / 1e6)
+    log("17", f"(e) tests/golden/orbax_small (salsa_tpu's orbax, zstd level 1): restored in "
+              f"{fixture_s * 1e3:.1f} ms equal to its msgpack; its {len(frames)} chunk frames "
+              f"({n_bytes / 1e6:.3f} MB decoded) byte-equal through the C++ decoder "
+              f"({out['cpp_mb_s']:.1f} MB/s, mean of 20 passes) and the plain one "
+              f"({out['plain_mb_s']:.2f} MB/s, one pass) (host clock) [{CARD}]")
+
+    salsa_spatial.launches = noise_floor_mask.launches = 0
+    try:
+        cli_train.train(exp["config"], exp["group"], "_zarr", device=dev,
+                        overrides=["training.checkpoint_backend=zarr"])
+    except ValueError as e:
+        if str(e) != "unknown checkpoint backend 'zarr'":
+            raise
+        log("17", f"(e) training.checkpoint_backend=zarr refused through cli.train before any "
+                  f"data: {e}")
+    else:
+        raise AssertionError("(e) training.checkpoint_backend=zarr was not refused")
+    if salsa_spatial.launches or noise_floor_mask.launches:
+        raise AssertionError("(e) zarr: kernels launched before the refusal")
     return out
 
 
@@ -4154,9 +4353,12 @@ def phase17(dev, seconds: float = 10.0, counts=MANY_MICS, long_mics: int = 32,
     """SALSA at any channel count and the last modules of the port: (a) SALSA MIC at
     17, 24 and 32 mics on a seeded 10 s array clip against the CPU's plain run (K2
     once, K1 never, each call); (b) one 60 s clip at 32 mics, timed, with its peak
-    memory and the time of its covariance and of its power iteration; (c) the six measurement scripts in this process at small sizes
-    (`run_scripts`); (d) TensorBoard scalars of a two-step `cli.train`, or the log
-    line without tensorboardX, and (e) the orbax refusal (`tensorboard_check`)."""
+    memory and the time of its covariance and of its power iteration; (c) the six
+    measurement scripts in this process at small sizes (`run_scripts`); (d)
+    TensorBoard scalars of a two-step `cli.train`, or the log line without
+    tensorboardX (`tensorboard_check`), and (e) `.orbax` checkpoints trained,
+    restored, served and resumed from, and the committed fixture through both
+    zstd decoders (`orbax_check`)."""
     cuda = dev.type == "cuda"
     out = {"many": {}}
     t_phase = time.perf_counter()
@@ -4198,7 +4400,10 @@ def phase17(dev, seconds: float = 10.0, counts=MANY_MICS, long_mics: int = 32,
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         out["scripts"] = run_scripts(dev, runs, tmp)
-        out["train"] = tensorboard_check(dev, os.path.join(tmp, "tb"), tb_seconds, tb_overrides)
+        exp = write_train_experiment(os.path.join(tmp, "tb"), tb_seconds,
+                                     overrides=(*TB_OVERRIDES, *tb_overrides))
+        out["train"] = tensorboard_check(dev, exp)
+        out["orbax"] = orbax_check(dev, exp, tmp)
     out["seconds"] = time.perf_counter() - t_phase
     log("17", f"phase 17: {out['seconds']:.1f} s host clock [{CARD}]")
     return out

@@ -3,7 +3,7 @@
 
     python -m salsa_tpu_torch.cli.export_ckpt --exp-config configs/seld.yml \
         --exp-group-dir ./outputs [--exp-suffix _run1] --out /path/to/exported.ckpt \
-        [--ckpt <a .msgpack>]
+        [--ckpt <a .msgpack or .orbax>]
 
 Reads the experiment's best checkpoint (else its latest, or `--ckpt`), maps the
 flax weights onto the reference's module names (`interop.flax_to_torch_state_dict`)
@@ -52,7 +52,7 @@ def main(argv: list[str] | None = None) -> str:
     p.add_argument("--exp-group-dir", default="./outputs")
     p.add_argument("--exp-suffix", default="")
     p.add_argument("--ckpt", default=None,
-                   help="explicit .msgpack checkpoint (default: the experiment's best, "
+                   help="explicit .msgpack or .orbax checkpoint (default: the experiment's best, "
                         "else latest)")
     a = p.parse_args(argv)
     return export_checkpoint(a.exp_config, a.out, a.exp_group_dir, a.exp_suffix,

@@ -1,6 +1,6 @@
 """Direct wav -> submission CSV serving CLI (counterpart of the batch path of
 `salsa_tpu.cli.predict`): serves a trained `salsa_tpu` experiment (YAML config,
-flax msgpack checkpoint with its JSON sidecar, the feature store's scaler or
+flax msgpack or `.orbax` checkpoint with its JSON sidecar, the feature store's scaler or
 `feature_scaler.npz`) over a
 directory of multichannel wavs through `SeldInferencePipeline`, on the first CUDA
 card:

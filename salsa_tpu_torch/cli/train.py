@@ -28,7 +28,8 @@ checkpoint of the experiment's `models/checkpoint` (weights, BatchNorm statistic
 and Adam's state) at the epoch after the one it recorded; each step's dropout and
 augmentation draws are a function of (seed, step), so the resumed epochs are the
 uninterrupted run's. Checkpoints are written as `epochNNN` and `best` in flax's
-msgpack format; the experiment is served by `salsa_tpu_torch.cli.predict` and by
+msgpack format (`.orbax` directories under `training.checkpoint_backend: orbax`);
+the experiment is served by `salsa_tpu_torch.cli.predict` and by
 `salsa_tpu.cli.predict`.
 
 Data-parallel over N processes, one global batch of `train_batch_size` split by

@@ -1,5 +1,6 @@
 """nvcc build of `salsa_tpu_torch/csrc/*.cu` into one shared library with a plain
-C interface, bound with ctypes.
+C interface, bound with ctypes; and the host C++ build of `csrc/*.cpp` (the zstd
+decoder of `.orbax` checkpoints), one library a source, by the host compiler.
 
 Every source is compiled to an object by its own nvcc, all started together, and
 the objects are linked into one library. The library is built at first use into
@@ -8,7 +9,9 @@ sources, headers and flags matches. Nothing is built when this module is
 imported, and nothing falls back: a missing nvcc or a failed compile raises.
 `ptxas_usage`, `wgmma_serialized` and `sass_opcode_counts` read what the
 compiler and `cuobjdump` say about the built kernels (registers, spills, a
-broken wgmma pipeline, machine instructions).
+broken wgmma pipeline, machine instructions). `load_host_library` builds a host
+source with `CXX`, else `c++` or `g++` on PATH, the same way: at first use, keyed
+by a hash of source, compiler and flags, and raising where the build fails.
 """
 from __future__ import annotations
 
@@ -42,6 +45,14 @@ _SIGNATURES = {
     "conv3x3_64_f32_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "conv3x3_64_bf16_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "noise_floor_tile_frames": (),
+}
+HOST_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-shared")
+# {host source stem: {C entry point: (restype, argtypes)}}
+_HOST_SIGNATURES = {
+    "zstd_decode": {
+        "zstd_decompress": (ctypes.c_long, (_P, ctypes.c_size_t, _P, ctypes.c_size_t)),
+        "zstd_xxh64": (ctypes.c_uint64, (_P, ctypes.c_size_t)),
+    },
 }
 
 
@@ -218,6 +229,41 @@ def build_variants(builds: dict[str, tuple[Path, list[str]]], subdir: str,
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         libs[name] = (_bind(ctypes.CDLL(str(out_dir / f"{name}.so")), [entry]), log)
     return libs
+
+
+def _find_cxx() -> str:
+    """The host C++ compiler: `CXX`, else `c++` or `g++` on PATH."""
+    for cand in (os.environ.get("CXX"), "c++", "g++"):
+        if cand and (path := shutil.which(cand)):
+            return path
+    raise RuntimeError("no host C++ compiler (set CXX, or put c++ or g++ on PATH): the "
+                       "host libraries of salsa_tpu_torch/csrc/*.cpp cannot be built")
+
+
+@functools.lru_cache(maxsize=None)
+def load_host_library(stem: str) -> ctypes.CDLL:
+    """`csrc/<stem>.cpp` built by the host compiler into BUILD_DIR (reused while a
+    hash of source, compiler and flags matches), its entry points declared."""
+    src = CSRC_DIR / f"{stem}.cpp"
+    cxx = _find_cxx()
+    h = hashlib.sha256(" ".join((cxx, *HOST_FLAGS)).encode())
+    h.update(src.read_bytes())
+    path = BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.stem}.{os.getpid()}.so.tmp")
+        cmd = [cxx, *HOST_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{os.path.basename(cxx)} failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)  # atomic, as in build_library
+    lib = ctypes.CDLL(str(path))
+    for name, (restype, argtypes) in _HOST_SIGNATURES[stem].items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib
 
 
 def check_launch(name: str, err: int) -> None:

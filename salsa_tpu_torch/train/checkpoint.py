@@ -12,9 +12,10 @@ flattened chunks, which the reader reassembles. The writer packs every value as
 msgpack-python does, so its bytes are `flax.serialization.to_bytes`'s for the
 same tree; it refuses a leaf that flax would chunk (no model here has one).
 
-`.orbax` checkpoint directories are refused: reading them needs orbax, and
-`training.checkpoint_backend: orbax` is refused before a run starts
-(`check_backend`).
+`.orbax` checkpoint directories, which `salsa_tpu` writes under
+`training.checkpoint_backend: orbax`, are read and written by
+`train.orbax_checkpoint` (OCDBT, zarr and zstd in this package, no orbax);
+`save_checkpoint(..., backend="orbax")` writes one beside the same sidecar.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ import os
 import struct
 
 import numpy as np
+
+from salsa_tpu_torch.train import orbax_checkpoint
 
 MAX_CHUNK_SIZE = 2**30  # flax.serialization.MAX_CHUNK_SIZE
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
@@ -253,42 +256,45 @@ def _numpy_tree(tree):
 
 def check_backend(backend: str) -> None:
     """`training.checkpoint_backend` as `salsa_tpu` takes it: 'msgpack' (the
-    default) is what this package writes; 'orbax' is refused, and any other value
-    is a ValueError, as in `salsa_tpu.train.checkpoint.save_checkpoint`."""
-    if backend == "orbax":
-        raise ValueError("training.checkpoint_backend 'orbax': this package writes flax "
-                         ".msgpack checkpoints only (set checkpoint_backend: msgpack; "
-                         ".orbax checkpoints are ROADMAP queue 1, item 3)")
-    if backend != "msgpack":
+    default) or 'orbax'; any other value is a ValueError, as in
+    `salsa_tpu.train.checkpoint.save_checkpoint`."""
+    if backend not in ("msgpack", "orbax"):
         raise ValueError(f"unknown checkpoint backend '{backend}'")
 
 
 def save_checkpoint(ckpt_dir: str, name: str, params: dict, batch_stats: dict, step: int,
-                    metadata: dict | None = None, opt_state: dict | None = None) -> str:
-    """Write `<ckpt_dir>/<name>.msgpack` as `salsa_tpu.train.checkpoint` does and the
-    `.json` sidecar; returns the .msgpack path. `opt_state` is the optimizer state
-    in optax's layout (`train.state.ScheduledOptimizer.optax_state`), which
-    `salsa_tpu`'s restore needs; without it the payload's opt_state is empty."""
+                    metadata: dict | None = None, opt_state: dict | None = None,
+                    backend: str = "msgpack") -> str:
+    """Write `<ckpt_dir>/<name>.msgpack` (or, with backend 'orbax', the directory
+    `<name>.orbax`) as `salsa_tpu.train.checkpoint` does and the `.json` sidecar;
+    returns the checkpoint's path. `opt_state` is the optimizer state in optax's
+    layout (`train.state.ScheduledOptimizer.optax_state`), which `salsa_tpu`'s
+    restore needs; without it the payload's opt_state is empty."""
+    check_backend(backend)
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, name)
     payload = {"step": int(step), "params": _numpy_tree(params),
                "batch_stats": _numpy_tree(batch_stats),
                "opt_state": _numpy_tree(opt_state or {})}
-    with open(path + ".msgpack", "wb") as f:
-        f.write(packb(payload))
+    if backend == "orbax":
+        out = orbax_checkpoint.save(path + ".orbax", payload)
+    else:
+        out = path + ".msgpack"
+        with open(out, "wb") as f:
+            f.write(packb(payload))
     meta = dict(metadata or {})
     meta["step"] = int(step)
     with open(path + ".json", "w") as f:
         json.dump(_jsonable(meta), f, indent=2)
-    return path + ".msgpack"
+    return out
 
 
 def _restore_payload(path: str) -> dict:
     if path.endswith(".orbax"):
-        raise ValueError(f"{path}: an orbax checkpoint directory; this package reads "
-                         "flax .msgpack checkpoints only (save with backend='msgpack')")
-    with open(path, "rb") as f:
-        payload = msgpack_restore(f.read())
+        payload = orbax_checkpoint.restore(path)
+    else:
+        with open(path, "rb") as f:
+            payload = msgpack_restore(f.read())
     missing = {"step", "params", "batch_stats"} - set(payload)
     if missing:
         raise ValueError(f"{path}: not a salsa_tpu checkpoint (no {sorted(missing)})")
@@ -296,14 +302,14 @@ def _restore_payload(path: str) -> dict:
 
 
 def restore_variables(path: str) -> tuple[dict, dict, int]:
-    """(params, batch_stats, step) of a `.msgpack` checkpoint, as nested dicts of
+    """(params, batch_stats, step) of a `.msgpack` or `.orbax` checkpoint, as nested dicts of
     numpy arrays; `opt_state` is read past and dropped."""
     payload = _restore_payload(path)
     return payload["params"], payload["batch_stats"], int(payload["step"])
 
 
 def restore_train_state(path: str) -> tuple[dict, dict, dict]:
-    """(params, batch_stats, opt_state) of a `.msgpack` checkpoint to resume
+    """(params, batch_stats, opt_state) of a `.msgpack` or `.orbax` checkpoint to resume
     training from, `opt_state` in optax's layout (the port's and `salsa_tpu`'s;
     its count is the step); raises ValueError on a checkpoint that carries no
     optimizer state."""

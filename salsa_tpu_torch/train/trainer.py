@@ -40,7 +40,8 @@ there and changes nothing here. Validation predicts the val split (from the
 store, or extracted once per call of `cli.train` from wavs), writes DCASE CSVs
 and scores them. The prediction half (`SeldPredictor`: the eval step,
 channel-swap TTA folded into the batch, the validation losses, CSVs and
-prediction dumps) is what `cli.infer` runs. Checkpoints are flax msgpack
+prediction dumps) is what `cli.infer` runs. Checkpoints are flax msgpack, or
+`.orbax` directories under `training.checkpoint_backend: orbax`
 (`train.checkpoint`), with the optimizer state in optax's layout, so
 `salsa_tpu` restores them.
 
@@ -379,7 +380,8 @@ class SeldTrainer(SeldPredictor):
                  device: torch.device | str = "cuda", joint_transform=None,
                  feature_transform=None):
         t = cfg.training
-        ckpt.check_backend(t.get("checkpoint_backend", "msgpack"))
+        self.checkpoint_backend = t.get("checkpoint_backend", "msgpack")
+        ckpt.check_backend(self.checkpoint_backend)
         # from_wav engages only where the train split is wav-resident, and
         # supersedes device_data (it is the resident mode, fed by waveforms)
         self.from_wav = bool(t.get("from_wav", False)) and isinstance(train_data, WavSplitData)
@@ -837,16 +839,17 @@ class SeldTrainer(SeldPredictor):
         return {"host_transform_rng": by_rank[0], "host_transform_rng_by_rank": by_rank}
 
     def save(self, ckpt_dir: str, name: str, meta: dict) -> str | None:
-        """Write the model and optimizer as a flax msgpack checkpoint with its
-        sidecar (`host_rng_meta` added); returns its path. Every rank calls it and
-        rank 0 writes (None elsewhere)."""
+        """Write the model and optimizer as a checkpoint of `training.checkpoint_backend`
+        (flax msgpack or `.orbax`) with its sidecar (`host_rng_meta` added); returns
+        its path. Every rank calls it and rank 0 writes (None elsewhere)."""
         meta = {**meta, **self.host_rng_meta()}
         return self._write(ckpt_dir, name, meta) if distributed.is_primary() else None
 
     def _write(self, ckpt_dir: str, name: str, meta: dict) -> str:
         params, stats = torch_state_dict_to_flax(self.model.state_dict())
         return ckpt.save_checkpoint(ckpt_dir, name, params, stats, self.optimizer.count, meta,
-                                    opt_state=self.optimizer.optax_state(self.model))
+                                    opt_state=self.optimizer.optax_state(self.model),
+                                    backend=self.checkpoint_backend)
 
     def restore(self, path: str) -> int:
         """Restore the weights, BatchNorm statistics and optimizer state of the

@@ -164,23 +164,27 @@ def test_checkpoint_selection_equals_salsa_tpu(tmp_path, layout):
     assert tckpt.best_checkpoint(missing) is None and tckpt.latest_checkpoint(missing) is None
 
 
-def test_orbax_checkpoints_are_refused(tmp_path):
-    (tmp_path / "epoch1.orbax").mkdir()
-    (tmp_path / "epoch1.json").write_text(json.dumps({"step": 1, "valSeld": 0.1}))
+def test_orbax_checkpoints_are_refused(tmp_path, jax_state):
+    """Once refused, `.orbax` checkpoints are now read: salsa_tpu's orbax
+    checkpoint, picked as best over a msgpack one, restores to the state it saved
+    (exact)."""
+    jckpt.save_checkpoint(str(tmp_path), "epoch1", jax_state.replace(step=1),
+                          {"valSeld": 0.1}, backend="orbax")
     _touch(tmp_path, "epoch0", {"step": 0, "valSeld": 0.2})
     best = tckpt.best_checkpoint(str(tmp_path))
     assert best == jckpt.best_checkpoint(str(tmp_path)) and best.endswith(".orbax")
-    with pytest.raises(ValueError, match="orbax"):
-        tckpt.restore_variables(best)
+    params, stats, step = tckpt.restore_variables(best)
+    assert step == 1
+    _assert_trees_equal(params, jax.device_get(jax_state.params))
+    _assert_trees_equal(stats, jax.device_get(jax_state.batch_stats))
 
 
 def test_checkpoint_backend_as_salsa_tpu_takes_it(tmp_path, jax_state):
-    """`training.checkpoint_backend`: 'msgpack' is what the port writes; 'orbax' is
-    refused naming its ROADMAP item; any other value raises salsa_tpu's own
-    ValueError, word for word."""
+    """`training.checkpoint_backend`: 'msgpack' and 'orbax' are what the port
+    writes, as salsa_tpu does; any other value raises salsa_tpu's own ValueError,
+    word for word."""
     tckpt.check_backend("msgpack")
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 3"):
-        tckpt.check_backend("orbax")
+    tckpt.check_backend("orbax")
     with pytest.raises(ValueError) as want:
         jckpt.save_checkpoint(str(tmp_path), "x", jax_state, {}, backend="zarr")
     with pytest.raises(ValueError) as got:

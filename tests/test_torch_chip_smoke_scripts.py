@@ -1,9 +1,9 @@
 """chip_smoke.py's phase 17 cut down to run on the CPU (a file of its own, so that
 the suite's workers run it beside the other phases' tests): SALSA of a 17-mic
 array against the plain run, a longer clip at 17 mics, the measurement scripts
-at token sizes, a two-step cli.train with its TensorBoard scalars, and the orbax
-refusal. Two of the scripts run here, through the same in-process call as the
-card's six (each script at a token size is tests/test_torch_scripts.py's);
+at token sizes, a two-step cli.train with its TensorBoard scalars, and the same
+experiment trained, served and resumed with `.orbax` checkpoints. Two of the
+scripts run here, through the same in-process call as the card's six (each script at a token size is tests/test_torch_scripts.py's);
 quality_seeds' study trains full-width bf16 members, which the card does in
 phase 17 (its table is held against the original's there)."""
 import pytest
@@ -42,7 +42,14 @@ def test_phase17_runs_on_the_cpu(capsys):
     assert out["train"]["tensorboard"] == "13 tags at step 2"
     text = capsys.readouterr().out
     assert "17-channel SALSA (17 mics, 2 s): 33 channels" in text
-    assert "(e) training.checkpoint_backend=orbax refused through cli.train" in text
+    orbax = out["orbax"]
+    assert orbax["predict_launches_orbax"] == orbax["predict_launches_twin"] == zero
+    assert orbax["resume_losses"] and orbax["orbax_restore_s"] > 0 and orbax["plain_mb_s"] > 0
+    assert "restore bit-equal to the trainer's state" in text
+    assert "CSVs byte-identical to the msgpack twin experiment's" in text
+    assert "bit-equal to --resume from the msgpack twin" in text
+    assert "byte-equal through the C++ decoder" in text
+    assert "(e) training.checkpoint_backend=zarr refused through cli.train" in text
     assert "unknown checkpoint backend 'zarr'" in text
 
 

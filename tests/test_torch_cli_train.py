@@ -209,19 +209,21 @@ def test_train_refusals(experiment, monkeypatch):
     with pytest.raises(ValueError, match="unknown compute_dtype"):
         cli_train.train(experiment["config"], group, device="cpu",
                         overrides=["model.decoder.compute_dtype=float8"])
-    # salsa_tpu's orbax writer is not ported: refused before any data is read or a
-    # step runs, as is a backend salsa_tpu does not know; msgpack is the default
-    for backend, match in (("orbax", "ROADMAP queue 1, item 3"),
-                           ("zarr", "unknown checkpoint backend 'zarr'")):
-        with pytest.raises(ValueError, match=match):
-            cli_train.train(_write_config(root, f"{backend}.yml", checkpoint_backend=backend),
-                            group, device="cpu")
-        assert not glob.glob(os.path.join(group, f"{backend}*", "models", "checkpoint", "*"))
+    # a backend salsa_tpu does not know is refused before any data is read or a
+    # step runs; orbax, as salsa_tpu's, trains and writes .orbax checkpoints
+    with pytest.raises(ValueError, match="unknown checkpoint backend 'zarr'"):
+        cli_train.train(_write_config(root, "zarr.yml", checkpoint_backend="zarr"), group,
+                        device="cpu")
+    assert not glob.glob(os.path.join(group, "zarr*", "models", "checkpoint", "*"))
+    tr = cli_train.train(_write_config(root, "orbax.yml", checkpoint_backend="orbax",
+                                       max_epochs=1), group, device="cpu")
+    assert sorted(os.listdir(tr.cfg.dir.model.checkpoint)) == ["epoch000.json", "epoch000.orbax"]
+    assert tr.checkpoint_backend == "orbax"
     tr = cli_train.build_trainer(_write_config(root, "msgpack.yml",
                                                checkpoint_backend="msgpack"), group, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 3"):
+    with pytest.raises(ValueError, match="unknown checkpoint backend 'zarr'"):
         SeldTrainer(model=tr.model, cfg=AttrDict(dict(tr.cfg.to_dict(), training=dict(
-            tr.cfg.training.to_dict(), checkpoint_backend="orbax"))),
+            tr.cfg.training.to_dict(), checkpoint_backend="zarr"))),
             train_data=tr.train_data, val_data=None, gt_meta_dir=None, submission_dir=group,
             device="cpu")
     if not torch.cuda.is_available():  # the default device is the card

@@ -168,7 +168,8 @@ HYGIENE = textwrap.dedent("""
     import importlib.abc
     import sys
 
-    BLOCKED = ("jax", "flax", "yaml", "h5py", "msgpack", "orbax", "salsa_tpu")
+    BLOCKED = ("jax", "flax", "yaml", "h5py", "msgpack", "orbax", "tensorstore", "zstandard",
+               "salsa_tpu")
 
     def blocked(name):
         top = name.split(".")[0]
@@ -244,19 +245,30 @@ HYGIENE = textwrap.dedent("""
     import salsa_tpu_torch.cli._errors
     import salsa_tpu_torch.metrics.seld_metrics
     import salsa_tpu_torch.scripts.bench_extract as bench_extract
+    import salsa_tpu_torch.scripts.bench_restore as bench_restore
     import salsa_tpu_torch.train.threshold
     import salsa_tpu_torch.utils.experiments
     from salsa_tpu_torch.cli.evaluate import evaluate_seld
     from salsa_tpu_torch.cli.predict import predict
     from salsa_tpu_torch.train import checkpoint
 
-    assert callable(bench_extract.main)
+    assert callable(bench_extract.main) and callable(bench_restore.main)
     with tempfile.TemporaryDirectory() as tmp:
         path = checkpoint.save_checkpoint(tmp, "tiny", {"w": np.arange(3.0)},
                                           {"m": np.ones(2, np.float32)}, 5, {"valSeld": 0.1})
         params, stats, step = checkpoint.restore_variables(path)
         assert step == 5 and params["w"].tolist() == [0.0, 1.0, 2.0], (params, step)
         assert checkpoint.best_checkpoint(tmp) == path
+        # .orbax: salsa_tpu's fixture (real zstd, through the C++ decoder) and the
+        # port's own writer
+        fixture = os.path.join("tests", "golden", "orbax_small", "orbax_small")
+        params, stats, step = checkpoint.restore_variables(fixture + ".orbax")
+        want = checkpoint.restore_variables(fixture + ".msgpack")
+        assert step == want[2] == 7 and np.array_equal(
+            params["encoder"]["Conv_1"]["kernel"], want[0]["encoder"]["Conv_1"]["kernel"])
+        path = checkpoint.save_checkpoint(tmp, "tiny_orbax", {"w": np.arange(3.0)}, {}, 6,
+                                          backend="orbax")
+        assert checkpoint.restore_variables(path)[2] == 6
 
         exp = chip_smoke.write_experiment(tmp, scenes=(("one", 1.2, 24000), ("two", 1.0, 48000)))
         out = predict(exp["config"], exp["wav_dir"], os.path.join(tmp, "preds"), exp["group"],
@@ -421,12 +433,13 @@ HYGIENE = textwrap.dedent("""
     for script in (bench_streaming, bench_train, probe_extract_stages, probe_stft_split,
                    profile_step, quality_seeds):
         assert callable(script.main)
+    checkpoint.check_backend("orbax")
     try:
-        checkpoint.check_backend("orbax")
+        checkpoint.check_backend("zarr")
     except ValueError as e:
-        assert "ROADMAP queue 1, item 3" in str(e)
+        assert str(e) == "unknown checkpoint backend 'zarr'", e
     else:
-        raise AssertionError("checkpoint_backend orbax was not refused")
+        raise AssertionError("checkpoint_backend zarr was not refused")
 
     leaked = sorted(m for m in sys.modules if blocked(m))
     assert not leaked, leaked
@@ -444,7 +457,8 @@ def test_port_imports_nothing_of_jax_or_salsa_tpu():
     `salsa_tpu_torch.parallel`, the profiling module and the two checkpoint
     CLIs, round-trips a checkpoint through them and extracts 6-channel SALSA,
     imports the numpy threefry and extracts 32-channel SALSA, imports the
-    measurement scripts, and refuses checkpoint_backend orbax (orbax blocked too)."""
+    measurement scripts, reads and writes `.orbax` checkpoints with orbax,
+    tensorstore and zstandard blocked, and refuses an unknown checkpoint_backend."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", HYGIENE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
