@@ -19,6 +19,7 @@ from salsa_tpu_torch.models.layers import (
     SelfAttention,
     TransformerEncoderLayer,
 )
+from salsa_tpu_torch.utils.profiling import span
 
 
 def interpolate_index_repeat(x: torch.Tensor, ratio: float) -> torch.Tensor:
@@ -48,7 +49,9 @@ class SeldNet(nn.Module):
         return self.encoder.time_downsample_ratio
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
-        return self.decoder(self.encoder(x))
+        h = self.encoder(x)
+        with span("model.decoder"):  # pooling, the recurrent or attention stack, the heads
+            return self.decoder(h)
 
 
 def build_model(

@@ -13,6 +13,7 @@ from torch import nn
 from salsa_tpu_torch.features.registry import FeatureExtractor
 from salsa_tpu_torch.interop import load_flax_variables
 from salsa_tpu_torch.models.seld import interpolate_index_repeat
+from salsa_tpu_torch.utils.profiling import span
 
 
 def load_weights(model: nn.Module, state_dict: Mapping | None) -> nn.Module:
@@ -85,17 +86,24 @@ class SeldInferencePipeline:
     @torch.inference_mode()
     def forward(self, waves: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """(B, n_ch, n_samples) tensor on `device` -> (event_prob, doa) tensors."""
-        out = self.model(self._normalize(self.extractor(waves)))
+        with span("serve.features"):
+            feat = self.extractor(waves)
+        feat = self._normalize(feat)
+        with span("serve.model"):
+            out = self.model(feat)
         return heads(out["event_frame_logit"], out["doa_frame_output"], self.interp_ratio,
                      self.n_classes, self.output_format)
 
+    @span("serve.request")
     def __call__(self, waves) -> tuple[np.ndarray, np.ndarray]:
         """Returns (event_prob, doa_xyz) at label rate, as numpy arrays."""
         waves = np.asarray(waves, dtype=np.float32)
         squeeze = waves.ndim == 2
         if squeeze:
             waves = waves[None]
-        event_prob, doa = self.forward(torch.from_numpy(waves).to(self.device))
+        with span("serve.h2d"):
+            waves = torch.from_numpy(waves).to(self.device)
+        event_prob, doa = self.forward(waves)
         event_prob, doa = event_prob.cpu().numpy(), doa.cpu().numpy()
         if squeeze:
             event_prob, doa = event_prob[0], doa[0]

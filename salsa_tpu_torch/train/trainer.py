@@ -107,6 +107,7 @@ from salsa_tpu_torch.train.losses import (
 from salsa_tpu_torch.train.state import make_optimizer
 from salsa_tpu_torch.train.tta import tta_fold
 from salsa_tpu_torch.utils.experiments import logger
+from salsa_tpu_torch.utils.profiling import span
 
 DROPOUT_STREAM, AUGMENT_STREAM = 0, 1  # the per-step seeds' streams
 
@@ -375,6 +376,7 @@ def summary_writer(cfg):
 
 
 class SeldTrainer(SeldPredictor):
+    @span("setup.trainer")
     def __init__(self, model, cfg, train_data, val_data, gt_meta_dir: str | None,
                  submission_dir: str, seed: int = 2021, scaler=None,
                  device: torch.device | str = "cuda", joint_transform=None,
@@ -462,6 +464,8 @@ class SeldTrainer(SeldPredictor):
         else:
             self.train_dataset = SeldChunkDataset(train_data, joint_transform,
                                                   feature_transform)
+        if self.device.type == "cuda":  # the set-up's span ends with its device work
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -637,6 +641,7 @@ class SeldTrainer(SeldPredictor):
         ok = torch.arange(self.chunk_len, device=x.device) < n_valid[:, None]
         return x * ok[:, None, :, None].to(x.dtype)
 
+    @span("train.batch")
     def batch(self, chunk_ids):
         """(x, sed, doa) on the device of the chunks `chunk_ids` (B,), the rank's rows
         of a batch: normalized feature chunks (B, C, chunk_len, F) and their label
@@ -703,6 +708,7 @@ class SeldTrainer(SeldPredictor):
         return accdoa_loss(pred, target, self.n_classes, silent_weight=self.accdoa_silent_weight,
                            global_sum=gsum)
 
+    @span("train.forward_backward")
     def forward_backward(self, x, sed, doa) -> dict[str, torch.Tensor]:
         """Training-mode forward, loss and backward; the gradients are left on the
         parameters for the optimizer's step. Across ranks the gradients and the
@@ -711,7 +717,8 @@ class SeldTrainer(SeldPredictor):
         self.model.train()
         total, sed_l, doa_l = self.loss(self.model(x), sed, doa)
         self.optimizer.zero_grad()
-        total.backward()
+        with span("train.backward"):
+            total.backward()
         if self.n_ranks > 1:
             total, sed_l, doa_l = self.all_reduce_grads(torch.stack([total, sed_l, doa_l]))
         return {"loss": total.detach(), "sed_loss": sed_l.detach(), "doa_loss": doa_l.detach()}
@@ -752,9 +759,11 @@ class SeldTrainer(SeldPredictor):
         """One optimizer step on a batch on the device; returns its losses."""
         self.seed_step()
         metrics = self.forward_backward(*self.augment_batch(x, sed, doa))
-        self.optimizer.step()
+        with span("train.optimizer"):
+            self.optimizer.step()
         return metrics
 
+    @span("train.step")
     def train_step(self, chunk_ids) -> dict[str, torch.Tensor]:
         """One optimizer step on the global batch `chunk_ids`, of which this rank
         takes its rows; returns the batch's losses."""

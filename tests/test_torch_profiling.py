@@ -1,7 +1,7 @@
-"""salsa_tpu_torch.utils.profiling on the CPU: stage_timer's summary is
-`salsa_tpu`'s text in its order, trace writes a Chrome trace of the block, and
-device_timer gives the median seconds a call (perf_counter on the CPU; CUDA
-events on a card, which chip_smoke.py runs)."""
+"""salsa_tpu_torch.utils.profiling on the CPU: trace writes a Chrome trace of the
+block, and device_timer gives the median seconds a call (perf_counter on the
+CPU; CUDA events on a card, which chip_smoke.py runs). The spans are
+`test_torch_spans.py`'s."""
 import json
 import logging
 import time
@@ -9,25 +9,8 @@ import time
 import pytest
 
 torch = pytest.importorskip("torch")
-pytest.importorskip("jax")
 
-from salsa_tpu.utils import profiling as jprofiling  # noqa: E402
 from salsa_tpu_torch.utils import profiling  # noqa: E402
-
-
-def test_stage_timer_summary_equals_salsa_tpu():
-    timers = {"jax": jprofiling.stage_timer(), "port": profiling.stage_timer()}
-    for t in timers.values():
-        for name, seconds, calls in (("stft", 0.5, 3), ("salsa", 2.25, 1), ("io", 0.125, 7)):
-            t.totals[name], t.counts[name] = seconds, calls
-    text = timers["port"].summary()
-    assert text == timers["jax"].summary()
-    assert [line.split()[0] for line in text.splitlines()] == ["salsa", "stft", "io"]
-    t = profiling.stage_timer()
-    for _ in range(2):
-        with t.stage("nap"):
-            time.sleep(0.01)
-    assert t.counts["nap"] == 2 and 0.02 <= t.totals["nap"] < 1.0
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
