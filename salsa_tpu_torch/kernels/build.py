@@ -1,6 +1,7 @@
 """nvcc build of `salsa_tpu_torch/csrc/*.cu` into one shared library with a plain
 C interface, bound with ctypes; and the host C++ build of `csrc/*.cpp` (the zstd
-decoder of `.orbax` checkpoints), one library a source, by the host compiler.
+decoder of `.orbax` checkpoints, the serving upload's pooled copy), one library a
+source, by the host compiler.
 
 Every source is compiled to an object by its own nvcc, all started together, and
 the objects are linked into one library. The library is built at first use into
@@ -46,12 +47,16 @@ _SIGNATURES = {
     "conv3x3_64_bf16_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "noise_floor_tile_frames": (),
 }
-HOST_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-shared")
+HOST_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-pthread", "-shared")
 # {host source stem: {C entry point: (restype, argtypes)}}
 _HOST_SIGNATURES = {
     "zstd_decode": {
         "zstd_decompress": (ctypes.c_long, (_P, ctypes.c_size_t, _P, ctypes.c_size_t)),
         "zstd_xxh64": (ctypes.c_uint64, (_P, ctypes.c_size_t)),
+    },
+    "host_copy": {
+        "host_copy": (None, (_P, _P, ctypes.c_size_t)),
+        "host_copy_threads": (_I, ()),
     },
 }
 

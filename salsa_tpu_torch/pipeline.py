@@ -13,6 +13,7 @@ from torch import nn
 from salsa_tpu_torch.features.registry import FeatureExtractor
 from salsa_tpu_torch.interop import load_flax_variables
 from salsa_tpu_torch.models.seld import interpolate_index_repeat
+from salsa_tpu_torch.staging import PinnedRing, upload
 from salsa_tpu_torch.utils.profiling import span
 
 
@@ -63,6 +64,9 @@ class SeldInferencePipeline:
         interp_ratio: encoder-rate -> label-rate index-repeat factor.
         device: where features and model run; the first CUDA card by default.
             `device="cpu"` runs the kernels' plain versions, for tests.
+
+    On a card each request is uploaded through a ring of pinned host blocks that
+    the pipeline keeps across requests (`staging.upload`).
     """
 
     def __init__(self, extractor: FeatureExtractor, model: nn.Module,
@@ -79,6 +83,7 @@ class SeldInferencePipeline:
         self.interp_ratio = float(interp_ratio)
         self.n_classes = n_classes
         self.output_format = output_format
+        self._ring = PinnedRing()
 
     def _normalize(self, feat: torch.Tensor) -> torch.Tensor:
         return normalize(feat, self.mean, self.std)
@@ -102,7 +107,7 @@ class SeldInferencePipeline:
         if squeeze:
             waves = waves[None]
         with span("serve.h2d"):
-            waves = torch.from_numpy(waves).to(self.device)
+            waves = upload(torch.from_numpy(waves), self.device, self._ring)
         event_prob, doa = self.forward(waves)
         event_prob, doa = event_prob.cpu().numpy(), doa.cpu().numpy()
         if squeeze:
