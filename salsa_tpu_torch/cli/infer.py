@@ -88,6 +88,9 @@ def inference(exp_config: str, exp_group_dir: str = "./outputs", exp_suffix: str
                 "checkpoints — run `cli.infer --tune-threshold` first")
         logger.info("using persisted tuned sed_threshold %.2f", tuned)
     d = cfg.data
+    if d.get("output_format") == "tracks" and (use_tta or tune_threshold):
+        raise ValueError("--tta and --tune-threshold work on class-wise outputs; output_format "
+                         "'tracks' (EINV2) is inferred without them")
     # the encoder named by the experiment: a PannResNet22TPU tree loads strictly
     # into PannResNet22 and would serve another network
     model = build_model(encoder=cfg.model.encoder.to_dict(), decoder=cfg.model.decoder.to_dict(),

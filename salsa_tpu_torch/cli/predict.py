@@ -34,7 +34,7 @@ from salsa_tpu_torch.models.seld import build_model
 from salsa_tpu_torch.pipeline import SeldInferencePipeline
 from salsa_tpu_torch.stream_pool import SeldStreamPool
 from salsa_tpu_torch.streaming import StreamingExtractor, StreamingSeldPipeline
-from salsa_tpu_torch.submission import write_classwise_csv
+from salsa_tpu_torch.submission import write_classwise_csv, write_trackwise_csv
 from salsa_tpu_torch.train import checkpoint as ckpt
 from salsa_tpu_torch.train.threshold import load_tuned_threshold
 from salsa_tpu_torch.utils.audio_io import read_wav, resampled_length, wav_info
@@ -142,12 +142,7 @@ def predict(exp_config: str, wav_dir: str, out_dir: str,
         stacked = np.stack([a for _, a in group])
         ev, doa = pipe(stacked)
         for (w, _), e_row, d_row in zip(group, ev, doa):
-            write_classwise_csv(
-                os.path.join(out_dir, w[:-4] + ".csv"), e_row, d_row, d.n_classes,
-                sed_threshold=cfg.get("sed_threshold", 0.3),
-                max_frames=e_row.shape[0],
-                version=str(cfg.get("eval_version", "2021")),
-            )
+            _write_csv(cfg, d, out_dir, w, e_row, d_row)
         done += len(group)
         logger.info("%d/%d predicted", done, len(wavs))
 
@@ -186,10 +181,12 @@ def _to_pcm16(audio: np.ndarray) -> np.ndarray:
 
 
 def _write_csv(cfg, d, out_dir, name, ev, doa):
-    write_classwise_csv(
-        os.path.join(out_dir, name[:-4] + ".csv"), ev, doa, d.n_classes,
-        sed_threshold=cfg.get("sed_threshold", 0.3), max_frames=ev.shape[0],
-        version=str(cfg.get("eval_version", "2021")))
+    """`<out_dir>/<name without .wav>.csv`: track-wise rows for the `tracks` output
+    format, class-wise otherwise."""
+    write = write_trackwise_csv if d.get("output_format") == "tracks" else write_classwise_csv
+    write(os.path.join(out_dir, name[:-4] + ".csv"), ev, doa, d.n_classes,
+          sed_threshold=cfg.get("sed_threshold", 0.3), max_frames=ev.shape[0],
+          version=str(cfg.get("eval_version", "2021")))
 
 
 def _predict_streaming(cfg, d, model, variables, scaler, interp_ratio, wav_dir, out_dir,

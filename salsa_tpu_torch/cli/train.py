@@ -66,6 +66,7 @@ from salsa_tpu_torch.data.wav_database import (
 )
 from salsa_tpu_torch.features.chunked import required_pad
 from salsa_tpu_torch.features.registry import make_extractor
+from salsa_tpu_torch.models.decoders import N_TRACKS
 from salsa_tpu_torch.models.seld import build_model
 from salsa_tpu_torch.train.checkpoint import check_backend, latest_checkpoint
 from salsa_tpu_torch.parallel import distributed
@@ -76,7 +77,8 @@ from salsa_tpu_torch.utils.experiments import logger, manage_experiments
 
 def build_database_from_cfg(cfg, store=None) -> SeldDatabase:
     """The config's database: over `store`, else the FeatureStore at
-    `feature_root_dir`."""
+    `feature_root_dir`; track-wise label tables for the `tracks` output format, as
+    many tracks as the decoder has."""
     return SeldDatabase(
         feature_root_dir=cfg.get("feature_root_dir"),
         store=store,
@@ -92,6 +94,8 @@ def build_database_from_cfg(cfg, store=None) -> SeldDatabase:
         test_chunk_hop_len_s=cfg.data.test_chunk_hop_len_s,
         scaler_channels=4 if cfg.feature_type.startswith("salsa") else None,
         max_file_len_s=cfg.data.get("max_file_len_s", 60.0),
+        n_tracks=(cfg.model.decoder.get("n_tracks", N_TRACKS)
+                  if cfg.data.get("output_format") == "tracks" else None),
     )
 
 
@@ -151,6 +155,10 @@ def build_trainer(exp_config: str, exp_group_dir: str = "./outputs", exp_suffix:
     joint_t, feat_t = build_train_transforms(
         cfg.feature_type, d.audio_format, d.n_classes, train_data.feature_chunk_len,
         train_data.features.shape[2], rng=np.random.default_rng(seed))
+    if d.get("output_format") == "tracks":  # the channel swaps rewrite class-wise labels
+        logger.info("output_format 'tracks': the host transforms' label-coupled channel "
+                    "swaps are not applied")
+        joint_t = None
 
     trainer = SeldTrainer(
         model=model, cfg=cfg, train_data=train_data, val_data=val_data,

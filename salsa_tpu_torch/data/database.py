@@ -10,7 +10,11 @@ overlapping chunk indices at the two frame rates (feature rate, label rate):
   * SALSA-family scalers cover only the spectrogram channels;
   * classwise targets: one-hot SED + unit-vector DOA at label rate; overlapping
     same-class events resolved by writing tracks in increasing-duration order so
-    the longest track wins.
+    the longest track wins;
+  * trackwise targets (`n_tracks`, the `tracks` output format): each frame's
+    active events in tracks 0..n_tracks-1 (`trackwise_targets`), the label
+    tables' rows laid out flat: SED (n_tracks * n_classes), track-major, and DOA
+    (n_tracks * 3), a track's xyz together.
 
 The store is the on-disk `data.feature_store.FeatureStore` under
 `feature_root_dir`, or one injected (`data.wav_database.MemoryFeatureStore`, the
@@ -28,6 +32,7 @@ import numpy as np
 
 from salsa_tpu_torch.data.feature_store import FeatureStore, open_clip
 from salsa_tpu_torch.data.meta import split_filenames
+from salsa_tpu_torch.utils.experiments import logger
 
 
 def parse_gt_csv(path: str) -> np.ndarray:
@@ -75,6 +80,30 @@ def classwise_targets(
     z = np.where(active, z, 0.0)
     doa = np.concatenate([x, y, z], axis=-1).astype(np.float32)
     return sed, doa
+
+
+def trackwise_targets(
+    gt_rows: np.ndarray, n_label_frames: int, n_classes: int, n_tracks: int = 3
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """(sed, doa, dropped) track-wise targets at label rate from metadata rows:
+    at each frame the active events fill tracks 0..n_tracks-1 in ascending order
+    of their metadata track index (rows of one index in file order), so two
+    events of one class stay apart. sed: (T, n_tracks, n_classes) one-hot; doa:
+    (T, n_tracks, 3) unit xyz, zero where a track is empty. `dropped` counts the
+    events past the n_tracks-th of a frame, which are left out."""
+    sed = np.zeros((n_label_frames, n_tracks, n_classes), dtype=np.float32)
+    doa = np.zeros((n_label_frames, n_tracks, 3), dtype=np.float32)
+    rows = gt_rows[gt_rows[:, 0].astype(int) < n_label_frames] if gt_rows.size else gt_rows
+    dropped = 0
+    for f in np.unique(rows[:, 0].astype(int)) if rows.size else ():
+        events = rows[rows[:, 0].astype(int) == f]
+        events = events[np.argsort(events[:, 2], kind="stable")]
+        dropped += max(0, len(events) - n_tracks)
+        for k, (_, cls, _, azi, ele) in enumerate(events[:n_tracks]):
+            a, e = np.deg2rad(azi), np.deg2rad(ele)
+            sed[f, k, int(cls)] = 1.0
+            doa[f, k] = (np.cos(a) * np.cos(e), np.sin(a) * np.cos(e), np.sin(e))
+    return sed, doa, dropped
 
 
 def chunk_starts(n_units: int, chunk_len: int, hop_len: int, offset: int) -> list[int]:
@@ -202,6 +231,7 @@ class SeldDatabase:
         scaler_channels: int | None = None,
         max_file_len_s: float = 60.0,
         store=None,
+        n_tracks: int | None = None,
     ):
         if store is None:
             if not feature_root_dir:
@@ -222,6 +252,7 @@ class SeldDatabase:
         self.test_chunk_hop = self.seconds_to_frames(test_chunk_hop_len_s)
         self.max_label_frames = int(max_file_len_s * label_rate)
         self.scaler_channels = scaler_channels
+        self.n_tracks = n_tracks
         self._scaler = None
 
     def seconds_to_frames(self, seconds: float) -> int:
@@ -242,6 +273,26 @@ class SeldDatabase:
         else:
             feature = (feature - mean) / std
         return feature
+
+    def targets(self, split: str, clip_name: str,
+                n_label_frames: int) -> tuple[np.ndarray, np.ndarray]:
+        """A clip's label-table rows (sed, doa): class-wise (T, n_classes) and
+        (T, 3 n_classes), or with `n_tracks` track-wise (T, n_tracks n_classes) and
+        (T, 3 n_tracks); zeros where the clip has no metadata."""
+        k = self.n_tracks
+        widths = (self.n_classes, 3 * self.n_classes) if k is None else (k * self.n_classes,
+                                                                         3 * k)
+        gt_path = self.gt_meta_path(split, clip_name)
+        if not (gt_path and os.path.isfile(gt_path)):
+            return tuple(np.zeros((n_label_frames, w), dtype=np.float32) for w in widths)
+        rows = parse_gt_csv(gt_path)
+        if k is None:
+            return classwise_targets(rows, n_label_frames, self.n_classes)
+        sed, doa, dropped = trackwise_targets(rows, n_label_frames, self.n_classes, k)
+        if dropped:
+            logger.warning("%s: %d events past the %d tracks of their frames left out of the "
+                           "labels", clip_name, dropped, k)
+        return sed.reshape(n_label_frames, -1), doa.reshape(n_label_frames, -1)
 
     def gt_meta_path(self, split: str, clip_name: str) -> str | None:
         if self.gt_meta_root_dir is None:
@@ -286,13 +337,7 @@ class SeldDatabase:
             true_label_frames = n_label_frames
             trimmed_feat_frames = n_frames  # before any short-clip padding
 
-            gt_path = self.gt_meta_path(split, name)
-            if gt_path and os.path.isfile(gt_path):
-                sed, doa = classwise_targets(parse_gt_csv(gt_path), n_label_frames,
-                                             self.n_classes)
-            else:
-                sed = np.zeros((n_label_frames, self.n_classes), dtype=np.float32)
-                doa = np.zeros((n_label_frames, 3 * self.n_classes), dtype=np.float32)
+            sed, doa = self.targets(split, name, n_label_frames)
 
             if n_frames < chunk_len:
                 # clip shorter than the chunk window: zero-pad to one full chunk

@@ -17,12 +17,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from salsa_tpu_torch.data.database import (
-    SplitData,
-    chunk_starts,
-    classwise_targets,
-    parse_gt_csv,
-)
+from salsa_tpu_torch.data.database import SplitData, chunk_starts
 from salsa_tpu_torch.data.feature_store import StreamingScaler
 from salsa_tpu_torch.data.meta import split_filenames
 from salsa_tpu_torch.features.chunked import n_full_frames, pad_waveform
@@ -84,7 +79,8 @@ def load_wav_split(
 ) -> WavSplitData:
     """A train-stage WavSplitData whose chunk and label tables equal
     db.load_split(split, stage='fit')'s; db carries the chunking geometry (fs,
-    hop, chunk lengths, label rate, n_classes, and n_fft as an attribute). `pad`
+    hop, chunk lengths, label rate, n_classes, n_tracks, and n_fft as an attribute)
+    and builds the label tables (`db.targets`). `pad`
     is the center pad per side (chunked.required_pad; default n_fft//2)."""
     if wav_dtype not in ("float32", "int16"):
         raise ValueError(f"wav_dtype '{wav_dtype}': the port keeps float32 or int16 "
@@ -114,13 +110,7 @@ def load_wav_split(
         clip_full.append(n_feat_frames)
         clip_trimmed.append(n_frames)
 
-        gt_path = db.gt_meta_path(split, name)
-        if gt_path and os.path.isfile(gt_path):
-            sed, doa = classwise_targets(
-                parse_gt_csv(gt_path), n_label_frames, db.n_classes)
-        else:
-            sed = np.zeros((n_label_frames, db.n_classes), dtype=np.float32)
-            doa = np.zeros((n_label_frames, 3 * db.n_classes), dtype=np.float32)
+        sed, doa = db.targets(split, name, n_label_frames)
 
         if n_frames < chunk_len:  # short clip: single zero-padded chunk
             pad_l = label_chunk_len - n_label_frames

@@ -15,7 +15,11 @@ and the heads.
 `torch_state_dict_to_flax` is its inverse (the port's counterpart of
 `salsa_tpu.interop.torch_ckpt.torch_state_dict_to_flax`, without a flax template):
 with `train.checkpoint.save_checkpoint` it writes a port model as a checkpoint
-that `salsa_tpu` restores.
+that `salsa_tpu` restores. A model that `salsa_tpu` does not have (EINV2, whose
+encoder holds cross-stitch units) has no flax tree: its checkpoint keeps the
+torch names, split at the dots into nested dicts under the key `torch`, the
+parameters in `params` and the running statistics in `batch_stats`, and the
+port alone restores it.
 
 Reference (PyTorch / Lightning) checkpoints, both ways (the counterparts of
 `salsa_tpu.interop.torch_ckpt.load_torch_state_dict` and
@@ -165,10 +169,38 @@ def _export_decoder(params: dict, out: dict) -> None:
             out[f"decoder.{theirs}.bias"] = _get(dec[ours], ("bias",))
 
 
+TORCH_TREE = "torch"  # the checkpoint key of a model with no flax counterpart
+_STATS = ("running_mean", "running_var")
+
+
+def _nest(flat: dict[str, np.ndarray]) -> dict:
+    tree: dict = {}
+    for key, value in flat.items():
+        _set(tree, tuple(key.split(".")), value)
+    return tree
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v, dtype=np.float32)
+    return out
+
+
 def flax_to_torch_state_dict(params: dict, batch_stats: dict) -> dict[str, np.ndarray]:
     """Flax SeldNet (params, batch_stats) -> reference-named state_dict of numpy
     arrays (float32; `num_batches_tracked` int64 zeros), key for key and array
-    for array `salsa_tpu.interop.torch_export.flax_to_torch_state_dict`'s."""
+    for array `salsa_tpu.interop.torch_export.flax_to_torch_state_dict`'s; a
+    `torch` tree (a model with no flax counterpart) is flattened back to its
+    names."""
+    if TORCH_TREE in params:
+        out = {**_flatten(params[TORCH_TREE]), **_flatten(batch_stats.get(TORCH_TREE, {}))}
+        for key in [k for k in out if k.endswith(".running_mean")]:
+            out[key.removesuffix("running_mean") + "num_batches_tracked"] = np.zeros((), np.int64)
+        return out
     out: dict[str, np.ndarray] = {}
     _export_encoder(params, batch_stats, out)
     _export_decoder(params, out)
@@ -193,7 +225,7 @@ def _encoder_layers(sd: dict) -> tuple[int, ...]:
     return tuple(layers)
 
 
-def torch_state_dict_to_flax(state_dict) -> tuple[dict, dict]:
+def torch_state_dict_to_flax(state_dict, torch_tree: bool = False) -> tuple[dict, dict]:
     """Reference-named state_dict (the PannResNet22 tree, a gru/bigru/lstm/bilstm
     or transformer decoder and the heads) -> flax SeldNet (params, batch_stats) as
     nested dicts of float32 numpy arrays: the inverse of
@@ -201,9 +233,16 @@ def torch_state_dict_to_flax(state_dict) -> tuple[dict, dict]:
     torch_ckpt.transformer_layer_params`, 8 heads). The tree is built from the
     names alone, with no flax template; `num_batches_tracked` and the
     positional table `decoder.pe.pe` (which salsa_tpu recomputes) are dropped.
-    Raises ValueError on a name it cannot place."""
+    Raises ValueError on a name it cannot place. With `torch_tree` (a model with
+    no flax counterpart, `SeldNet.flax_counterpart` false) it gives the `torch`
+    tree instead (the module's docstring)."""
     sd = {k: np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v)
           for k, v in state_dict.items()}
+    if torch_tree:
+        kept = {k: np.ascontiguousarray(v, dtype=np.float32) for k, v in sd.items()
+                if not k.endswith(".num_batches_tracked")}
+        return ({TORCH_TREE: _nest({k: v for k, v in kept.items() if not k.endswith(_STATS)})},
+                {TORCH_TREE: _nest({k: v for k, v in kept.items() if k.endswith(_STATS)})})
     params: dict = {}
     stats: dict = {}
     used = {k for k in sd if k.endswith(".num_batches_tracked") or k == "decoder.pe.pe"}

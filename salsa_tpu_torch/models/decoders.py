@@ -47,6 +47,7 @@ from salsa_tpu_torch.models.layers import (
 
 RNN_TYPES = {"gru": nn.GRU, "bigru": nn.GRU, "lstm": nn.LSTM, "bilstm": nn.LSTM}
 POS_LEN = 2000  # the positional table's length (reference PositionalEncoding pos_len)
+N_TRACKS = 3  # EINV2's tracks a branch
 
 
 class PositionalEncoding(nn.Module):
@@ -66,11 +67,13 @@ class PositionalEncoding(nn.Module):
 
 
 class TransformerStack(nn.Module):
-    """`layers.{i}`: the reference's nn.TransformerEncoder attribute layout."""
+    """`layers.{i}`: the reference's nn.TransformerEncoder attribute layout; `layer`
+    holds `TransformerEncoderLayer`'s keyword arguments."""
 
-    def __init__(self, d_model: int, n_layers: int = 2):
+    def __init__(self, d_model: int, n_layers: int = 2, **layer):
         super().__init__()
-        self.layers = nn.ModuleList(TransformerEncoderLayer(d_model) for _ in range(n_layers))
+        self.layers = nn.ModuleList(TransformerEncoderLayer(d_model, **layer)
+                                    for _ in range(n_layers))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers:
@@ -161,4 +164,47 @@ class SeldDecoder(nn.Module):
         return {"event_frame_logit": event_logit, "doa_frame_output": doa}
 
 
-DECODERS = {"SeldDecoder": SeldDecoder}
+class EINV2Decoder(nn.Module):
+    """EINV2's track decoder (arXiv:2010.13092) over `EINV2Encoder`'s (sed, doa)
+    maps: each branch's mean over frequency, (B, T', C); then per track k one
+    stack of `n_layers` post-LN transformer layers (no positional encoding) on
+    each branch, `sed_stacks.{k}` and `doa_stacks.{k}`; then per track the heads
+    `sed_heads.{k}`, Linear(C, n_classes) logits, and `doa_heads.{k}`,
+    Linear(C, 3) -> tanh. Returns `event_frame_logit` (B, T', n_tracks, n_classes)
+    and `doa_frame_output` (B, T', n_tracks, 3): the `tracks` output format.
+    `EINV2Decoder.stack_frames` counts the frames every stack took (B T' a stack),
+    over the process."""
+
+    stack_frames = 0
+
+    def __init__(self, n_output_channels: int = 512, n_classes: int = 12,
+                 output_format: str = "tracks", n_tracks: int = N_TRACKS, n_layers: int = 2,
+                 n_heads: int = 8, dim_feedforward: int = 1024, dropout: float = 0.2,
+                 ln_eps: float = 1e-5, compute_dtype: str | None = None):
+        super().__init__()
+        if output_format != "tracks":
+            raise ValueError(f"EINV2Decoder outputs tracks; output_format is '{output_format}'")
+        if resolve_dtype(compute_dtype) is not None:
+            raise ValueError(f"EINV2Decoder computes in float32 only, not '{compute_dtype}'")
+        layer = dict(n_heads=n_heads, dim_feedforward=dim_feedforward, dropout=dropout,
+                     eps=ln_eps)
+        d = n_output_channels
+        self.n_tracks = n_tracks
+        self.sed_stacks = nn.ModuleList(TransformerStack(d, n_layers, **layer)
+                                        for _ in range(n_tracks))
+        self.doa_stacks = nn.ModuleList(TransformerStack(d, n_layers, **layer)
+                                        for _ in range(n_tracks))
+        self.sed_heads = nn.ModuleList(nn.Linear(d, n_classes) for _ in range(n_tracks))
+        self.doa_heads = nn.ModuleList(nn.Linear(d, 3) for _ in range(n_tracks))
+
+    def forward(self, maps: tuple[torch.Tensor, torch.Tensor]) -> dict[str, torch.Tensor]:
+        sed, doa = (m.mean(dim=3).transpose(1, 2) for m in maps)  # (B, T', C) each
+        EINV2Decoder.stack_frames += 2 * self.n_tracks * sed.shape[0] * sed.shape[1]
+        event = torch.stack([head(stack(sed)) for stack, head in
+                             zip(self.sed_stacks, self.sed_heads)], dim=2)
+        xyz = torch.stack([torch.tanh(head(stack(doa))) for stack, head in
+                           zip(self.doa_stacks, self.doa_heads)], dim=2)
+        return {"event_frame_logit": event, "doa_frame_output": xyz}
+
+
+DECODERS = {"SeldDecoder": SeldDecoder, "EINV2Decoder": EINV2Decoder}

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from salsa_tpu_torch.parallel import distributed
+from salsa_tpu_torch.utils.profiling import span
 
 COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -240,13 +241,15 @@ def conv_bn_relu(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d) -> torch.
 
 
 POOLS = {"avg": avg_pool_2x2, "max": max_pool_2x2,
-         "avg+max": lambda x: avg_pool_2x2(x) + max_pool_2x2(x), "none": lambda x: x}
+         "avg+max": lambda x: avg_pool_2x2(x) + max_pool_2x2(x),
+         "avg_1x2": lambda x: F.avg_pool2d(x, (1, 2)), "none": lambda x: x}
 
 
 class DoubleConvBlock(nn.Module):
-    """Two 3x3 conv+BN+relu followed by 2x2 pooling (reference ConvBlock):
-    `pool_type` 'avg' (PannResNet22), 'max', 'avg+max' or 'none' (the caller
-    pools, as PannResNet22TPU's stem does before the convs)."""
+    """Two 3x3 conv+BN+relu followed by pooling (reference ConvBlock):
+    `pool_type` 'avg' (2x2, PannResNet22), 'max', 'avg+max', 'avg_1x2' (an
+    average over frequency pairs alone, EINV2's last two blocks) or 'none' (the
+    caller pools, as PannResNet22TPU's stem does before the convs)."""
 
     def __init__(self, in_features: int, features: int, pool_type: str = "avg",
                  compute_dtype=None):
@@ -379,9 +382,9 @@ def sinusoid_position_encoding(pos_len: int, d_model: int, scale: float = 0.1) -
     return pe
 
 
-def layer_norm(features: int) -> nn.LayerNorm:
-    """flax's LayerNorm: epsilon 1e-6 (torch's default is 1e-5)."""
-    return nn.LayerNorm(features, eps=1e-6)
+def layer_norm(features: int, eps: float = 1e-6) -> nn.LayerNorm:
+    """flax's LayerNorm by default: epsilon 1e-6 (torch's default is 1e-5)."""
+    return nn.LayerNorm(features, eps=eps)
 
 
 class SelfAttention(nn.Module):
@@ -389,7 +392,11 @@ class SelfAttention(nn.Module):
     (`in_proj_weight` rows [q; k; v], `in_proj_bias`, `out_proj`) and flax's
     MultiHeadDotProductAttention arithmetic: queries scaled by 1/sqrt(head_dim)
     before the product, softmax over the keys, dropout on the attention weights
-    with one (T, T) mask shared by the batch and the heads."""
+    with one (T, T) mask shared by the batch and the heads. Each call is a
+    `model.attention` span and adds the (B, H, T, T) score elements it
+    materialises to `SelfAttention.score_elements`, the process's count."""
+
+    score_elements = 0  # attention scores materialised by every call, B H T^2 a call
 
     def __init__(self, d_model: int, n_heads: int, dropout: float):
         super().__init__()
@@ -403,11 +410,13 @@ class SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, d) -> (B, T, d)."""
         B, T, d = x.shape
-        q, k, v = (t.reshape(B, T, self.n_heads, -1).transpose(1, 2)  # (B, H, T, hd)
-                   for t in F.linear(x, self.in_proj_weight, self.in_proj_bias).chunk(3, -1))
-        q = q / float(np.sqrt(q.shape[-1]))
-        w = self.dropout(torch.softmax(q @ k.transpose(-1, -2), dim=-1))
-        return self.out_proj((w @ v).transpose(1, 2).reshape(B, T, d))
+        with span("model.attention"):
+            q, k, v = (t.reshape(B, T, self.n_heads, -1).transpose(1, 2)  # (B, H, T, hd)
+                       for t in F.linear(x, self.in_proj_weight, self.in_proj_bias).chunk(3, -1))
+            q = q / float(np.sqrt(q.shape[-1]))
+            w = self.dropout(torch.softmax(q @ k.transpose(-1, -2), dim=-1))
+            SelfAttention.score_elements += B * self.n_heads * T * T
+            return self.out_proj((w @ v).transpose(1, 2).reshape(B, T, d))
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -415,16 +424,17 @@ class TransformerEncoderLayer(nn.Module):
     parameter names (self_attn, linear1, linear2, norm1, norm2) and salsa_tpu's
     arithmetic: 8 heads, ReLU feed-forward of 1024, dropout 0.2 on the attention
     weights, after the attention, after the ReLU and after the feed-forward, each
-    a `Dropout` (the trainer's generator), LayerNorm epsilon 1e-6."""
+    a `Dropout` (the trainer's generator), LayerNorm epsilon `eps` (1e-6, flax's;
+    EINV2 takes torch's 1e-5)."""
 
     def __init__(self, d_model: int, n_heads: int = 8, dim_feedforward: int = 1024,
-                 dropout: float = 0.2):
+                 dropout: float = 0.2, eps: float = 1e-6):
         super().__init__()
         self.self_attn = SelfAttention(d_model, n_heads, dropout)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
-        self.norm1 = layer_norm(d_model)
-        self.norm2 = layer_norm(d_model)
+        self.norm1 = layer_norm(d_model, eps)
+        self.norm2 = layer_norm(d_model, eps)
         self.dropout = Dropout(dropout)
         self.dropout1 = Dropout(dropout)
         self.dropout2 = Dropout(dropout)

@@ -11,7 +11,7 @@ import torch
 from torch import nn
 
 from salsa_tpu_torch.models.decoders import DECODERS
-from salsa_tpu_torch.models.encoders import ENCODERS
+from salsa_tpu_torch.models.encoders import ENCODERS, CrossStitch
 from salsa_tpu_torch.models.layers import (
     BatchNorm2d,
     ResNetBasicBlock,
@@ -47,6 +47,12 @@ class SeldNet(nn.Module):
     @property
     def time_downsample_ratio(self) -> int:
         return self.encoder.time_downsample_ratio
+
+    @property
+    def flax_counterpart(self) -> bool:
+        """Whether `salsa_tpu` has this model, so that its checkpoint is written
+        as a flax tree (`interop.torch_state_dict_to_flax`)."""
+        return getattr(self.encoder, "flax_counterpart", True)
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         h = self.encoder(x)
@@ -105,7 +111,8 @@ def init_train_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     or LSTM gate's block uniform(+-sqrt(3 / fan_in)) but the recurrent weight's
     last block orthogonal, recurrent biases zero (`rnn.py:7-38`, `:51-54`); in the
     transformer flax's defaults: attention and feed-forward kernels lecun-normal
-    with zero biases, LayerNorm scale 1 and shift 0. Draws on CPU from
+    with zero biases, LayerNorm scale 1 and shift 0. EINV2's cross-stitch
+    parameters uniform on [0.1, 0.9) (the port's choice). Draws on CPU from
     `generator`, then copies in place."""
     def fill(t, draw):
         t.copy_(draw(torch.empty(t.shape, dtype=t.dtype)))
@@ -126,6 +133,8 @@ def init_train_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.bias.zero_()
         elif isinstance(m, (BatchNorm2d, nn.LayerNorm)):
             m.reset_parameters()
+        elif isinstance(m, CrossStitch):
+            fill(m.alpha, lambda t: t.uniform_(0.1, 0.9, generator=generator))
         elif isinstance(m, (nn.GRU, nn.LSTM)):
             n_gates = 3 if isinstance(m, nn.GRU) else 4
             for name, p in m.named_parameters():
@@ -145,8 +154,9 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights with non-trivial BatchNorm statistics (for runs that
     have no trained checkpoint): Xavier-uniform convs, linears and attention
     projections, small biases, BN and LayerNorm scale/shift near (1, 0), BN
-    running stats away from (0, 1), GRU and LSTM weights uniform(+-1/sqrt(H)).
-    Draws on CPU from `generator`, then copies in place."""
+    running stats away from (0, 1), GRU and LSTM weights uniform(+-1/sqrt(H)),
+    cross-stitch parameters uniform on [0.1, 0.9). Draws on CPU from
+    `generator`, then copies in place."""
     def fill(t, draw):
         t.copy_(draw(torch.empty(t.shape, dtype=t.dtype)))
 
@@ -168,6 +178,8 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if isinstance(m, nn.BatchNorm2d):
                 fill(m.running_mean, lambda t: t.normal_(0.0, 0.1, generator=generator))
                 fill(m.running_var, lambda t: t.uniform_(0.5, 1.5, generator=generator))
+        elif isinstance(m, CrossStitch):
+            fill(m.alpha, lambda t: t.uniform_(0.1, 0.9, generator=generator))
         elif isinstance(m, (nn.GRU, nn.LSTM)):
             lim = 1.0 / float(np.sqrt(m.hidden_size))
             for p in m.parameters():

@@ -35,11 +35,15 @@ def normalize(feat: torch.Tensor, mean: torch.Tensor, std: torch.Tensor) -> torc
     return torch.cat([(feat[:, :n_sc] - mean) / std, feat[:, n_sc:]], dim=1)
 
 
+OUTPUT_FORMATS = ("reg_xyz", "accdoa", "tracks")
+
+
 def heads(event_logit: torch.Tensor, doa: torch.Tensor, interp_ratio: float, n_classes: int,
           output_format: str) -> tuple[torch.Tensor, torch.Tensor]:
     """Encoder-rate outputs (B, T, n) and (B, T, 3n) -> (event_prob, doa) at label
     rate: sigmoid of the event logits, or for accdoa the norm of each class's
-    DOA vector."""
+    DOA vector. `tracks` (EINV2): (B, T, K, n) logits and (B, T, K, 3) DOA ->
+    sigmoid a track and class, and each track's xyz."""
     event_logit = interpolate_index_repeat(event_logit, interp_ratio)
     doa = interpolate_index_repeat(doa, interp_ratio)
     if output_format == "accdoa":
@@ -62,6 +66,8 @@ class SeldInferencePipeline:
             n_scaler_chan feature channels are normalized (4 for the SALSA family,
             all for the classic types).
         interp_ratio: encoder-rate -> label-rate index-repeat factor.
+        output_format: 'reg_xyz' and 'accdoa' answer event_prob (B, T, n) and doa
+            (B, T, 3n); 'tracks' (EINV2) event_prob (B, T, 3, n) and doa (B, T, 3, 3).
         device: where features and model run; the first CUDA card by default.
             `device="cpu"` runs the kernels' plain versions, for tests.
 
@@ -72,7 +78,7 @@ class SeldInferencePipeline:
     def __init__(self, extractor: FeatureExtractor, model: nn.Module,
                  state_dict: Mapping | None, scaler, interp_ratio: float, n_classes: int,
                  output_format: str = "reg_xyz", device: torch.device | str = "cuda"):
-        if output_format not in ("reg_xyz", "accdoa"):
+        if output_format not in OUTPUT_FORMATS:
             raise ValueError(f"unknown output format '{output_format}'")
         self.device = torch.device(device)
         self.extractor = extractor

@@ -50,7 +50,7 @@ from salsa_tpu_torch.features.chunked import (
     required_pad,
 )
 from salsa_tpu_torch.features.salsa import SalsaParams
-from salsa_tpu_torch.pipeline import heads, load_weights, normalize
+from salsa_tpu_torch.pipeline import OUTPUT_FORMATS, heads, load_weights, normalize
 
 
 def _require_device(device: torch.device | str) -> torch.device:
@@ -388,8 +388,12 @@ class StreamingSeldPipeline:
                  state_dict: Mapping | None, scaler, interp_ratio: float, n_classes: int,
                  output_format: str = "reg_xyz", left_context: int = 128,
                  right_context: int | None = None):
-        if output_format not in ("reg_xyz", "accdoa"):
+        if output_format not in OUTPUT_FORMATS:
             raise ValueError(f"unknown output format '{output_format}'")
+        if output_format == "tracks":
+            raise ValueError("output format 'tracks' (EINV2's track stacks attend over a "
+                             "whole clip) is not served by streaming; serve it whole-clip "
+                             "through SeldInferencePipeline")
         self.extractor = extractor
         self.device = extractor.device
         self.model = load_weights(model, state_dict).to(self.device).eval()

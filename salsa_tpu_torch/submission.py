@@ -1,6 +1,7 @@
 """Prediction post-processing: overlapping-chunk recombination and DCASE
 submission CSV writing (a numpy copy of `salsa_tpu.train.submission`; importing
-`salsa_tpu.train` pulls in jax, which the GPU host does not have)."""
+`salsa_tpu.train` pulls in jax, which the GPU host does not have), and the
+track-wise writer of the `tracks` output format (EINV2), the port's own."""
 from __future__ import annotations
 
 import numpy as np
@@ -52,6 +53,13 @@ def sed_from_accdoa(doa, n_classes: int):
     return (x**2 + y**2 + z**2) ** 0.5
 
 
+def _polar(x, y, z) -> tuple[np.ndarray, np.ndarray]:
+    """Rounded integer degrees, azimuth 180 wrapped to -180 (the reference writer's)."""
+    azi, ele = xyz_to_polar_deg(x, y, z)
+    azi = np.around(azi).astype(int)
+    return np.where(azi == 180, -180, azi), np.around(ele).astype(int)
+
+
 def write_classwise_csv(
     path: str,
     event_prob: np.ndarray,
@@ -62,26 +70,48 @@ def write_classwise_csv(
     version: str = "2021",
 ) -> None:
     """Threshold SED, convert xyz to rounded polar degrees, write DCASE rows
-    (reference writer, including the azi==180 -> -180 wrap)."""
+    (reference writer, including the azi==180 -> -180 wrap, `_polar`)."""
     active = event_prob >= sed_threshold
-    x = doa_xyz[:, :n_classes]
-    y = doa_xyz[:, n_classes : 2 * n_classes]
-    z = doa_xyz[:, 2 * n_classes :]
-    azi, ele = xyz_to_polar_deg(x, y, z)
-    azi = np.around(azi)
-    ele = np.around(ele)
+    azi, ele = _polar(doa_xyz[:, :n_classes], doa_xyz[:, n_classes:2 * n_classes],
+                      doa_xyz[:, 2 * n_classes:])
     if event_prob.shape[0] < max_frames:
         raise ValueError("prediction shorter than one file")
     lines = []
     for frame in range(max_frames):
         for cls in np.nonzero(active[frame])[0]:
-            a = int(azi[frame, cls])
-            if a == 180:
-                a = -180
-            e = int(ele[frame, cls])
+            a, e = azi[frame, cls], ele[frame, cls]
             if version == "2021":
                 lines.append(f"{frame},{cls},0,{a},{e}")
             else:
                 lines.append(f"{frame},{cls},{a},{e}")
     with open(path, "w") as f:
         f.write("\n".join(lines) + ("\n" if lines else ""))
+
+
+def write_trackwise_csv(
+    path: str,
+    event_prob: np.ndarray,
+    doa_xyz: np.ndarray,
+    n_classes: int,
+    sed_threshold: float = 0.3,
+    max_frames: int = 600,
+    version: str = "2021",
+) -> None:
+    """DCASE rows from track-wise predictions, event_prob (T, K, n_classes) and
+    doa_xyz (T, K, 3): one row for each (frame, track, class) at or above
+    `sed_threshold`, at that track's DOA in rounded polar degrees. Version 2021
+    writes `frame,class,track,azimuth,elevation`, so two events of one class in a
+    frame stay apart; 2020 drops the track."""
+    if event_prob.shape[0] < max_frames:
+        raise ValueError("prediction shorter than one file")
+    if event_prob.shape[-1] != n_classes:
+        raise ValueError(f"event_prob has {event_prob.shape[-1]} classes, not {n_classes}")
+    azi, ele = _polar(doa_xyz[..., 0], doa_xyz[..., 1], doa_xyz[..., 2])  # (T, K)
+    lines = []
+    for frame, track, cls in zip(*np.nonzero(event_prob[:max_frames] >= sed_threshold)):
+        a, e = azi[frame, track], ele[frame, track]
+        lines.append(f"{frame},{cls},{track},{a},{e}" if version == "2021"
+                     else f"{frame},{cls},{a},{e}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + ("\n" if lines else ""))
+

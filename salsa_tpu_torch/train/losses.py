@@ -4,7 +4,8 @@ torch tensors.
 reg_xyz: loss = w_sed * BCE(event logits) + w_doa * (MAE_x + MAE_y + MAE_z), where
 each axis MAE is masked by SED activity and normalized by the number of active
 (frame, class) cells. accdoa: masked MSE on the DOA vector, plus, with
-silent_weight > 0, the reference's silent-region norm penalty.
+silent_weight > 0, the reference's silent-region norm penalty. tracks (EINV2):
+the frame-level permutation-invariant loss `tpit_loss`.
 
 Across ranks every loss keeps `salsa_tpu`'s global denominators (the mask mass,
 the cell count, the weighted rows of the whole batch): with `global_sum` (the
@@ -16,6 +17,7 @@ the global masked mean wherever the ranks' masses differ.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Callable
 
 import torch
@@ -112,3 +114,49 @@ def accdoa_loss(pred: dict, target: dict, n_classes: int, silent_weight: float =
         sed_l = torch.zeros_like(doa_l)
     total = doa_l + silent_weight * sed_l
     return total, sed_l, doa_l
+
+
+def tpit_loss(event_logit: torch.Tensor, doa_pred: torch.Tensor, sed_gt: torch.Tensor,
+              doa_gt: torch.Tensor, loss_weight=(0.5, 0.5),
+              row_weights: torch.Tensor | None = None, global_sum: GlobalSum = None):
+    """EINV2's frame-level permutation-invariant (tPIT) loss over K tracks.
+    event_logit and sed_gt (B, T, K, C), doa_pred and doa_gt (B, T, K, 3); the
+    prediction frames are trimmed to the targets'. For each frame and each of the
+    K! permutations p of the target tracks:
+
+        L(p) = w_sed * mean_{k,c} BCE(logit[k, c], sed[p(k), c])
+             + w_doa * mean_{k,xyz} active[p(k)] * (doa[k] - doa_gt[p(k)])^2,
+
+    where a target track is active where any class is; the loss is the mean over
+    frames of min_p L(p), its gradient that of the least permutation (the first
+    of `itertools.permutations` on a tie). With `row_weights` (B,) the mean runs
+    over the weighted rows' frames; with `global_sum` its denominator is summed
+    over the ranks. Returns (total, sed_loss, doa_loss), the last two the terms of
+    each frame's least permutation."""
+    n = min(event_logit.shape[1], sed_gt.shape[1])
+    logit, doa_pred = event_logit[:, :n], doa_pred[:, :n]
+    sed_gt, doa_gt = sed_gt[:, :n], doa_gt[:, :n]
+    active = sed_gt.amax(dim=-1)  # (B, T, K)
+    sed_terms, doa_terms = [], []
+    for perm in itertools.permutations(range(logit.shape[2])):
+        p = list(perm)
+        tgt = sed_gt[:, :, p]
+        bce = (torch.clamp(logit, min=0.0) - logit * tgt
+               + torch.log1p(torch.exp(-torch.abs(logit))))
+        sed_terms.append(bce.mean(dim=(2, 3)))
+        sq = ((doa_pred - doa_gt[:, :, p]) ** 2).mean(dim=-1)
+        doa_terms.append((sq * active[:, :, p]).mean(dim=-1))
+    sed_p, doa_p = torch.stack(sed_terms, dim=-1), torch.stack(doa_terms, dim=-1)  # (B, T, K!)
+    best = (loss_weight[0] * sed_p + loss_weight[1] * doa_p).argmin(dim=-1, keepdim=True)
+    sed_f, doa_f = sed_p.gather(-1, best)[..., 0], doa_p.gather(-1, best)[..., 0]  # (B, T)
+    if row_weights is None:
+        w = torch.ones((), dtype=sed_f.dtype, device=sed_f.device)
+        mass = _count(sed_f.numel(), sed_f, global_sum)
+    else:
+        w = row_weights.to(sed_f.dtype)[:, None]
+        mass = row_weights.sum() * n
+        if global_sum is not None:
+            mass = global_sum(mass)
+    mass = torch.clamp(mass, min=1e-8)
+    sed_l, doa_l = (sed_f * w).sum() / mass, (doa_f * w).sum() / mass
+    return loss_weight[0] * sed_l + loss_weight[1] * doa_l, sed_l, doa_l

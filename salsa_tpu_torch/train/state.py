@@ -70,7 +70,8 @@ class ScheduledOptimizer:
                 for p in group["params"]:
                     st = self.optimizer.state.get(p, {})
                     tree[names[id(p)]] = st[key] if key in st else torch.zeros_like(p)
-            moments.append(torch_state_dict_to_flax(tree)[0])
+            moments.append(torch_state_dict_to_flax(
+                tree, torch_tree=not model.flax_counterpart)[0])
         count = np.asarray(self.count, np.int32)
         hyper = {"b1": np.float32(self.b1), "b2": np.float32(B2), "eps": np.float32(EPS),
                  "eps_root": np.float32(0.0), "learning_rate": np.float32(self.lr)}
@@ -97,7 +98,8 @@ class ScheduledOptimizer:
             raise ValueError(f"opt_state's inner state has entries {sorted(inner)}, not "
                              f"{self.name}'s {sorted(want)}")
         names = {id(p): n for n, p in model.named_parameters()}
-        template, stats = torch_state_dict_to_flax(model.state_dict())
+        template, stats = torch_state_dict_to_flax(model.state_dict(),
+                                                   torch_tree=not model.flax_counterpart)
         moments = {}
         for key, leaf in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
             got, expected = _leaves(inner["0"][leaf]), _leaves(template)

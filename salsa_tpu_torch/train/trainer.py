@@ -94,7 +94,12 @@ from salsa_tpu_torch.models.layers import (
 )
 from salsa_tpu_torch.models.seld import init_train_, interpolate_index_repeat
 from salsa_tpu_torch.parallel import distributed, mesh
-from salsa_tpu_torch.submission import combine_chunks, sed_from_accdoa, write_classwise_csv
+from salsa_tpu_torch.submission import (
+    combine_chunks,
+    sed_from_accdoa,
+    write_classwise_csv,
+    write_trackwise_csv,
+)
 from salsa_tpu_torch.train import checkpoint as ckpt
 from salsa_tpu_torch.train.device_augment import make_device_augment
 from salsa_tpu_torch.train.losses import (
@@ -103,6 +108,7 @@ from salsa_tpu_torch.train.losses import (
     bce_with_logits,
     masked_reg_loss,
     seld_loss,
+    tpit_loss,
 )
 from salsa_tpu_torch.train.state import make_optimizer
 from salsa_tpu_torch.train.tta import tta_fold
@@ -242,6 +248,9 @@ class SeldPredictor:
         n = min(event_logit.shape[1], sed_gt.shape[1])
         logit, tgt = event_logit[:, :n], sed_gt[:, :n]
         row = (torch.arange(logit.shape[0], device=logit.device) < n_real).to(logit.dtype)
+        if self.output_format == "tracks":
+            return tpit_loss(logit, doa_pred, *self.track_targets(tgt, doa_gt),
+                             self.loss_weight, row_weights=row)
         mask = tgt * row[:, None, None]
         if self.output_format == "accdoa":
             doa_l = accdoa_mse(doa_pred[:, :n], doa_gt[:, :n], mask, self.n_classes, n_real * n)
@@ -252,6 +261,11 @@ class SeldPredictor:
                                     doa_gt[:, :n, i * c:(i + 1) * c], mask) for i in range(3))
         total = self.loss_weight[0] * sed_l + self.loss_weight[1] * doa_l
         return total, sed_l, doa_l
+
+    def track_targets(self, sed: torch.Tensor, doa: torch.Tensor):
+        """The `tracks` label tables' rows (B, T, K n) and (B, T, 3K) as (B, T, K, n)
+        and (B, T, K, 3)."""
+        return sed.unflatten(-1, (-1, self.n_classes)), doa.unflatten(-1, (-1, 3))
 
     def tta_fold(self, n_variants: int, x_shape) -> int:
         """Variants per eval dispatch under `training.tta_elements_per_dispatch`
@@ -340,9 +354,11 @@ class SeldPredictor:
                 dp = combine_chunks(doas[i:i + k], label_chunk_len,
                                     split_data.label_chunk_hop, n_label, combine_method)
             fn = name + ".csv"
-            write_classwise_csv(os.path.join(submission_dir, fn), ep, dp, self.n_classes,
-                                sed_threshold=self.sed_threshold, max_frames=n_label,
-                                version=self.eval_version)
+            write = (write_trackwise_csv if self.output_format == "tracks"
+                     else write_classwise_csv)
+            write(os.path.join(submission_dir, fn), ep, dp, self.n_classes,
+                  sed_threshold=self.sed_threshold, max_frames=n_label,
+                  version=self.eval_version)
             written.append(fn)
             if output_pred_dir:
                 stale = os.path.join(output_pred_dir, name + ".h5")
@@ -443,6 +459,10 @@ class SeldTrainer(SeldPredictor):
         self.augment = None
         aug = t.get("device_augment", False)
         if aug:
+            if self.output_format == "tracks" and aug is True:
+                raise ValueError("training.device_augment: true swaps channels with the "
+                                 "class-wise DOA labels; with output_format 'tracks' use "
+                                 "device_augment: feature")
             # true: the full stack; "feature": no label-coupled channel swaps
             self.augment = make_device_augment(
                 cfg.feature_type, cfg.data.audio_format, self.n_classes, self.chunk_len,
@@ -705,6 +725,9 @@ class SeldTrainer(SeldPredictor):
         gsum = distributed.all_reduce_sum if self.n_ranks > 1 else None
         if self.output_format == "reg_xyz":
             return seld_loss(pred, target, self.n_classes, self.loss_weight, global_sum=gsum)
+        if self.output_format == "tracks":
+            return tpit_loss(pred["event_frame_logit"], pred["doa_frame_output"],
+                             *self.track_targets(sed, doa), self.loss_weight, global_sum=gsum)
         return accdoa_loss(pred, target, self.n_classes, silent_weight=self.accdoa_silent_weight,
                            global_sum=gsum)
 
@@ -855,7 +878,8 @@ class SeldTrainer(SeldPredictor):
         return self._write(ckpt_dir, name, meta) if distributed.is_primary() else None
 
     def _write(self, ckpt_dir: str, name: str, meta: dict) -> str:
-        params, stats = torch_state_dict_to_flax(self.model.state_dict())
+        params, stats = torch_state_dict_to_flax(self.model.state_dict(),
+                                                 torch_tree=not self.model.flax_counterpart)
         return ckpt.save_checkpoint(ckpt_dir, name, params, stats, self.optimizer.count, meta,
                                     opt_state=self.optimizer.optax_state(self.model),
                                     backend=self.checkpoint_backend)

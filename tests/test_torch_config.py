@@ -1,6 +1,6 @@
 """salsa_tpu_torch.utils.config against salsa_tpu.utils.config and PyYAML: the
 port's reader for the YAML subset equals `yaml.safe_load` on every config in
-`configs/` and on `yaml.safe_dump` of each, types plain scalars as PyYAML's YAML 1.1
+`configs/` and `salsa_tpu_torch/recipes/` and on `yaml.safe_dump` of each, types plain scalars as PyYAML's YAML 1.1
 resolver does, refuses what lies outside the subset, and `apply_overrides`
 equals salsa_tpu's."""
 import copy
@@ -15,7 +15,8 @@ from salsa_tpu.utils import config as jconfig
 from salsa_tpu_torch.utils import config as tconfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "*.yml")))
+CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "*.yml"))
+                 + glob.glob(os.path.join(REPO, "salsa_tpu_torch", "recipes", "*.yml")))
 
 
 def _same(a, b):
